@@ -2,20 +2,33 @@
 """Smoke run of the PyTorch/CUDA port (vitvs_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py              # the smoke run below
-    python3 chip_smoke.py --profile [--trace trace.json]
+    python3 chip_smoke.py --profile [bf16|F|N] [--trace trace.json]
                                        # only: device-time breakdown of servo steps
+                                       # of the bf16 path or an int8 serving variant
 
 Phases, each announced with a flushed, timestamped start/done line:
 
-1. card and build: the card's name and power limit (nvidia-smi), then one
-   nvcc call that builds csrc/*.cu (build seconds and -Xptxas -v lines);
-2. kernels vs plain versions at the main path's shapes: attention at
+1. card and build: the card's name and power limit (nvidia-smi), then the
+   kernels' build, one nvcc per csrc/*.cu started together and one link
+   (build seconds and -Xptxas -v lines);
+2. kernels vs plain versions at the main paths' shapes: attention at
    (1, 485, 6, 64) bf16, the matcher at (484, 3456) f32 plus an
-   exact-index case;
-3. the main path: goal_descriptors + 5 servo_steps of the DINO servo step at
-   ViT-S/14 @ 308 (configs/config.yaml's settings, seeded weights, seeded
-   640x480 frames), once through the kernels and once through the plain
-   versions; launch counts, finiteness and agreement are checked;
+   exact-index case, no-max attention at (1, 1370, 12, 64) bf16 plus rows
+   whose logits are all about -30, fused int8 attention at (1, 1370, 768)
+   (column slices of a qkv output) plus 58 padded columns;
+3. the bf16 main path: goal_descriptors + 5 servo_steps of the DINO servo
+   step at ViT-S/14 @ 308 (configs/config.yaml's settings, seeded weights,
+   seeded 640x480 frames), once through the kernels and once through the
+   plain versions; launch counts, finiteness and agreement are checked;
+3b. the int8 W8A8 serving step at ViT-B/14 @ 518
+   (configs/config_vitb_518.yaml's settings, seeded weights, static scales
+   calibrated on the goal frame and 7 shifted frames, source-quantized
+   bins), variants F (fused int8 attention) and N (no-max attention), each
+   calibration + goal_descriptors + 5 servo_steps, through the kernels and
+   through the plain versions, checked as phase 3 with the plain run handed
+   the kernel run's EMA and command at each step, so that every step whose
+   pairs agree compares its twist; the bf16 ViT-B step on the same frames
+   is logged beside it (twist scale, int8 vs float);
 4. times on the card (CUDA events / synchronized host clock) beside each
    kernel's bound and the PyTorch library call for the same function.
 
@@ -28,6 +41,7 @@ CUDA device or outside a checkout of the repository.
 from __future__ import annotations
 
 import argparse
+import copy
 import dataclasses
 import json
 import statistics
@@ -41,27 +55,38 @@ import numpy as np
 import torch
 
 from vitvs_tpu_torch.control.ibvs import EmaState
-from vitvs_tpu_torch.harness.pipeline import ServoModel, goal_descriptors, servo_step
+from vitvs_tpu_torch.harness.pipeline import (ServoModel, goal_descriptors, quantized_vit,
+                                              servo_step)
 from vitvs_tpu_torch.io_bridge.config import VSConfig
+from vitvs_tpu_torch.match.binned import QuantizedBinned
 from vitvs_tpu_torch.models.vit import init_vit
-from vitvs_tpu_torch.ops import _build, attention, matcher
+from vitvs_tpu_torch.ops import _build, attention, attn_int8, matcher
 
 T0 = time.perf_counter()
 
 # H100 SXM published peaks (NVIDIA data sheet, dense)
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_F32_FLOPS = 67e12     # outside the tensor cores
 PEAK_BYTES = 3.35e12
 
 ATTN_SHAPE = (1, 485, 6, 64)       # (B, T, h, hd) of ViT-S/14 @ 308
 MATCH_SHAPE = (484, 3456)          # (t, 384 * 9) binned descriptors
+SERVE_ATTN_SHAPE = (1, 1370, 12, 64)   # (B, T, h, hd) of ViT-B/14 @ 518
 ATTN_TOL = 2e-2                    # bf16 outputs of O(1): a few bf16 ulps
 MATCH_VAL_TOL = 1e-4               # f32 dot products of 3456 terms, other order
 MATCH_TIE_TOL = 1e-5
-DESC_REL_TOL = 5e-2                # bf16 descriptors after 12 blocks, max |diff| / max |ref|
+# bf16 descriptors after 12 blocks, max |diff| / max |ref| (int8 rows: of unit rows,
+# where one int8 step is 1/127 of a row's largest entry)
+DESC_REL_TOL = 5e-2
+DESC_COS_MIN = 0.99                # the least cosine of a goal descriptor row, kernel vs plain
 TWIST_TOL = 1e-3                   # BASELINE.md velocity parity clause
 N_STEPS = 5
 SHIFTS = [(3, 4), (6, 8), (9, 12), (12, 16), (15, 20)]   # (dy, dx) px of each frame
+# the 7 start views the static activation scales are calibrated on, beside the goal
+CALIB_SHIFTS = [(-8, 5), (4, -10), (11, 3), (-5, -6), (7, 14), (-12, -2), (2, 9)]
+# int8 serving variants: (quant_attn, attn_impl) and the kernel the path launches
+VARIANTS = {"F": ("fused", "xla", "attn_int8"), "N": ("none", "fast", "attention_fast")}
 
 
 def log(msg: str) -> None:
@@ -141,6 +166,67 @@ def check_matcher_exact(device, t=300, d=3456, seed=2) -> None:
         raise AssertionError("matcher exact-index case: argmax differs from the permutation")
 
 
+def underflow_qkv(shape, rows, c, seed, k_noise=0.05):
+    """(B, T, H, hd) f32 q, k, v: keys clustered around a unit direction u
+    (noise ``k_noise``) and the first ``rows`` query rows at -c sqrt(hd) u,
+    so every real logit of those rows is about -c (tests/test_ops.py's
+    underflow and padded-column cases)."""
+    B, T, H, D = shape
+    rs = np.random.default_rng(seed)
+    u = rs.standard_normal(D).astype(np.float32)
+    u /= np.linalg.norm(u)
+    k = (u + k_noise * rs.standard_normal(shape)).astype(np.float32)
+    q = 0.3 * rs.standard_normal(shape).astype(np.float32)
+    q[:, :rows] = -c * np.sqrt(D) * u
+    v = rs.standard_normal(shape).astype(np.float32)
+    return q, k, v
+
+
+def _max_err(out: torch.Tensor, ref: torch.Tensor, what: str, tol: float = ATTN_TOL) -> float:
+    if not bool(torch.isfinite(out.float()).all()):
+        raise AssertionError(f"{what}: kernel output is not finite")
+    err = (out.float() - ref.float()).abs().max().item()
+    if not err <= tol:
+        raise AssertionError(f"{what} kernel vs plain: max abs err {err} > {tol}")
+    return err
+
+
+def check_attention_fast(device, shape=SERVE_ATTN_SHAPE, seed=4) -> float:
+    """No-max kernel vs its plain version on random bf16 inputs and on rows
+    whose real logits are all about -30 (T = 139 pads the last tile).
+    Returns the max abs error at ``shape``."""
+    rs = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rs.standard_normal(shape).astype(np.float32))
+               .to(device, torch.bfloat16) for _ in range(3))
+    err = _max_err(attention.mha_attention_fast(q, k, v),
+                   attention.mha_attention_fast_plain(q, k, v), "no-max attention")
+    q, k, v = (torch.from_numpy(x).to(device, torch.bfloat16)
+               for x in underflow_qkv((1, 139, 2, 64), rows=4, c=30.0, seed=11))
+    _max_err(attention.mha_attention_fast(q, k, v), attention.mha_attention_fast_plain(q, k, v),
+             "no-max attention, underflow rows")
+    return err
+
+
+def check_int8_attention(device, shape=SERVE_ATTN_SHAPE, seed=5) -> float:
+    """Fused int8 kernel vs its plain version: q, k, v are column slices of
+    one (B, T, 3 H hd) bf16 qkv output, as the main path hands them over;
+    then rows with real logits about -25 and 58 padded columns (T = 70).
+    Returns the max abs error at ``shape``."""
+    B, T, H, hd = shape
+    D = H * hd
+    qkv = torch.from_numpy(np.random.default_rng(seed).standard_normal((B, T, 3 * D))
+                           .astype(np.float32)).to(device, torch.bfloat16)
+    q, k, v = qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
+    err = _max_err(attn_int8.fused_int8_attention(q, k, v, heads=H),
+                   attn_int8.fused_int8_attention_plain(q, k, v, heads=H), "int8 attention")
+    q, k, v = (torch.from_numpy(x.reshape(1, 70, 128)).to(device, torch.bfloat16)
+               for x in underflow_qkv((1, 70, 2, 64), rows=8, c=25.0, seed=11, k_noise=0.0))
+    _max_err(attn_int8.fused_int8_attention(q, k, v, heads=2),
+             attn_int8.fused_int8_attention_plain(q, k, v, heads=2),
+             "int8 attention, padded columns")
+    return err
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the main path
 # ---------------------------------------------------------------------------
@@ -166,6 +252,12 @@ def texture(h: int, w: int, seed: int, radius: int = 6) -> np.ndarray:
     return (255 * x).astype(np.uint8)
 
 
+def serving_config() -> VSConfig:
+    """configs/config_vitb_518.yaml's settings, built in code: ViT-B/14 at
+    518, the dls solve."""
+    return VSConfig(pinv_mode="dls", dino_input_size=518, model_name="dinov2_vitb14")
+
+
 def make_frames(cfg: VSConfig, seed=0, shifts=SHIFTS):
     """Goal frame, current frames (the texture shifted by a few pixels) and a
     constant 0.6 m depth map, all at the camera's resolution."""
@@ -177,14 +269,17 @@ def make_frames(cfg: VSConfig, seed=0, shifts=SHIFTS):
     return crop(0, 0), [crop(dy, dx) for dy, dx in shifts], depth
 
 
-def drive(net, model: ServoModel, goal, frames, depth, scores):
+def drive(net, model: ServoModel, goal, frames, depth, scores, states=None):
     """goal_descriptors, then one servo_step per frame, carrying the EMA and
-    the previous command.  Returns (goal descriptors, step results)."""
+    the previous command, or taking them from ``states`` (one (ema, prev) per
+    step).  Returns (goal descriptors, step results)."""
     goal_desc = goal_descriptors(net, model, goal)
     ema = EmaState.init(device=model.device)
     prev = torch.zeros(6, device=model.device)
     results = []
-    for frame, s in zip(frames, scores):
+    for i, (frame, s) in enumerate(zip(frames, scores)):
+        if states is not None:
+            ema, prev = states[i]
         r = servo_step(net, model, goal_desc, frame, depth, ema, prev, scores=s)
         ema, prev = r.ema, r.v_c
         results.append(r)
@@ -193,11 +288,20 @@ def drive(net, model: ServoModel, goal, frames, depth, scores):
     return goal_desc, results
 
 
+def _unit_rows(desc) -> torch.Tensor:
+    """Descriptors as f32 unit rows (int8 binned rows by their norms)."""
+    if isinstance(desc, QuantizedBinned):
+        return desc.q.float() * torch.rsqrt(desc.nq + 1e-12)[:, None]
+    d = desc.float()
+    return d * torch.rsqrt(torch.square(d).sum(-1, keepdim=True) + 1e-24)
+
+
 def check_outputs(model: ServoModel, goal_desc, results) -> None:
     t = model.grid()[0] * model.grid()[1]
-    if tuple(goal_desc.shape) != (t, model.desc_dim()):
-        raise AssertionError(f"goal descriptors {tuple(goal_desc.shape)} != {(t, model.desc_dim())}")
-    if not bool(torch.isfinite(goal_desc.float()).all()):
+    rows = goal_desc.q if isinstance(goal_desc, QuantizedBinned) else goal_desc
+    if tuple(rows.shape) != (t, model.desc_dim()):
+        raise AssertionError(f"goal descriptors {tuple(rows.shape)} != {(t, model.desc_dim())}")
+    if not bool(torch.isfinite(_unit_rows(goal_desc)).all()):
         raise AssertionError("goal descriptors are not finite")
     k = model.cfg.num_pairs
     for i, r in enumerate(results):
@@ -208,53 +312,121 @@ def check_outputs(model: ServoModel, goal_desc, results) -> None:
                 raise AssertionError(f"step {i}: {name} is not finite")
 
 
-def compare_runs(ref, ker) -> dict:
+def compare_runs(ref, ker, every_step: bool = False) -> dict:
     """Hold the kernel run against the plain run.  Pairs are the same when
     goal pixels agree exactly and current pixels within 1 px; twists are
     compared at the steps up to the first one whose pairs differ (the EMA
-    carries a difference forward)."""
+    carries a difference forward), or, with ``every_step`` (the plain run
+    was handed the kernel run's EMA and command at each step), at every step
+    whose pairs agree."""
     (ref_goal, ref_steps), (ker_goal, ker_steps) = ref, ker
-    g_ref, g_ker = ref_goal.float(), ker_goal.float()
+    if isinstance(ref_goal, QuantizedBinned):
+        g_ref, g_ker = _unit_rows(ref_goal), _unit_rows(ker_goal)
+    else:
+        g_ref, g_ker = ref_goal.float(), ker_goal.float()
     desc_rel = ((g_ker - g_ref).abs().max() / g_ref.abs().max()).item()
     if not desc_rel <= DESC_REL_TOL:
         raise AssertionError(f"goal descriptors: max |diff| / max |ref| = {desc_rel} > {DESC_REL_TOL}")
+    row_cos = torch.nn.functional.cosine_similarity(g_ker, g_ref, dim=-1).min().item()
+    if not row_cos >= DESC_COS_MIN:
+        raise AssertionError(f"goal descriptors: a row's cosine {row_cos} < {DESC_COS_MIN}")
     differing, twist_err, compared = [], 0.0, 0
     for r, k in zip(ref_steps, ker_steps):
         same = ((r.s_uv_star == k.s_uv_star).all(-1) & ((r.s_uv - k.s_uv).abs() <= 1.0).all(-1)
                 & (r.valid == k.valid))
         differing.append(int((~same).sum()))
-        if any(differing):
+        if differing[-1] if every_step else any(differing):
             continue
         compared += 1
         twist_err = max(twist_err, (r.body_twist - k.body_twist).abs().max().item())
     if not twist_err <= TWIST_TOL:
         raise AssertionError(f"body twists differ by {twist_err} > {TWIST_TOL}")
-    return {"desc_rel_err": desc_rel, "differing_pairs": differing,
-            "twist_max_abs_err": twist_err, "steps_compared": compared}
+    return {"desc_rel_err": desc_rel, "desc_row_cos_min": row_cos,
+            "differing_pairs": differing, "twist_max_abs_err": twist_err,
+            "steps_compared": compared,
+            "twist_max_abs": max(k.body_twist.abs().max().item() for k in ker_steps)}
 
 
-def run_main_path(net, cfg: VSConfig, model_kernels: ServoModel, seed=0) -> dict:
-    """Both runs of the main path and their checks; the launch counters are
-    zeroed just before the kernel run and read just after it."""
-    goal, frames, depth = make_frames(cfg, seed)
-    t = model_kernels.grid()[0] * model_kernels.grid()[1]
+def pair_scores(model: ServoModel, n: int, seed=0) -> list:
+    """The pair-sampling scores of ``n`` steps, from a seeded generator."""
+    t = model.grid()[0] * model.grid()[1]
     gen = torch.Generator().manual_seed(seed + 1)
-    scores = [torch.rand(t, generator=gen) for _ in frames]
+    return [torch.rand(t, generator=gen) for _ in range(n)]
+
+
+def float_twists(fnet, cfg: VSConfig, device, seed=0) -> list:
+    """Body twists of the bf16 (not quantized) servo step of ``fnet`` on the
+    serving phase's frames and scores, kernels on."""
+    model = ServoModel.create(cfg, device=device)
+    net = copy.deepcopy(fnet).cast_blocks(model.compute_dtype)
+    goal, frames, depth = make_frames(cfg, seed, shifts=SHIFTS + CALIB_SHIFTS)
+    _, results = drive(net, model, goal, frames[:N_STEPS], depth,
+                       pair_scores(model, N_STEPS, seed))
+    return [r.body_twist.tolist() for r in results]
+
+
+def _counters():
+    return {"attention": attention.mha_attention, "attention_fast": attention.mha_attention_fast,
+            "attn_int8": attn_int8.fused_int8_attention, "matcher": matcher.dual_argmax_cosine}
+
+
+def run_main_path(net, cfg: VSConfig, model_kernels: ServoModel, seed=0, frames=None,
+                  every_step: bool = False) -> dict:
+    """Both runs of the main path and their checks; the launch counters are
+    zeroed just before the kernel run and read just after it.  ``frames``:
+    (goal, current frames, depth), by default :func:`make_frames`'.
+    ``every_step``: the plain run takes the kernel run's EMA and command at
+    each step, and twists are compared at every step whose pairs agree."""
+    goal, frames, depth = frames or make_frames(cfg, seed)
+    scores = pair_scores(model_kernels, len(frames), seed)
     model_plain = dataclasses.replace(model_kernels, use_kernels=False)
 
-    attention.mha_attention.launches = 0
-    matcher.dual_argmax_cosine.launches = 0
+    for fn in _counters().values():
+        fn.launches = 0
     ker = drive(net, model_kernels, goal, frames, depth, scores)
-    launches = {"attention": attention.mha_attention.launches,
-                "matcher": matcher.dual_argmax_cosine.launches}
-    ref = drive(net, model_plain, goal, frames, depth, scores)
+    launches = {name: fn.launches for name, fn in _counters().items()}
+    states = None
+    if every_step:
+        states = [(EmaState.init(device=model_kernels.device),
+                   torch.zeros(6, device=model_kernels.device))]
+        states += [(r.ema, r.v_c) for r in ker[1][:-1]]
+    ref = drive(net, model_plain, goal, frames, depth, scores, states)
     for run in (ker, ref):
         check_outputs(model_kernels, *run)
-    summary = compare_runs(ref, ker)
+    summary = compare_runs(ref, ker, every_step)
     summary["launches"] = launches
     summary["num_valid"] = [int(r.num_valid) for r in ker[1]]
-    summary["body_twist_last"] = ker[1][-1].body_twist.tolist()
+    summary["body_twists"] = [r.body_twist.tolist() for r in ker[1]]
+    summary["body_twist_last"] = summary["body_twists"][-1]
     return summary
+
+
+def serving_model(cfg: VSConfig, variant: str, device, vit=None) -> ServoModel:
+    """The int8 serving model of a variant (F or N), kernels on; ``vit``
+    replaces the configuration's ViT (a tiny one in the CPU tests)."""
+    quant_attn, attn_impl, _ = VARIANTS[variant]
+    if vit is None:
+        return ServoModel.create(cfg, device=device, quantized=True, attn_impl=attn_impl,
+                                 quant_attn=quant_attn)
+    return ServoModel(vit=dataclasses.replace(vit, attn_impl=attn_impl, quant_attn=quant_attn),
+                      cfg=cfg, device=device, quantized=True)
+
+
+def run_serving_path(fnet, cfg: VSConfig, variant: str, device, seed=0, vit=None):
+    """Calibrate the int8 ViT of ``fnet`` (static scales, goal + 7 shifted
+    frames), then both runs of the serving step as :func:`run_main_path`.
+    Returns (summary, the quantized ViT, the model)."""
+    model = serving_model(cfg, variant, device, vit)
+    goal, frames, depth = make_frames(cfg, seed, shifts=SHIFTS + CALIB_SHIFTS)
+    t0 = time.perf_counter()
+    qnet = quantized_vit(fnet, model, [goal, *frames[N_STEPS:]])
+    if model.device != "cpu":
+        torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    summary = run_main_path(qnet, cfg, model, seed, frames=(goal, frames[:N_STEPS], depth),
+                            every_step=True)
+    summary["calibration_s"] = calib_s
+    return summary, qnet, model
 
 
 # ---------------------------------------------------------------------------
@@ -263,10 +435,20 @@ def run_main_path(net, cfg: VSConfig, model_kernels: ServoModel, seed=0) -> dict
 
 
 def attention_bound_ms(shape=ATTN_SHAPE) -> tuple[float, str]:
+    """Exact or no-max attention: QK^T and P.V on the bf16 tensor cores."""
     B, T, H, hd = shape
     flops = 4.0 * B * H * T * T * hd
     nbytes = 4.0 * B * T * H * hd * 2            # q, k, v read, o written, bf16
     return _bound(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES)
+
+
+def int8_attention_bound_ms(shape=SERVE_ATTN_SHAPE) -> tuple[float, str]:
+    """Fused int8 attention: QK^T at the int8 peak plus P.V at the bf16 peak."""
+    B, T, H, hd = shape
+    mm = 2.0 * B * H * T * T * hd
+    # q, k int8 and v bf16 read, o bf16 written, q and k scales f32 read
+    nbytes = B * T * H * hd * (1 + 1 + 2 + 2) + 2.0 * B * T * H * 4
+    return _bound(mm / PEAK_INT8_OPS + mm / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES)
 
 
 def matcher_bound_ms(shape=MATCH_SHAPE) -> tuple[float, str]:
@@ -295,11 +477,17 @@ def cuda_ms(fn, iters=200, warmup=10) -> float:
 
 
 def time_kernels(device) -> dict:
+    """Each kernel alone (its launch on the inputs it is handed, after the
+    wrapper's checks and, for the serving kernels, the Q scaling or the Q/K
+    quantization), its plain version on the same inputs and one PyTorch
+    call computing the same function where there is one."""
     rs = np.random.default_rng(3)
-    q, k, v = (torch.from_numpy(rs.standard_normal(ATTN_SHAPE).astype(np.float32))
-               .to(device, torch.bfloat16) for _ in range(3))
-    qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))   # (B, h, T, hd)
+    bf16 = lambda shape: (torch.from_numpy(rs.standard_normal(shape).astype(np.float32))
+                          .to(device, torch.bfloat16))
+    heads_first = lambda *xs: [x.transpose(1, 2).contiguous() for x in xs]   # (B, h, T, hd)
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    q, k, v = (bf16(ATTN_SHAPE) for _ in range(3))
+    qh, kh, vh = heads_first(q, k, v)
     t, d = MATCH_SHAPE
     a = torch.from_numpy(rs.standard_normal((t, d)).astype(np.float32)).to(device)
     b = torch.from_numpy(rs.standard_normal((t, d)).astype(np.float32)).to(device)
@@ -310,6 +498,16 @@ def time_kernels(device) -> dict:
         sim = an @ bn.T
         return sim.max(1), sim.max(0)
 
+    B, T, H, hd = SERVE_ATTN_SHAPE
+    fq, fk, fv = (bf16(SERVE_ATTN_SHAPE) for _ in range(3))
+    fqs = attention._fast_scaled_q(fq)
+    fqh, fkh, fvh = heads_first(fq, fk, fv)
+    qkv = bf16((B, T, 3 * H * hd))
+    D = H * hd
+    iq, ik, iv = qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
+    q8, qsc = attn_int8._quant_th(iq, H, attn_int8._q_extra_scale(iq, H))
+    k8, ksc = attn_int8._quant_th(ik, H)
+    ks_t = ksc.transpose(1, 2).contiguous()
     return {
         "attention": {"ms": cuda_ms(lambda: attention.mha_attention(q, k, v)),
                       "plain_ms": cuda_ms(lambda: attention.mha_attention_plain(q, k, v)),
@@ -317,6 +515,20 @@ def time_kernels(device) -> dict:
         "matcher": {"ms": cuda_ms(lambda: matcher.dual_argmax_cosine(a, b), iters=50),
                     "plain_ms": cuda_ms(lambda: matcher.dual_argmax_cosine_plain(a, b), iters=50),
                     "library_ms": cuda_ms(library_match, iters=50)},
+        "attention_fast": {
+            "ms": cuda_ms(lambda: attention._launch("vitvs_attention_fast_fwd", fqs, fk, fv)),
+            "plain_ms": cuda_ms(lambda: attention.mha_attention_fast_plain(fq, fk, fv), iters=50),
+            "library_ms": cuda_ms(lambda: sdpa(fqh, fkh, fvh)),
+            "wrapper_ms": cuda_ms(lambda: attention.mha_attention_fast(fq, fk, fv))},
+        "attn_int8": {
+            "ms": cuda_ms(lambda: attn_int8._launch(q8, k8, iv, qsc, ks_t, H)),
+            "plain_ms": cuda_ms(lambda: attn_int8._int8_attention_plain(
+                q8, k8, iv, qsc, ksc, H, torch.bfloat16), iters=50),
+            # no PyTorch call computes int8-QK^T no-max attention: library_ms is
+            # null; SDPA on bf16 at the same shape is logged as a reference point
+            "library_ms": None,
+            "sdpa_bf16_ms": cuda_ms(lambda: sdpa(fqh, fkh, fvh)),
+            "wrapper_ms": cuda_ms(lambda: attn_int8.fused_int8_attention(iq, ik, iv, heads=H))},
     }
 
 
@@ -384,8 +596,9 @@ def profile_steps(net, model: ServoModel, steps=10, top=25,
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--profile", action="store_true",
-                    help="build, then only profile servo steps (no checks, no result line)")
+    ap.add_argument("--profile", nargs="?", const="bf16", choices=["bf16", *VARIANTS],
+                    help="build, then only profile servo steps of the bf16 path (default) or "
+                         "of an int8 serving variant (no checks, no result line)")
     ap.add_argument("--trace", type=Path, default=None,
                     help="with --profile: write the profiler's chrome trace here")
     args = ap.parse_args()
@@ -413,48 +626,93 @@ def main() -> int:
                 log(f"ptxas: {line.strip()}")
 
     with phase("2 kernels-vs-plain"):
-        attn_err = check_attention(device)
-        log(f"attention {ATTN_SHAPE} bf16: max abs err {attn_err:.3e} (tol {ATTN_TOL})")
-        match_err = check_matcher(device)
-        log(f"matcher {MATCH_SHAPE} f32: max abs err {match_err:.3e} (tol {MATCH_VAL_TOL}), argmax ok")
+        errs = {"attention": check_attention(device)}
+        log(f"attention {ATTN_SHAPE} bf16: max abs err {errs['attention']:.3e} (tol {ATTN_TOL})")
+        errs["matcher"] = check_matcher(device)
+        log(f"matcher {MATCH_SHAPE} f32: max abs err {errs['matcher']:.3e} "
+            f"(tol {MATCH_VAL_TOL}), argmax ok")
         check_matcher_exact(device)
         log("matcher exact-index case ok")
+        errs["attention_fast"] = check_attention_fast(device)
+        log(f"no-max attention {SERVE_ATTN_SHAPE} bf16: max abs err "
+            f"{errs['attention_fast']:.3e} (tol {ATTN_TOL}); underflow rows ok")
+        errs["attn_int8"] = check_int8_attention(device)
+        log(f"int8 attention {SERVE_ATTN_SHAPE} int8/bf16: max abs err "
+            f"{errs['attn_int8']:.3e} (tol {ATTN_TOL}); padded columns ok")
 
     cfg = reference_config()
     model = ServoModel.create(cfg, use_kernels=True, device=device)
     net = init_vit(model.vit, torch.Generator().manual_seed(0), device=device,
                    layerscale=1.0).cast_blocks(model.compute_dtype).eval()
+    scfg = serving_config()
+    fnet = init_vit(ServoModel.create(scfg, device=device).vit, torch.Generator().manual_seed(0),
+                    device=device, layerscale=1.0).eval()    # f32, quantized per variant
     if args.profile:
         with phase("profile"):
-            profile_steps(net, model, trace_path=args.trace)
+            if args.profile == "bf16":
+                profile_steps(net, model, trace_path=args.trace)
+            else:
+                smodel = serving_model(scfg, args.profile, device)
+                goal, frames, _ = make_frames(scfg, 0, shifts=SHIFTS + CALIB_SHIFTS)
+                qnet = quantized_vit(fnet, smodel, [goal, *frames[N_STEPS:]])
+                profile_steps(qnet, smodel, trace_path=args.trace)
         return 0
     with phase("3 main-path"):
         summary = run_main_path(net, cfg, model)
         log(f"main path: {json.dumps(summary)}")
-        want = {"attention": (cfg.layer + 1) * (1 + N_STEPS), "matcher": N_STEPS}
+        want = {"attention": (cfg.layer + 1) * (1 + N_STEPS), "attention_fast": 0,
+                "attn_int8": 0, "matcher": N_STEPS}
         if summary["launches"] != want:
             raise AssertionError(f"launch counts {summary['launches']} != {want}")
+    launches = dict(summary["launches"])
+
+    serving = {}
+    with phase("3b int8-serving"):
+        ftw = np.array(float_twists(fnet, scfg, device))
+        log(f"bf16 ViT-B/14 @ 518 step, same frames: max |twist| {np.abs(ftw).max():.4e}, "
+            f"twists {ftw.tolist()}")
+        for variant, (_, _, kernel) in VARIANTS.items():
+            ssum, qnet, smodel = run_serving_path(fnet, scfg, variant, device)
+            log(f"int8 serving {variant}: {json.dumps(ssum)}")
+            log(f"int8 serving {variant} vs bf16 step: max |twist diff| "
+                f"{np.abs(np.array(ssum['body_twists']) - ftw).max():.4e}")
+            want = {name: 0 for name in _counters()}
+            want[kernel] = (scfg.layer + 1) * (1 + N_STEPS)
+            if ssum["launches"] != want:
+                raise AssertionError(f"variant {variant}: launch counts {ssum['launches']} != {want}")
+            launches[kernel] = ssum["launches"][kernel]
+            serving[variant] = (qnet, smodel)
 
     with phase("4 times"):
         step_ms = time_step(net, model)
         log(f"[{card}] servo_step median {step_ms:.3f} ms (ViT-S/14 @ 308, bf16, kernels)")
+        for variant, (qnet, smodel) in serving.items():
+            ms = time_step(qnet, smodel)
+            log(f"[{card}] servo_step median {ms:.3f} ms (ViT-B/14 @ 518, int8 W8A8, "
+                f"variant {variant}, kernels)")
         times = time_kernels(device)
-        bounds = {"attention": attention_bound_ms(), "matcher": matcher_bound_ms()}
+        bounds = {"attention": attention_bound_ms(), "matcher": matcher_bound_ms(),
+                  "attention_fast": attention_bound_ms(SERVE_ATTN_SHAPE),
+                  "attn_int8": int8_attention_bound_ms()}
         for name, tm in times.items():
+            extra = {k: v for k, v in tm.items() if k not in ("ms", "plain_ms", "library_ms")}
+            lib_ms = "none" if tm["library_ms"] is None else f"{tm['library_ms']:.4f} ms"
             log(f"[{card}] {name}: kernel {tm['ms']:.4f} ms, plain {tm['plain_ms']:.4f} ms, "
-                f"library {tm['library_ms']:.4f} ms, bound {bounds[name][0]:.5f} ms "
-                f"({bounds[name][1]})")
+                f"library {lib_ms}, bound {bounds[name][0]:.5f} ms ({bounds[name][1]}) "
+                + " ".join(f"{k} {v:.4f} ms" for k, v in extra.items()))
 
+    sources = {"attention": ("vitvs_tpu_torch/csrc/attention.cu", "vitvs_tpu/ops/attention.py:42"),
+               "matcher": ("vitvs_tpu_torch/csrc/matcher.cu", "vitvs_tpu/ops/matcher.py:39"),
+               "attention_fast": ("vitvs_tpu_torch/csrc/attention.cu",
+                                  "vitvs_tpu/ops/attention.py:65"),
+               "attn_int8": ("vitvs_tpu_torch/csrc/attn_int8.cu", "vitvs_tpu/ops/attn_int8.py:80")}
     kernels = [
-        {"name": "attention", "route": "cuda", "source": "vitvs_tpu_torch/csrc/attention.cu",
-         "replaces": "vitvs_tpu/ops/attention.py:42", "launches": summary["launches"]["attention"],
-         "max_abs_err": attn_err, **times["attention"],
-         "bound_ms": bounds["attention"][0], "bound_by": bounds["attention"][1]},
-        {"name": "matcher", "route": "cuda", "source": "vitvs_tpu_torch/csrc/matcher.cu",
-         "replaces": "vitvs_tpu/ops/matcher.py:39", "launches": summary["launches"]["matcher"],
-         "max_abs_err": match_err, **times["matcher"],
-         "bound_ms": bounds["matcher"][0], "bound_by": bounds["matcher"][1]},
-    ]
+        {"name": name, "route": "cuda", "source": src, "replaces": rep,
+         "launches": launches[name], "max_abs_err": errs[name],
+         "ms": times[name]["ms"], "plain_ms": times[name]["plain_ms"],
+         "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+         "library_ms": times[name]["library_ms"]}
+        for name, (src, rep) in sources.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

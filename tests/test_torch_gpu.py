@@ -13,7 +13,10 @@ import numpy as np
 import pytest
 import torch
 
-from vitvs_tpu_torch.ops import _build, attention, matcher
+from chip_smoke import underflow_qkv
+from vitvs_tpu_torch.match.correspondence import cosine_similarity_matrix
+from vitvs_tpu_torch.ops import _build, attention, attn_int8, matcher
+from vitvs_tpu_torch.ops.int_mm import int8_matmul_nt
 
 pytestmark = pytest.mark.gpu
 
@@ -95,3 +98,114 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(cuda):
                                 v[..., :32].contiguous())
     with pytest.raises(ValueError):
         matcher.dual_argmax_cosine(torch.zeros(4, 8, device=cuda), torch.zeros(4, 9, device=cuda))
+
+
+def _underflow(shape, rows, c, seed, k_noise=0.05):
+    return [torch.from_numpy(x).cuda().to(torch.bfloat16)
+            for x in underflow_qkv(shape, rows, c, seed, k_noise)]
+
+
+@pytest.mark.parametrize("shape", [(1, 1370, 12, 64), (1, 485, 6, 64), (2, 64, 3, 64),
+                                   (1, 1, 2, 64), (3, 130, 1, 64)])
+def test_attention_fast_kernel_matches_plain(cuda, shape):
+    q, k, v = _bf16(shape, sum(shape) + 1)
+    before = (attention.mha_attention.launches, attention.mha_attention_fast.launches)
+    out = attention.mha_attention(q, k, v, fast=True)
+    torch.cuda.synchronize()
+    assert (attention.mha_attention.launches,
+            attention.mha_attention_fast.launches) == (before[0], before[1] + 1)
+    ref = attention.mha_attention_fast_plain(q, k, v)
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+
+
+def test_attention_fast_kernel_underflow_rows(cuda):
+    """Every real logit of 4 rows about -30 (T = 139 pads the last tile)."""
+    q, k, v = _underflow((1, 139, 2, 64), rows=4, c=30.0, seed=11)
+    out = attention.mha_attention_fast(q, k, v)
+    ref = attention.mha_attention_fast_plain(q, k, v)
+    assert torch.isfinite(out.float()).all()
+    assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+
+
+def _flat(shape, seed):
+    B, T, H, D = shape
+    return [x.reshape(B, T, H * D) for x in _bf16(shape, seed)]
+
+
+@pytest.mark.parametrize("shape", [(1, 1370, 12, 64), (2, 130, 3, 64), (1, 1, 2, 64),
+                                   (1, 64, 1, 64)])
+def test_int8_attention_kernel_matches_plain(cuda, shape):
+    q, k, v = _flat(shape, sum(shape) + 2)
+    before = attn_int8.fused_int8_attention.launches
+    out = attn_int8.fused_int8_attention(q, k, v, heads=shape[2])
+    torch.cuda.synchronize()
+    assert attn_int8.fused_int8_attention.launches == before + 1
+    ref = attn_int8.fused_int8_attention_plain(q, k, v, heads=shape[2])
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    # the same int8 products; exp2 and sums in another order
+    assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+
+
+def test_int8_attention_kernel_reads_qkv_column_slices(cuda):
+    """q, k, v as column slices of one (B, T, 3D) qkv output, v read in place."""
+    B, T, H = 2, 200, 4
+    qkv = torch.from_numpy(np.random.default_rng(4).standard_normal((B, T, 3 * H * 64))
+                           .astype(np.float32)).cuda().to(torch.bfloat16)
+    D = H * 64
+    q, k, v = qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
+    out = attn_int8.fused_int8_attention(q, k, v, heads=H)
+    ref = attn_int8.fused_int8_attention_plain(q.contiguous(), k.contiguous(), v.contiguous(), H)
+    assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+
+
+def test_int8_attention_kernel_padded_columns(cuda):
+    """tests/test_ops.py's case: T = 70, 8 rows with real logits about -25."""
+    q, k, v = (x.reshape(1, 70, 128)
+               for x in _underflow((1, 70, 2, 64), rows=8, c=25.0, seed=11, k_noise=0.0))
+    out = attn_int8.fused_int8_attention(q, k, v, heads=2)
+    ref = attn_int8.fused_int8_attention_plain(q, k, v, heads=2)
+    assert torch.isfinite(out.float()).all()
+    assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+
+
+def test_new_kernel_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    q, k, v = _bf16((1, 16, 2, 64), 1)
+    with pytest.raises(TypeError):
+        attention.mha_attention_fast(q.float(), k.float(), v.float())
+    with pytest.raises(ValueError):
+        attention.mha_attention_fast(q[:, :8], k, v)
+    with pytest.raises(ValueError):
+        attention.mha_attention_fast(q, k, v.cpu())
+    fq, fk, fv = (x.reshape(1, 16, 128) for x in (q, k, v))
+    with pytest.raises(TypeError):
+        attn_int8.fused_int8_attention(fq.float(), fk.float(), fv.float(), heads=2)
+    with pytest.raises(ValueError):
+        attn_int8.fused_int8_attention(fq, fk, fv, heads=4)        # hd = 32
+    with pytest.raises(ValueError):
+        attn_int8.fused_int8_attention(fq, fk, fv.cpu(), heads=2)
+    with pytest.raises(ValueError):      # v columns not at unit stride
+        attn_int8.fused_int8_attention(fq, fk, fv.transpose(1, 2).contiguous().transpose(1, 2),
+                                       heads=2)
+
+
+@pytest.mark.parametrize("m,k,n", [(1370, 768, 2304), (1369, 6912, 1369), (5, 20, 3)])
+def test_int8_matmul_is_exact(cuda, m, k, n):
+    """torch._int_mm on the card with the padding the wrapper adds."""
+    rs = np.random.default_rng(m + k + n)
+    a = torch.from_numpy(rs.integers(-127, 128, (m, k), dtype=np.int8)).cuda()
+    b = torch.from_numpy(rs.integers(-127, 128, (n, k), dtype=np.int8)).cuda()
+    got = int8_matmul_nt(a, b)
+    ref = a.cpu().long() @ b.cpu().long().T
+    assert got.dtype == torch.int32 and torch.equal(got.cpu().long(), ref)
+
+
+def test_int8_cosine_similarity_matches_cpu(cuda):
+    rs = np.random.default_rng(3)
+    a = torch.from_numpy(rs.standard_normal((300, 6912)).astype(np.float32))
+    b = torch.from_numpy(rs.standard_normal((290, 6912)).astype(np.float32))
+    got = cosine_similarity_matrix(a.cuda(), b.cuda(), int8=True).cpu()
+    ref = cosine_similarity_matrix(a, b, int8=True)
+    # an int8 value may round the other way where the f32 row norms differ
+    # in the last bit; each such flip moves a similarity by about 5e-6
+    assert (got - ref).abs().max().item() <= 1e-4

@@ -1,15 +1,22 @@
-"""Port parity: the plain versions behind the attention and matcher kernel
-wrappers of vitvs_tpu_torch, against the Pallas kernels of vitvs_tpu run in
-interpret mode (as tests/test_ops.py runs them)."""
+"""Port parity: the plain versions behind the attention (exact and no-max),
+fused int8 attention and matcher kernel wrappers of vitvs_tpu_torch, against
+the Pallas kernels of vitvs_tpu run in interpret mode (as tests/test_ops.py
+runs them).  Off the TPU without interpret mode the JAX functions return
+exact softmax, which is not the kernels' arithmetic."""
+
+import math
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from chip_smoke import underflow_qkv
 from vitvs_tpu.ops.attention import mha_attention as j_mha
+from vitvs_tpu.ops.attn_int8 import fused_int8_attention as j_int8
 from vitvs_tpu.ops.matcher import dual_argmax_cosine as j_dual
 from vitvs_tpu_torch.ops import attention as tattn
+from vitvs_tpu_torch.ops import attn_int8 as tint8
 from vitvs_tpu_torch.ops import matcher as tmatch
 
 RNG = np.random.default_rng(31)
@@ -36,6 +43,91 @@ def test_mha_attention_bf16_inputs_close():
     out = tattn.mha_attention(*(torch.from_numpy(x).bfloat16() for x in (q, k, v)))
     assert out.dtype == torch.bfloat16
     np.testing.assert_allclose(out.float().numpy(), ref, atol=2e-2)
+
+
+@pytest.mark.parametrize("shape", [(1, 65, 2, 32), (2, 139, 3, 64)])
+def test_mha_attention_fast_matches_pallas_interpret(shape):
+    """The no-max kernel's plain version: f32 inputs, T not a multiple of
+    the kernel tile (padded columns engaged on the JAX side)."""
+    q, k, v = (RNG.standard_normal(shape).astype(np.float32) for _ in range(3))
+    ref = np.asarray(j_mha(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), q_tile=64,
+                           interpret=True, fast=True))
+    before = (tattn.mha_attention.launches, tattn.mha_attention_fast.launches)
+    out = tattn.mha_attention(*(torch.from_numpy(x) for x in (q, k, v)), fast=True).numpy()
+    assert (tattn.mha_attention.launches, tattn.mha_attention_fast.launches) == before
+    # the same f32 arithmetic in another summation order
+    np.testing.assert_allclose(out, ref, atol=2e-6, rtol=1e-5)
+    np.testing.assert_array_equal(
+        tattn.mha_attention_fast_plain(*(torch.from_numpy(x) for x in (q, k, v))).numpy(), out)
+
+
+def test_mha_attention_fast_underflow_rows_match_pallas_interpret():
+    """tests/test_ops.py's underflow case: every real logit of 4 rows is
+    about -30; the rows stay finite and equal to the JAX kernel's."""
+    q, k, v = underflow_qkv((1, 139, 2, 64), rows=4, c=30.0, seed=11)
+    ref = np.asarray(j_mha(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), q_tile=64,
+                           interpret=True, fast=True))
+    out = tattn.mha_attention_fast(*(torch.from_numpy(x) for x in (q, k, v))).numpy()
+    assert np.isfinite(out).all()
+    np.testing.assert_allclose(out, ref, atol=5e-6, rtol=1e-4)
+
+
+def test_mha_attention_fast_bf16_scales_q_in_bf16():
+    """bf16 inputs: Q times hd^-0.5 log2(e) rounds to bf16 (the constant
+    too), and the numerators round to bf16 before P.V, in both."""
+    shape = (1, 97, 2, 64)
+    q, k, v = (RNG.standard_normal(shape).astype(np.float32) for _ in range(3))
+    jq, jk, jv = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v))
+    ref = np.asarray(j_mha(jq, jk, jv, q_tile=64, interpret=True, fast=True), dtype=np.float32)
+    tq = torch.from_numpy(q).bfloat16()
+    scaled = tattn._fast_scaled_q(tq)
+    np.testing.assert_array_equal(
+        scaled.float().numpy(),
+        np.asarray(jq * (64 ** -0.5 * math.log2(math.e)), dtype=np.float32))
+    out = tattn.mha_attention_fast(tq, *(torch.from_numpy(x).bfloat16() for x in (k, v)))
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_allclose(out.float().numpy(), ref, atol=2e-2)
+
+
+@pytest.mark.parametrize("shape", [(1, 65, 2, 32), (2, 130, 3, 64)])
+def test_fused_int8_attention_matches_pallas_interpret(shape):
+    """The fused int8 kernel's plain version: the same int8 values (Q/K
+    quantized per (token, head)), exact int32 scores, no-max exp2; f32."""
+    B, T, H, D = shape
+    rs = np.random.default_rng(7)
+    q, k, v = (rs.standard_normal((B, T, H * D)).astype(np.float32) for _ in range(3))
+    ref = np.asarray(j_int8(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), heads=H,
+                            q_tile=64, interpret=True))
+    before = tint8.fused_int8_attention.launches
+    out = tint8.fused_int8_attention(*(torch.from_numpy(x) for x in (q, k, v)), heads=H).numpy()
+    assert tint8.fused_int8_attention.launches == before
+    np.testing.assert_allclose(out, ref, atol=2e-6, rtol=1e-5)
+
+
+def test_fused_int8_attention_padded_columns_match_pallas_interpret():
+    """tests/test_ops.py's padded-column case: T = 70 (58 padded columns on
+    the TPU), 8 rows whose real logits are all about -25."""
+    B, T, H, D = 1, 70, 2, 64
+    q, k, v = underflow_qkv((B, T, H, D), rows=8, c=25.0, seed=11, k_noise=0.0)
+    flat = lambda x: x.reshape(B, T, H * D)
+    ref = np.asarray(j_int8(*(jnp.asarray(flat(x)) for x in (q, k, v)), heads=H,
+                            q_tile=64, interpret=True))
+    out = tint8.fused_int8_attention_plain(*(torch.from_numpy(flat(x)) for x in (q, k, v)),
+                                           heads=H).numpy()
+    assert np.isfinite(out).all()
+    np.testing.assert_allclose(out, ref, atol=5e-6, rtol=1e-4)
+
+
+def test_quant_th_matches_jax():
+    """Per-(token, head) quantization: the same int8 values and scales."""
+    from vitvs_tpu.ops.attn_int8 import _quant_th as j_quant_th
+
+    x = (3 * RNG.standard_normal((2, 33, 4 * 16))).astype(np.float32)
+    jq, js = j_quant_th(jnp.asarray(x), 4, extra_scale=0.18)
+    tq, ts = tint8._quant_th(torch.from_numpy(x), 4, extra_scale=0.18)
+    assert tq.dtype == torch.int8 and ts.shape == (2, 33, 4)
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
 
 
 @pytest.mark.parametrize("t1,t2,d", [(100, 100, 96), (130, 70, 200)])
@@ -89,3 +181,6 @@ def test_wrappers_reject_bad_inputs_before_launch():
         tmatch._check(torch.zeros(4, 8), torch.zeros(4, 9))
     with pytest.raises(TypeError):
         tmatch._check(torch.zeros(4, 8, dtype=torch.int32), torch.zeros(4, 8, dtype=torch.int32))
+    x = torch.zeros(1, 5, 128, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        tint8._check(x, x, x, heads=2)

@@ -1,6 +1,9 @@
 """Port parity: the whole servo step (goal_descriptors + servo_step) of
-vitvs_tpu_torch against vitvs_tpu, f32, on a tiny 2-block 96-wide ViT.
+vitvs_tpu_torch against vitvs_tpu, f32, on a tiny 2-block 96-wide ViT, in
+float and in the int8 W8A8 serving configuration.
 Acceptance is the BASELINE.md parity clause: velocity within 1e-3."""
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -11,6 +14,7 @@ import torch
 from vitvs_tpu.control import EmaState as JEma
 from vitvs_tpu.harness import pipeline as jpipe
 from vitvs_tpu.io_bridge.config import VSConfig as JVSConfig
+from vitvs_tpu.models import quant as jquant
 from vitvs_tpu.models import vit as jvit
 from vitvs_tpu_torch.control.ibvs import EmaState as TEma
 from vitvs_tpu_torch.harness import pipeline as tpipe
@@ -115,3 +119,78 @@ def test_servo_model_checks_weights_dtype():
     goal, _, _ = _frames([])
     with pytest.raises(ValueError):
         tpipe.goal_descriptors(net, tmodel, goal)
+
+
+# ---------------------------------------------------------------------------
+# the int8 W8A8 serving step (static calibrated scales, source-quantized bins)
+# ---------------------------------------------------------------------------
+
+# variant F: the fused int8-QK^T kernel; variant N: bf16 attention through the
+# no-max kernel.  The JAX side runs its Pallas kernels in interpret mode: off
+# the TPU its fallbacks compute exact softmax instead.
+QUANT_VARIANTS = {"F": dict(quant_attn="fused", attn_impl="xla"),
+                  "N": dict(quant_attn="none", attn_impl="fast")}
+
+
+@pytest.mark.parametrize("variant", sorted(QUANT_VARIANTS))
+def test_quantized_servo_step_matches(variant):
+    """goal_descriptors + 3 servo steps of the int8 serving step, each
+    package quantizing the same float weights with static scales calibrated
+    on the goal frame and the three current frames: the same pairs are
+    selected and the velocity agrees within 1e-3."""
+    params, _, _, fnet = _setup(pinv_mode="dls", subpixel_matching=True)
+    over = QUANT_VARIANTS[variant]
+    jcfg, tcfg = JVSConfig(**CFG, pinv_mode="dls"), TVSConfig(**CFG, pinv_mode="dls")
+    jv = jvit.ViTConfig(**VIT, quant_attn=over["quant_attn"],
+                        attn_impl=over["attn_impl"] + "-interpret")
+    tv = tvit.ViTConfig(**VIT, **over)
+    jmodel = jpipe.ServoModel(vit=jv, cfg=jcfg, compute_dtype=jnp.float32, quantized=True)
+    tmodel = tpipe.ServoModel(vit=tv, cfg=tcfg, compute_dtype=torch.float32, device="cpu",
+                              quantized=True)
+    assert jmodel.source_quantized_bins and tmodel.source_quantized_bins
+    goal, frames, depth = _frames([(18, 20), (16, 17), (10, 15)])
+    calib = [goal, *frames]
+    jcal = jnp.stack([jpipe.preprocess(jmodel, jnp.asarray(f)) for f in calib])
+    jq_params = jquant.quantize_vit_params(params, cfg=jv, calib_images=jcal, layer=jcfg.layer,
+                                           compute_dtype=jnp.float32)
+    net = tpipe.quantized_vit(fnet, tmodel, calib)
+    assert net.blocks[0].act_scales is not None
+
+    jg = jpipe.goal_descriptors(jq_params, jmodel, jnp.asarray(goal))
+    tg = tpipe.goal_descriptors(net, tmodel, goal)
+    np.testing.assert_array_equal(tg.q.numpy(), np.asarray(jg.q))
+    np.testing.assert_allclose(tg.nq.numpy(), np.asarray(jg.nq), rtol=1e-6)
+
+    jema, jprev = JEma.init(), jnp.zeros(6)
+    tema, tprev = TEma.init(device="cpu"), torch.zeros(6)
+    t = tg.q.shape[0]
+    for i, frame in enumerate(frames):
+        key = jax.random.PRNGKey(20 + i)
+        jr = jpipe.servo_step(jq_params, jmodel, jg, jnp.asarray(frame), jnp.asarray(depth),
+                              jema, jprev, key)
+        scores = torch.tensor(np.asarray(jax.random.uniform(key, (t,))))
+        tr = tpipe.servo_step(net, tmodel, tg, frame, depth, tema, tprev, scores=scores)
+        for name in ("valid", "num_valid", "feature_ok"):
+            np.testing.assert_array_equal(getattr(tr, name).numpy(),
+                                          np.asarray(getattr(jr, name)), err_msg=name)
+        np.testing.assert_array_equal(tr.s_uv_star.numpy(), np.asarray(jr.s_uv_star))
+        np.testing.assert_allclose(tr.s_uv.numpy(), np.asarray(jr.s_uv), atol=1e-3)
+        for name in ("v_c", "body_twist"):
+            np.testing.assert_allclose(getattr(tr, name).numpy(),
+                                       np.asarray(getattr(jr, name)), atol=1e-3, err_msg=name)
+        assert bool(tr.feature_ok) and float(torch.abs(tr.v_c).max()) > 1e-2
+        jema, jprev, tema, tprev = jr.ema, jr.v_c, tr.ema, tr.v_c
+
+
+def test_quantized_model_checks_its_vit():
+    """A quantized model refuses the float ViT and the other way round."""
+    params, _, tmodel, net = _setup()
+    qmodel = dataclasses.replace(tmodel, quantized=True)
+    goal, _, _ = _frames([])
+    with pytest.raises(TypeError):
+        tpipe.goal_descriptors(net, qmodel, goal)
+    qnet = tpipe.quantized_vit(net, qmodel)
+    with pytest.raises(TypeError):
+        tpipe.goal_descriptors(qnet, tmodel, goal)
+    desc = tpipe.goal_descriptors(qnet, dataclasses.replace(qmodel, fused_bin_quant=False), goal)
+    assert desc.shape == (qmodel.grid()[0] * qmodel.grid()[1], qmodel.desc_dim())

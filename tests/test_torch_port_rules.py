@@ -1,8 +1,9 @@
 """The port stands alone and chip_smoke.py's phases run: no module of
 vitvs_tpu_torch nor chip_smoke.py imports JAX or vitvs_tpu; no CUDA source
 includes PyTorch's headers and nothing uses torch.utils.cpp_extension; the
-phase functions of chip_smoke.py run at tiny size on the CPU (plain
-versions, which is what the kernel wrappers take for CPU tensors)."""
+phase functions of chip_smoke.py (the bf16 main path and the int8 serving
+step) run at tiny size on the CPU (plain versions, which is what the kernel
+wrappers take for CPU tensors)."""
 
 import ast
 from pathlib import Path
@@ -37,7 +38,7 @@ def test_port_imports_neither_jax_nor_reference(path):
 
 def test_kernels_use_plain_c_interface():
     cu = sorted((REPO / "vitvs_tpu_torch" / "csrc").glob("*.cu"))
-    assert [p.name for p in cu] == ["attention.cu", "matcher.cu"]
+    assert [p.name for p in cu] == ["attention.cu", "attn_int8.cu", "matcher.cu"]
     for p in cu:
         text = p.read_text()
         assert "torch/extension.h" not in text and "ATen" not in text, p
@@ -50,10 +51,16 @@ def test_chip_smoke_config_is_config_yaml():
     assert chip_smoke.reference_config() == load_config(REPO / "configs" / "config.yaml")
 
 
+def test_chip_smoke_serving_config_is_config_vitb_518():
+    assert chip_smoke.serving_config() == load_config(REPO / "configs" / "config_vitb_518.yaml")
+
+
 def test_chip_smoke_kernel_phase_runs_on_cpu():
     assert chip_smoke.check_attention("cpu", shape=(1, 37, 2, 64)) == 0.0
     assert chip_smoke.check_matcher("cpu", shape=(50, 72)) == 0.0
     chip_smoke.check_matcher_exact("cpu", t=40, d=64)
+    assert chip_smoke.check_attention_fast("cpu", shape=(1, 37, 2, 64)) == 0.0
+    assert chip_smoke.check_int8_attention("cpu", shape=(1, 37, 2, 64)) == 0.0
 
 
 def test_chip_smoke_bounds_follow_the_shapes():
@@ -61,6 +68,12 @@ def test_chip_smoke_bounds_follow_the_shapes():
     assert by == "bytes" and ms == pytest.approx(4 * 485 * 6 * 64 * 2 / 3.35e12 * 1e3)  # q, k, v, o in bf16
     ms, by = chip_smoke.matcher_bound_ms()
     assert by == "operations" and ms == pytest.approx(2 * 484 ** 2 * 3456 / 67e12 * 1e3)
+    # the serving kernels at ViT-B/14 @ 518: both bounded by operations
+    ms, by = chip_smoke.attention_bound_ms(chip_smoke.SERVE_ATTN_SHAPE)
+    assert by == "operations" and ms == pytest.approx(4 * 12 * 1370 ** 2 * 64 / 989e12 * 1e3)
+    ms, by = chip_smoke.int8_attention_bound_ms()
+    mm = 2 * 12 * 1370 ** 2 * 64
+    assert by == "operations" and ms == pytest.approx((mm / 1979e12 + mm / 989e12) * 1e3)
 
 
 def test_chip_smoke_main_path_runs_tiny_on_cpu():
@@ -75,11 +88,32 @@ def test_chip_smoke_main_path_runs_tiny_on_cpu():
     net = tvit.init_vit(vcfg, torch.Generator().manual_seed(0), device="cpu",
                         layerscale=1.0).cast_blocks(torch.bfloat16).eval()
     summary = chip_smoke.run_main_path(net, cfg, model)
-    assert summary["launches"] == {"attention": 0, "matcher": 0}
+    assert summary["launches"] == {"attention": 0, "attention_fast": 0, "attn_int8": 0,
+                                   "matcher": 0}
     assert summary["differing_pairs"] == [0] * chip_smoke.N_STEPS
     assert summary["desc_rel_err"] == 0.0 and summary["twist_max_abs_err"] == 0.0
     assert summary["steps_compared"] == chip_smoke.N_STEPS
     assert len(summary["body_twist_last"]) == 6 and np.isfinite(summary["body_twist_last"]).all()
+
+
+@pytest.mark.parametrize("variant", sorted(chip_smoke.VARIANTS))
+def test_chip_smoke_serving_path_runs_tiny_on_cpu(variant):
+    """The int8 serving phase with a tiny 2-block ViT on the CPU, bf16:
+    calibration, then both runs through the plain versions."""
+    cfg = VSConfig(u_max=96, v_max=72, f_x=75.0, f_y=75.0, dino_input_size=84,
+                   num_pairs=12, layer=1, model_name="tiny", pinv_mode="dls")
+    vcfg = tvit.ViTConfig(patch_size=14, embed_dim=128, depth=2, num_heads=2, pos_grid=5,
+                          gelu_approx=True, model_name="tiny")
+    fnet = tvit.init_vit(vcfg, torch.Generator().manual_seed(0), device="cpu",
+                         layerscale=1.0).eval()
+    summary, qnet, model = chip_smoke.run_serving_path(fnet, cfg, variant, "cpu", vit=vcfg)
+    assert model.quantized and model.source_quantized_bins
+    assert model.vit.quant_attn == chip_smoke.VARIANTS[variant][0]
+    assert qnet.blocks[0].act_scales is not None and qnet.compute_dtype == torch.bfloat16
+    assert summary["launches"] == dict.fromkeys(summary["launches"], 0)
+    assert summary["differing_pairs"] == [0] * chip_smoke.N_STEPS
+    assert summary["desc_rel_err"] == 0.0 and summary["twist_max_abs_err"] == 0.0
+    assert np.isfinite(summary["body_twist_last"]).all()
 
 
 def test_chip_smoke_frames_are_shifted_texture():

@@ -12,6 +12,12 @@ Behaviour kept from the JAX package:
 Pair sampling takes (t,) ``scores``; when none are given they are drawn with
 ``torch.rand`` from the caller's ``generator`` (JAX draws them with
 ``jax.random.uniform``, which torch cannot reproduce).
+
+The int8 W8A8 serving step (``ServoModel.quantized``) runs a ``QuantViT``
+(``models/quant.py``, made by :func:`quantized_vit`), quantizes the binned
+descriptors at the source (``fused_bin_quant``, ``match/binned.py``) and
+matches them with an int8 matmul; ``use_kernels`` then selects the
+attention kernels or their plain versions, and never the f32 matcher kernel.
 """
 
 from __future__ import annotations
@@ -27,10 +33,12 @@ from vitvs_tpu_torch.control.ibvs import (EmaState, body_twist_from_optical,
 from vitvs_tpu_torch.core import image as image_ops
 from vitvs_tpu_torch.core.camera import CameraIntrinsics
 from vitvs_tpu_torch.io_bridge.config import VSConfig
+from vitvs_tpu_torch.match.binned import quantize_binned_int8
 from vitvs_tpu_torch.match.correspondence import (find_correspondences,
                                                   match_points_to_pixels,
                                                   refine_matches_subpixel)
 from vitvs_tpu_torch.models.extractor import extract_descriptors
+from vitvs_tpu_torch.models.quant import QuantViT, quantize_vit_params
 from vitvs_tpu_torch.models.vit import ViT, ViTConfig, make_config
 
 
@@ -49,25 +57,40 @@ class ServoModel:
     # their plain versions (the reference pass of chip_smoke.py)
     use_kernels: bool = True
     device: str = "cuda"
+    # int8 W8A8 serving path (the ViT must be a QuantViT, from quantized_vit)
+    quantized: bool = False
+    # int8 serving only: quantize the binned descriptors at the source
+    # (match/binned.quantize_binned_int8); they travel as QuantizedBinned
+    fused_bin_quant: bool = True
 
     def __post_init__(self):
         image_ops.set_f32_matmul_precision()
 
+    @property
+    def source_quantized_bins(self) -> bool:
+        return self.quantized and self.binned and self.fused_bin_quant
+
     @staticmethod
     def create(cfg: VSConfig, compute_dtype: torch.dtype | None = None,
                gelu_approx: bool = True, use_kernels: bool = True,
-               device: str = "cuda") -> "ServoModel":
+               device: str = "cuda", quantized: bool = False,
+               fused_bin_quant: bool = True, attn_impl: str = "xla",
+               quant_attn: str = "none") -> "ServoModel":
         """gelu_approx=True is the production default (tanh GELU); pass
         False for strict torch-parity numerics.  compute_dtype defaults to
-        cfg.compute_dtype (bfloat16)."""
+        cfg.compute_dtype (bfloat16).  attn_impl and quant_attn go to the
+        ViTConfig (quant_attn matters only with quantized=True)."""
         if cfg.attn_score != "softmax" or cfg.kv_pool != 1:
-            raise NotImplementedError("the port runs softmax attention without kv pooling")
+            raise NotImplementedError("attn_score and kv_pool are not ported "
+                                      "(ROADMAP.md queue 1, item 9)")
         if compute_dtype is None:
             compute_dtype = getattr(torch, cfg.compute_dtype)
         vit = dataclasses.replace(make_config(cfg.model_name, cfg.stride),
-                                  gelu_approx=gelu_approx)
+                                  gelu_approx=gelu_approx, attn_impl=attn_impl,
+                                  quant_attn=quant_attn)
         return ServoModel(vit=vit, cfg=cfg, compute_dtype=compute_dtype,
-                          use_kernels=use_kernels, device=device)
+                          use_kernels=use_kernels, device=device, quantized=quantized,
+                          fused_bin_quant=fused_bin_quant)
 
     def load_vit(self, state_dict: dict[str, torch.Tensor]) -> ViT:
         """A ViT with these weights, blocks in the compute dtype, on the device."""
@@ -117,7 +140,13 @@ def _on_device(model: ServoModel, x) -> torch.Tensor:
     return x.to(model.device)
 
 
-def _check_net(net: ViT, model: ServoModel) -> None:
+def _check_net(net: ViT | QuantViT, model: ServoModel) -> None:
+    want = QuantViT if model.quantized else ViT
+    if not isinstance(net, want):
+        raise TypeError(f"a {'quantized' if model.quantized else 'float'} model runs a "
+                        f"{want.__name__}, got {type(net).__name__}")
+    if net.cfg != model.vit:
+        raise ValueError("the ViT was built for another ViTConfig than the model's")
     if net.compute_dtype != model.compute_dtype:
         raise ValueError(f"ViT blocks are {net.compute_dtype}, the model computes "
                          f"in {model.compute_dtype} (ViT.cast_blocks)")
@@ -130,24 +159,42 @@ def preprocess(model: ServoModel, rgb) -> torch.Tensor:
                                       antialias=True)
 
 
-def _descriptors(net: ViT, model: ServoModel, rgb) -> torch.Tensor:
+@torch.no_grad()
+def quantized_vit(net: ViT, model: ServoModel, calib_rgb=None,
+                  smooth_alpha: float = 0.5) -> QuantViT:
+    """The int8 serving ViT of a float ``net``: dynamic activation scales,
+    or, given calibration frames (N, H, W, 3) (the goal view and a few start
+    views, as ``vitvs_tpu/harness/benchmark.py`` takes them), static scales
+    calibrated on their preprocessed images with the SmoothQuant fold."""
+    calib = None
+    if calib_rgb is not None:
+        calib = torch.stack([preprocess(model, f) for f in calib_rgb])
+    return quantize_vit_params(net, model.vit, calib, layer=model.cfg.layer,
+                               smooth_alpha=smooth_alpha, compute_dtype=model.compute_dtype)
+
+
+def _descriptors(net: ViT | QuantViT, model: ServoModel, rgb):
     _check_net(net, model)
     x = preprocess(model, rgb)[None]
-    return extract_descriptors(net, x, layer=model.cfg.layer, facet=model.cfg.facet,
-                               bin=model.binned, use_kernels=model.use_kernels)[0, 0]
+    src_q = model.source_quantized_bins
+    desc = extract_descriptors(net, x, layer=model.cfg.layer, facet=model.cfg.facet,
+                               bin=model.binned and not src_q, use_kernels=model.use_kernels,
+                               quantized=model.quantized)[0, 0]
+    return quantize_binned_int8(desc, model.grid()) if src_q else desc
 
 
 @torch.inference_mode()
-def goal_descriptors(net: ViT, model: ServoModel, goal_rgb) -> torch.Tensor:
-    """Per-episode goal descriptor precompute -> (t, d)."""
+def goal_descriptors(net: ViT | QuantViT, model: ServoModel, goal_rgb):
+    """Per-episode goal descriptor precompute -> (t, d), or a
+    ``QuantizedBinned`` on the source-quantized int8 serving path."""
     return _descriptors(net, model, goal_rgb)
 
 
 @torch.inference_mode()
 def servo_step(
-    net: ViT,
+    net: ViT | QuantViT,
     model: ServoModel,
-    goal_desc: torch.Tensor,
+    goal_desc,
     frame_rgb,
     frame_depth_m,
     ema: EmaState,
@@ -167,10 +214,12 @@ def servo_step(
     grid = model.grid()
     cur_desc = _descriptors(net, model, frame_rgb)
     if scores is None:
-        scores = torch.rand(cur_desc.shape[0], generator=generator)
+        scores = torch.rand(grid[0] * grid[1], generator=generator)
+    # int8 serving matches with an int8 matmul, never the f32 matcher kernel
     match = find_correspondences(goal_desc, cur_desc, grid, k, scores.to(model.device),
                                  distance_threshold=cfg.thresh_filter_keypoints,
-                                 use_kernel=model.use_kernels)
+                                 use_kernel=model.use_kernels and not model.quantized,
+                                 int8=model.quantized)
     if cfg.subpixel_matching:
         match = refine_matches_subpixel(goal_desc, cur_desc, match, grid)
 

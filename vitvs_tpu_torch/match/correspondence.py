@@ -1,8 +1,12 @@
 """Dense patch correspondence with cyclical-consistency filtering
 (``vitvs_tpu/match/correspondence.py``), fixed-size and branch-free.
 
-The row/column nearest neighbours come from ``ops.matcher``: the CUDA kernel
-on the card, its plain version on the CPU or when ``use_kernel`` is off.
+The row/column nearest neighbours of f32 matching come from
+``ops.matcher``: the CUDA kernel on the card, its plain version on the CPU
+or when ``use_kernel`` is off.  int8 matching (``int8=True``, or
+source-quantized :class:`QuantizedBinned` descriptors) takes its similarity
+from :func:`cosine_similarity_matrix`, an int8 matmul, then row/column
+max/argmax; it never goes through the f32 matcher kernel.
 
 Kept from the JAX package: first-index argmax ties; the float32
 ``(d - min) / (max(d - min) + 1e-8) >= threshold`` eligibility, plus perfect
@@ -19,6 +23,8 @@ from typing import NamedTuple
 
 import torch
 
+from vitvs_tpu_torch.match.binned import QuantizedBinned, quantize_rows_int8
+from vitvs_tpu_torch.ops.int_mm import int8_matmul_nt
 from vitvs_tpu_torch.ops.matcher import dual_argmax_cosine, dual_argmax_cosine_plain
 
 
@@ -32,6 +38,37 @@ class MatchResult(NamedTuple):
     valid: torch.Tensor      # (k,) bool
     num_valid: torch.Tensor  # () int32
     same_image: torch.Tensor  # () bool
+
+
+def cosine_similarity_matrix(desc1, desc2, int8: bool = False) -> torch.Tensor:
+    """(t1, d) x (t2, d) -> (t1, t2) f32 cosine similarities.
+
+    Rows are normalized in their dtype by f32 norms and multiplied with f32
+    accumulation.  int8=True quantizes the normalized rows per row
+    (``quantize_rows_int8``), multiplies in int8 and renormalizes by the
+    quantized rows' norms.  :class:`QuantizedBinned` inputs: the int8
+    matmul scaled by the rsqrt of the quantized rows' sums of squares (all
+    per-row scales cancel)."""
+    if isinstance(desc1, QuantizedBinned) or isinstance(desc2, QuantizedBinned):
+        if not (isinstance(desc1, QuantizedBinned) and isinstance(desc2, QuantizedBinned)):
+            raise TypeError("both descriptor sets must be QuantizedBinned, or neither")
+        acc = int8_matmul_nt(desc1.q, desc2.q).float()
+        return (acc * torch.rsqrt(desc1.nq + 1e-12)[:, None]
+                * torch.rsqrt(desc2.nq + 1e-12)[None, :])
+
+    def normalize(d):
+        sq = torch.square(d.float()).sum(-1, keepdim=True)
+        return d * torch.rsqrt(sq + 1e-24).to(d.dtype)
+
+    a, b = normalize(desc1), normalize(desc2)
+    if int8:
+        qa, sa = quantize_rows_int8(a)
+        qb, sb = quantize_rows_int8(b)
+        sim = int8_matmul_nt(qa, qb).float() * sa * sb.reshape(1, -1)
+        na = torch.square(qa.float() * sa).sum(-1, keepdim=True)
+        nb = torch.square(qb.float() * sb).sum(-1, keepdim=True)
+        return sim * torch.rsqrt(na + 1e-24) * torch.rsqrt(nb.reshape(1, -1) + 1e-24)
+    return a.float() @ b.float().T
 
 
 def _to_cartesian(idx: torch.Tensor, width: int) -> torch.Tensor:
@@ -48,21 +85,34 @@ def find_correspondences(
     distance_threshold: float = 1.0,
     same_image_thresh: float = 0.99,
     use_kernel: bool = True,
+    int8: bool = False,
 ) -> MatchResult:
     """Mutual-NN correspondences via cyclical consistency.
 
-    desc1, desc2: (t, d) descriptors on the row-major grid ``num_patches``.
+    desc1, desc2: (t, d) descriptors on the row-major grid ``num_patches``,
+    or :class:`QuantizedBinned` pairs.
     scores: (t,) sampling scores; the ``num_pairs`` eligible tokens with the
     largest scores are taken (ties to the lower index, as ``lax.top_k``).
+    use_kernel: f32 matching through the matcher kernel; it does not compose
+    with int8 matching, which is an int8 matmul (as in the JAX package).
     """
     gh, gw = num_patches
-    t = desc1.shape[0]
+    quantized = isinstance(desc1, QuantizedBinned)
+    rows = desc1.q if quantized else desc1
+    t = rows.shape[0]
     if t != gh * gw or scores.shape != (t,):
         raise ValueError(f"{t} descriptors / scores {tuple(scores.shape)} "
                          f"do not fit the {gh}x{gw} grid")
-    dev = desc1.device
-    match_fn = dual_argmax_cosine if use_kernel else dual_argmax_cosine_plain
-    sim_1, nn_1, _, nn_2 = match_fn(desc1, desc2)
+    dev = rows.device
+    if int8 or quantized:
+        if use_kernel:
+            raise ValueError("use_kernel does not compose with int8 matching: the "
+                             "matcher kernel computes an f32 similarity")
+        sim = cosine_similarity_matrix(desc1, desc2, int8=int8)
+        sim_1, nn_1, nn_2 = sim.amax(1), sim.argmax(1), sim.argmax(0)
+    else:
+        match_fn = dual_argmax_cosine if use_kernel else dual_argmax_cosine_plain
+        sim_1, nn_1, _, nn_2 = match_fn(desc1, desc2)
     nn_1, nn_2 = nn_1.long(), nn_2.long()
     same_image = sim_1.mean() > same_image_thresh
 
@@ -107,8 +157,12 @@ def refine_matches_subpixel(
     parabola peak fit per axis of the cosine similarity between each goal
     token and the 3x3 neighbourhood of its match.  Offsets are clipped to
     +-0.5 patch and zeroed on grid borders, for invalid slots and under the
-    same-image shortcut; goal points stay at patch centres."""
+    same-image shortcut; goal points stay at patch centres.
+    :class:`QuantizedBinned` inputs: the int8 rows are gathered (their
+    per-row scales cancel in the unit normalization)."""
     gh, gw = num_patches
+    if isinstance(desc1, QuantizedBinned):
+        desc1, desc2 = desc1.q, desc2.q
 
     def unit_rows(x):
         x = x.float()
@@ -116,7 +170,7 @@ def refine_matches_subpixel(
 
     r1, c1 = match.points1[:, 0].long(), match.points1[:, 1].long()
     r2, c2 = match.points2[:, 0].long(), match.points2[:, 1].long()
-    dr = torch.tensor([-1, 0, 1], device=desc1.device)
+    dr = torch.tensor([-1, 0, 1], device=match.points2.device)
     rr = (r2[:, None] + dr[None, :]).clamp(0, gh - 1)           # (k, 3)
     cc = (c2[:, None] + dr[None, :]).clamp(0, gw - 1)
     nidx = rr[:, :, None] * gw + cc[:, None, :]                # (k, 3, 3)

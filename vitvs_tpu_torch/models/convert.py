@@ -13,6 +13,12 @@ state dict for :class:`vitvs_tpu_torch.models.vit.ViT`:
 
 The final ``norm_scale`` / ``norm_bias`` are not on the facet path and are
 not carried.
+
+``from_jax_quant_params`` takes the int8 ``QuantParams`` pytree of
+``vitvs_tpu.models.quant.quantize_vit_params`` (numpy leaves: int8 kernels
+on the flat (L, in, out) view, ``*_kernel_scale`` (L, 1, out), optional
+``act_scales`` (L, 4), folded norms, embedding parameters) and returns the
+port's :class:`~vitvs_tpu_torch.models.quant.QuantViT` on the CPU.
 """
 
 from __future__ import annotations
@@ -21,6 +27,9 @@ from typing import Any, Mapping
 
 import numpy as np
 import torch
+
+from vitvs_tpu_torch.models.quant import QuantViT
+from vitvs_tpu_torch.models.vit import ViTConfig
 
 
 def from_jax_params(params_np: Mapping[str, Any]) -> dict[str, torch.Tensor]:
@@ -58,3 +67,18 @@ def from_jax_params(params_np: Mapping[str, Any]) -> dict[str, torch.Tensor]:
         if "qkv_bias" in bp:
             sd[pre + "attn.qkv.bias"] = t(bp["qkv_bias"][i].reshape(3 * D))
     return sd
+
+
+def from_jax_quant_params(qparams_np: Mapping[str, Any], cfg: ViTConfig,
+                          compute_dtype: torch.dtype = torch.bfloat16) -> QuantViT:
+    def t(a) -> torch.Tensor:
+        a = np.asarray(a)
+        if a.dtype == np.int8:
+            return torch.from_numpy(a.copy())
+        return torch.tensor(a.astype(np.float32))
+
+    pe = qparams_np["patch_embed"]
+    embed = {"kernel": t(pe["kernel"]), "bias": t(pe["bias"]),
+             "cls_token": t(qparams_np["cls_token"]), "pos_embed": t(qparams_np["pos_embed"])}
+    blocks = {k: t(v) for k, v in qparams_np["blocks"].items()}
+    return QuantViT(cfg, blocks, embed, compute_dtype)

@@ -61,14 +61,22 @@ def extract_descriptors(
     include_cls: bool = False,
     hierarchy: int = 1,
     use_kernels: bool = True,
+    quantized: bool = False,
 ) -> torch.Tensor:
     """Dense patch descriptors (B, 1, t, d') from (B, H, W, 3) images.
 
     facet 'token': d' = D; 'query' | 'key' | 'value': heads folded as the
     reference's permute(0, 2, 3, 1) (per component, then head); bin=True
     multiplies d' by 9 (hierarchy 1).  Descriptors stay in the compute dtype.
+    quantized=True runs the int8 W8A8 forward (``models/quant.py``; ``net``
+    is then a ``QuantViT``).
     """
-    feats = vit_features(net, images, layer, facet, use_kernels)
+    if quantized:
+        from vitvs_tpu_torch.models.quant import vit_features_quant
+
+        feats = vit_features_quant(net, images, layer, facet, use_kernels)
+    else:
+        feats = vit_features(net, images, layer, facet, use_kernels)
     if facet == "token":
         x = feats
     else:

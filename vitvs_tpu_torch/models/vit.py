@@ -11,9 +11,11 @@ Dtypes follow the JAX package: the embedding (patch kernel, cls, pos) stays
 f32 and sees the images rounded to the compute dtype; the blocks run in the
 compute dtype, which is the dtype of their parameters (``cast_blocks``).
 
-Attention goes through one dispatch point, :func:`attention_core`: the
-kernel wrapper ``ops.attention.mha_attention`` (CUDA kernel on the card,
-plain version on the CPU), or the plain version when ``use_kernels`` is off.
+Attention goes through one dispatch point, :func:`attention_core`, routed by
+``ViTConfig.attn_impl``: exact softmax ('xla', 'pallas', 'auto') or the
+no-max serving variant ('fast'), each the kernel wrapper of
+``ops.attention`` (CUDA kernel on the card, plain version on the CPU), or
+its plain version when ``use_kernels`` is off.
 State-dict names follow torch-hub DINOv2 (``blocks.0.attn.qkv.weight`` ...).
 """
 
@@ -27,7 +29,15 @@ import torch.nn.functional as F
 from torch import nn
 
 from vitvs_tpu_torch.core.image import interpolate_bicubic_scale_factor
-from vitvs_tpu_torch.ops.attention import mha_attention, mha_attention_plain
+from vitvs_tpu_torch.ops.attention import (mha_attention, mha_attention_fast_plain,
+                                           mha_attention_plain)
+
+# 'xla', 'pallas' and 'auto' name the JAX package's exact-softmax paths; the
+# port runs them all as exact softmax.  'fast' is the no-max serving kernel.
+ATTN_IMPLS = ("xla", "pallas", "auto", "fast")
+# int8 serving attention modes of models/quant.py that the port runs; the
+# others ('pv', 'qk+pv', 'nomax', 'nomax2', 'nomax3') are ROADMAP item 9's
+QUANT_ATTN_MODES = ("none", "fused")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,6 +54,16 @@ class ViTConfig:
     ln_eps: float = 1e-6
     gelu_approx: bool = False    # tanh GELU; exact erf is the torch-parity default
     model_name: str = "dinov2_vits14"
+    attn_impl: str = "xla"       # see ATTN_IMPLS
+    quant_attn: str = "none"     # int8 serving path only (models/quant.py)
+
+    def __post_init__(self):
+        if self.attn_impl not in ATTN_IMPLS:
+            raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {self.attn_impl!r}")
+        if self.quant_attn not in QUANT_ATTN_MODES:
+            raise NotImplementedError(
+                f"quant_attn={self.quant_attn!r} is not ported (ROADMAP.md queue 1, item 9); "
+                f"the port runs {QUANT_ATTN_MODES}")
 
     @property
     def head_dim(self) -> int:
@@ -88,9 +108,12 @@ def make_config(model_name: str, stride: int | None = None) -> ViTConfig:
 
 
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   use_kernels: bool) -> torch.Tensor:
+                   use_kernels: bool, attn_impl: str = "xla") -> torch.Tensor:
     """The one attention dispatch point of the ViT, (B, T, h, hd) layout."""
-    return mha_attention(q, k, v) if use_kernels else mha_attention_plain(q, k, v)
+    fast = attn_impl == "fast"
+    if use_kernels:
+        return mha_attention(q, k, v, fast=fast)
+    return (mha_attention_fast_plain if fast else mha_attention_plain)(q, k, v)
 
 
 def _layernorm(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
@@ -116,6 +139,7 @@ class Attention(nn.Module):
         super().__init__()
         D = cfg.embed_dim
         self.num_heads = cfg.num_heads
+        self.attn_impl = cfg.attn_impl
         self.qkv = nn.Linear(D, 3 * D, bias=cfg.qkv_bias)
         self.proj = nn.Linear(D, D)
 
@@ -128,7 +152,7 @@ class Attention(nn.Module):
     def forward(self, x_norm: torch.Tensor, use_kernels: bool) -> torch.Tensor:
         B, T, D = x_norm.shape
         q, k, v = self.qkv_heads(x_norm).unbind(0)
-        out = attention_core(q, k, v, use_kernels).reshape(B, T, D)
+        out = attention_core(q, k, v, use_kernels, self.attn_impl).reshape(B, T, D)
         return self.proj(out)
 
 
@@ -181,40 +205,55 @@ class ViT(nn.Module):
         self.blocks.to(dtype)
         return self
 
-    def _pos_embed(self, gh: int, gw: int) -> torch.Tensor:
-        """(1 + gh*gw, D) f32 pos embedding, bicubically resampled with the
-        DINO "+0.1" scale-factor fudge when the grid differs."""
-        pos = self.pos_embed[0].float()
-        g = int(round(math.sqrt(pos.shape[0] - 1)))
-        if gh == g and gw == g:
-            return pos
-        grid = pos[1:].reshape(g, g, -1)
-        out = interpolate_bicubic_scale_factor(grid, (gh + 0.1) / g, (gw + 0.1) / g)
-        assert out.shape[:2] == (gh, gw)
-        return torch.cat([pos[:1], out.reshape(gh * gw, -1)], dim=0)
-
     def embed(self, images: torch.Tensor) -> torch.Tensor:
         """images (B, H, W, 3) -> f32 tokens (B, 1+t, D) with pos embeddings.
 
         The images are rounded to the compute dtype first, as the JAX
         package casts them before its f32 patch matmul."""
-        cfg = self.cfg
-        B, H, W, _ = images.shape
-        gh, gw = cfg.num_patches(H, W)
-        x = images.to(self.compute_dtype).float()
-        w = self.patch_embed.proj.weight.float()    # (D, 3, P, P)
-        bias = self.patch_embed.proj.bias.float()
-        if cfg.stride == cfg.patch_size:
-            P = cfg.patch_size
-            x = x[:, : gh * P, : gw * P, :].reshape(B, gh, P, gw, P, 3)
-            x = x.permute(0, 1, 3, 2, 4, 5).reshape(B, gh * gw, P * P * 3)
-            patches = x @ w.permute(2, 3, 1, 0).reshape(P * P * 3, -1) + bias
-        else:
-            patches = F.conv2d(x.permute(0, 3, 1, 2), w, bias, stride=cfg.stride)
-            patches = patches.flatten(2).transpose(1, 2)
-        cls = self.cls_token.float().expand(B, 1, -1)
-        tokens = torch.cat([cls, patches], dim=1)
-        return tokens + self._pos_embed(gh, gw)
+        return embed_tokens(self.cfg, images.to(self.compute_dtype),
+                            self.patch_embed.proj.weight.float(),
+                            self.patch_embed.proj.bias.float(),
+                            self.cls_token.float(), self.pos_embed.float())
+
+
+def _resample_pos_embed(pos: torch.Tensor, gh: int, gw: int) -> torch.Tensor:
+    """(1 + N, D) pos embedding -> (1 + gh*gw, D) in its dtype, bicubically
+    resampled in f32 with the DINO "+0.1" scale-factor fudge when the grid
+    differs."""
+    g = int(round(math.sqrt(pos.shape[0] - 1)))
+    if gh == g and gw == g:
+        return pos
+    grid = pos[1:].reshape(g, g, -1).float()
+    out = interpolate_bicubic_scale_factor(grid, (gh + 0.1) / g, (gw + 0.1) / g)
+    assert out.shape[:2] == (gh, gw)
+    return torch.cat([pos[:1], out.reshape(gh * gw, -1).to(pos.dtype)], dim=0)
+
+
+def embed_tokens(cfg: ViTConfig, images: torch.Tensor, weight: torch.Tensor,
+                 bias: torch.Tensor, cls_token: torch.Tensor,
+                 pos_embed: torch.Tensor) -> torch.Tensor:
+    """Patch embedding (``vitvs_tpu/models/vit.py:_embed``): images
+    (B, H, W, 3), patch kernel (D, 3, P, P) OIHW -> tokens (B, 1+t, D) with
+    cls and pos embeddings, computed in the promoted dtype of the images and
+    the kernel (a reshape and one matmul when stride == patch, a
+    convolution otherwise)."""
+    B, H, W, _ = images.shape
+    gh, gw = cfg.num_patches(H, W)
+    ct = torch.promote_types(images.dtype, weight.dtype)
+    x, w = images.to(ct), weight.to(ct)
+    if cfg.stride == cfg.patch_size:
+        P = cfg.patch_size
+        x = x[:, : gh * P, : gw * P, :].reshape(B, gh, P, gw, P, 3)
+        x = x.permute(0, 1, 3, 2, 4, 5).reshape(B, gh * gw, P * P * 3)
+        patches = x @ w.permute(2, 3, 1, 0).reshape(P * P * 3, -1)
+    else:
+        patches = F.conv2d(x.permute(0, 3, 1, 2), w, stride=cfg.stride)
+        patches = patches.flatten(2).transpose(1, 2)
+    patches = patches + bias
+    cls = cls_token.reshape(1, 1, -1).expand(B, 1, -1).to(patches.dtype)
+    tokens = torch.cat([cls, patches], dim=1)
+    pos = _resample_pos_embed(pos_embed.reshape(-1, pos_embed.shape[-1]), gh, gw)
+    return tokens + pos.to(tokens.dtype)
 
 
 def vit_features(net: ViT, images: torch.Tensor, layer: int = 11,

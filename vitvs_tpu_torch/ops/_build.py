@@ -1,11 +1,12 @@
 """Build and load the CUDA kernels of ``csrc/``.
 
-One ``nvcc`` call compiles every ``csrc/*.cu`` into one shared library with
-a plain C interface, loaded with ``ctypes`` (no PyTorch headers: the build
-takes seconds).  The library lands in ``vitvs_tpu_torch/_build/`` under a
-name that carries the hash of the sources and flags, so it is rebuilt only
-when they change.  The build writes to a temporary name and renames it into
-place, so an interrupted build leaves no lock or partial file behind.
+One ``nvcc -c`` per ``csrc/*.cu``, all started together, then one ``nvcc``
+link of the objects into one shared library with a plain C interface,
+loaded with ``ctypes`` (no PyTorch headers: the build takes seconds).  The
+library lands in ``vitvs_tpu_torch/_build/`` under a name that carries the
+hash of the sources and flags, so it is rebuilt only when they change.  The
+build writes to temporary names and renames the library into place, so an
+interrupted build leaves no lock or partial file behind.
 
 Nothing here runs at import; the first kernel launch builds and loads.
 """
@@ -24,13 +25,15 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
 # C entry points: (argtypes, restype)
 _SIGNATURES = {
     "vitvs_attention_fwd": ([_P, _P, _P, _P, _I, _I, _I, _P], _I),
+    "vitvs_attention_fast_fwd": ([_P, _P, _P, _P, _I, _I, _I, _P], _I),
+    "vitvs_attn_int8_fwd": ([_P] * 6 + [_I, _I, _I, _L, _L, _P], _I),
     "vitvs_dual_argmax_cosine": ([_P] * 12 + [_I, _I, _I, _P], _I),
     "vitvs_matcher_row_tile": ([], _I),
     "vitvs_matcher_col_tile": ([], _I),
@@ -50,7 +53,7 @@ def _nvcc() -> str:
 
 
 def _digest(srcs: list[Path]) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS).encode())
     for p in srcs:
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -76,14 +79,37 @@ def build() -> dict:
                 "log": log.read_text() if log.is_file() else ""}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = BUILD_DIR / f".tmp-{os.getpid()}-{lib.name}"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
+    objs = [BUILD_DIR / f".tmp-{os.getpid()}-{src.stem}.o" for src in srcs]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    procs = []
+    try:
+        for src, obj in zip(srcs, objs):
+            procs.append(subprocess.Popen([nvcc, *COMPILE_FLAGS, "-c", str(src), "-o", str(obj)],
+                                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                          text=True))
+        out = ""
+        for src, proc in zip(srcs, procs):
+            text = proc.communicate(timeout=600)[0]
+            out += text
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}) on {src.name}:\n{text}")
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+        link = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+        out += link.stdout + link.stderr
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}): {' '.join(cmd)}\n{out}")
+    except BaseException:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for p in (tmp, *objs):
+            p.unlink(missing_ok=True)
+        raise
+    for obj in objs:
+        obj.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    out = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
     log.write_text(out)
     os.replace(tmp, lib)
     return {"path": str(lib), "seconds": seconds, "compiled": True, "log": out}

@@ -1,6 +1,6 @@
 """Multi-head softmax attention for the ViT, (B, T, h, d) layout.
 
-Replaces ``vitvs_tpu/ops/attention.py:mha_attention`` (fast=False), whose
+Replaces ``vitvs_tpu/ops/attention.py:mha_attention``.  fast=False: the
 Pallas kernel ``_flash_kernel`` scores each Q tile against the whole K/V in
 VMEM.  On the card the kernel is ``csrc/attention.cu``: K/V stream through
 shared memory with an online softmax, since the whole K/V of a head does not
@@ -9,18 +9,30 @@ bytes, 4 x 372 KB in 0.44 us at 3.35 TB/s (0.36 GFLOP take 0.37 us on the
 tensor cores); the kernel keeps the scores on chip and reads each K/V tile
 once per 64 query rows.
 
+fast=True: the no-max, deferred-normalize serving kernel ``_fast_kernel``
+(bounded logits).  Q is scaled by hd^-0.5 * log2(e) in Q's dtype before
+the kernel, exactly as the JAX package does, and the kernel (the same
+source, a template flag) applies exp2 to the scores without a row max,
+zeroes padded columns and multiplies the output by 1/denom.  Bound at
+(1, 1370, 12, 64): operations, 5.77 GFLOP in 5.8 us on the tensor cores.
+It keeps its own entry point and launch count (``mha_attention_fast``).
+
 ``mha_attention`` launches the kernel for CUDA tensors and takes the plain
-version only for CPU tensors; ``mha_attention_plain`` is the plain version,
-which the CPU tests and the card's reference pass call directly.
+version only for CPU tensors; ``mha_attention_plain`` and
+``mha_attention_fast_plain`` are the plain versions, which the CPU tests and
+the card's reference pass call directly.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
 from vitvs_tpu_torch.ops import _build
 
 HEAD_DIM = 64  # the kernel's head dim (ViT-S/B/L/14 all use 64)
+LOG2E = math.log2(math.e)
 
 
 def mha_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -31,6 +43,24 @@ def mha_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> to
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     out = torch.einsum("bhqk,bkhd->bqhd", probs.float(), v.float())
     return out.to(q.dtype)
+
+
+def _fast_scaled_q(q: torch.Tensor) -> torch.Tensor:
+    """Q * (hd^-0.5 log2 e), the constant rounded to Q's dtype first and
+    the product rounded to it, as JAX multiplies by a weakly typed scalar
+    (a Python number: no device copy)."""
+    return q * torch.tensor(q.shape[-1] ** -0.5 * LOG2E, dtype=q.dtype).item()
+
+
+def mha_attention_fast_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The no-max kernel's arithmetic: f32 scores of the pre-scaled Q,
+    exp2 without a row max, f32 row sums, the numerators rounded to v's
+    dtype before P.V, and 1/denom on the output."""
+    s = torch.einsum("bqhd,bkhd->bhqk", _fast_scaled_q(q).float(), k.float())
+    e = torch.exp2(s)
+    denom = e.sum(-1)                                              # (B, h, T)
+    num = torch.einsum("bhqk,bkhd->bqhd", e.to(v.dtype).float(), v.float())
+    return (num * (1.0 / denom).transpose(1, 2)[..., None]).to(q.dtype)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -49,25 +79,50 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"attention kernel runs on CUDA tensors, q is on {q.device}")
 
 
-def mha_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """(B, T, h, d) -> (B, T, h, d) softmax attention, scale d^-0.5.
-
-    CUDA tensors: the kernel (bf16, d = 64, contiguous), or an error.
-    CPU tensors: :func:`mha_attention_plain`.
-    """
-    if q.device.type == "cpu":
-        return mha_attention_plain(q, k, v)
-    _check(q, k, v)
+def _launch(entry: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """One kernel launch on inputs that passed :func:`_check`."""
     B, T, H, _ = q.shape
     out = torch.empty_like(q)
     lib = _build.library()
     with torch.cuda.device(q.device):
-        err = lib.vitvs_attention_fwd(
+        err = getattr(lib, entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, T, H,
             torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, "attention")
+    _build.check(err, entry)
+    return out
+
+
+def mha_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  fast: bool = False) -> torch.Tensor:
+    """(B, T, h, d) -> (B, T, h, d) softmax attention, scale d^-0.5.
+
+    fast=True goes to :func:`mha_attention_fast`.  Otherwise CUDA tensors:
+    the exact kernel (bf16, d = 64, contiguous), or an error; CPU tensors:
+    :func:`mha_attention_plain`.
+    """
+    if fast:
+        return mha_attention_fast(q, k, v)
+    if q.device.type == "cpu":
+        return mha_attention_plain(q, k, v)
+    _check(q, k, v)
+    out = _launch("vitvs_attention_fwd", q, k, v)
     mha_attention.launches += 1
     return out
 
 
+def mha_attention_fast(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """No-max, deferred-normalize attention (bounded logits).
+
+    CUDA tensors: the no-max kernel on Q pre-scaled by d^-0.5 log2(e), or an
+    error; CPU tensors: :func:`mha_attention_fast_plain`.
+    """
+    if q.device.type == "cpu":
+        return mha_attention_fast_plain(q, k, v)
+    _check(q, k, v)
+    out = _launch("vitvs_attention_fast_fwd", _fast_scaled_q(q), k, v)
+    mha_attention_fast.launches += 1
+    return out
+
+
 mha_attention.launches = 0
+mha_attention_fast.launches = 0
