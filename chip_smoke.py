@@ -12,14 +12,17 @@ Phases, each announced with a flushed, timestamped start/done line:
    kernels' build, one nvcc per csrc/*.cu started together and one link
    (build seconds and -Xptxas -v lines);
 2. kernels vs plain versions at the main paths' shapes: attention at
-   (1, 485, 6, 64) bf16, the matcher at (484, 3456) f32 plus an
-   exact-index case, no-max attention at (1, 1370, 12, 64) bf16 plus rows
-   whose logits are all about -30, fused int8 attention at (1, 1370, 768)
-   (column slices of a qkv output) plus 58 padded columns;
+   (1, 485, 6, 64) bf16; the matcher's bf16 mode at (484, 3456) bf16 and at
+   ragged sizes, plus first-index ties across blocks; its f32 mode at
+   (484, 3456) f32 plus an exact-index case; no-max attention at
+   (1, 1370, 12, 64) bf16, at B = 2 with T in {1, 63, 64, 65, 70, 1370}, and
+   rows whose logits are all about -30; fused int8 attention at
+   (1, 1370, 768) (column slices of a qkv output) plus 58 padded columns;
 3. the bf16 main path: goal_descriptors + 5 servo_steps of the DINO servo
    step at ViT-S/14 @ 308 (configs/config.yaml's settings, seeded weights,
    seeded 640x480 frames), once through the kernels and once through the
-   plain versions; launch counts, finiteness and agreement are checked;
+   plain versions; launch counts (exact attention and the bf16-mode
+   matcher), finiteness and agreement are checked;
 3b. the int8 W8A8 serving step at ViT-B/14 @ 518
    (configs/config_vitb_518.yaml's settings, seeded weights, static scales
    calibrated on the goal frame and 7 shifted frames, source-quantized
@@ -76,6 +79,10 @@ SERVE_ATTN_SHAPE = (1, 1370, 12, 64)   # (B, T, h, hd) of ViT-B/14 @ 518
 ATTN_TOL = 2e-2                    # bf16 outputs of O(1): a few bf16 ulps
 MATCH_VAL_TOL = 1e-4               # f32 dot products of 3456 terms, other order
 MATCH_TIE_TOL = 1e-5
+# bf16-mode matcher shapes (t1, t2, d): the main path's, then ragged tiles and depths
+MATCH_BF16_SHAPES = [(484, 484, 3456), (1, 1, 3456), (33, 33, 3456), (65, 65, 3456),
+                     (485, 485, 3456), (33, 485, 100)]
+FAST_ATTN_T = [1, 63, 64, 65, 70, 1370]   # no-max attention at B = 2, 12 heads
 # bf16 descriptors after 12 blocks, max |diff| / max |ref| (int8 rows: of unit rows,
 # where one int8 step is 1/127 of a row's largest entry)
 DESC_REL_TOL = 5e-2
@@ -126,30 +133,62 @@ def check_attention(device, shape=ATTN_SHAPE, seed=0) -> float:
     return err
 
 
-def check_matcher(device, shape=MATCH_SHAPE, seed=1) -> float:
-    """Kernel wrapper vs plain version: max values within MATCH_VAL_TOL; each
-    argmax equal to the plain one or pointing at a value within
-    MATCH_TIE_TOL of the plain max.  Returns the max abs error of the maxima."""
-    t, d = shape
-    rs = np.random.default_rng(seed)
-    a = torch.from_numpy(rs.standard_normal((t, d)).astype(np.float32)).to(device)
-    b = torch.from_numpy(rs.standard_normal((t, d)).astype(np.float32)).to(device)
-    got = matcher.dual_argmax_cosine(a, b)
-    ref = matcher.dual_argmax_cosine_plain(a, b)
-    sim = (a * matcher.inverse_norms(a)[:, None]) @ (b * matcher.inverse_norms(b)[:, None]).T
+def _hold_matcher(got, ref, sim, what: str) -> float:
+    """Max values within MATCH_VAL_TOL of the plain ones; each argmax equal
+    to the plain one or pointing at a value within MATCH_TIE_TOL of the
+    plain max.  Returns the max abs error of the maxima."""
     err = max((got[0] - ref[0]).abs().max().item(), (got[2] - ref[2]).abs().max().item())
     if not err <= MATCH_VAL_TOL:
-        raise AssertionError(f"matcher max values: max abs err {err} > {MATCH_VAL_TOL}")
+        raise AssertionError(f"{what} max values: max abs err {err} > {MATCH_VAL_TOL}")
     for axis, (idx, ref_idx, ref_max) in enumerate([(got[1], ref[1], ref[0]),
                                                     (got[3], ref[3], ref[2])]):
         idx, ref_idx = idx.long(), ref_idx.long()
-        lane = torch.arange(idx.shape[0], device=device)
+        lane = torch.arange(idx.shape[0], device=idx.device)
         at = sim[lane, idx] if axis == 0 else sim[idx, lane]
         ok = (idx == ref_idx) | (at >= ref_max - MATCH_TIE_TOL)
         if not bool(ok.all()):
-            raise AssertionError(f"matcher argmax (axis {axis}) disagrees at "
+            raise AssertionError(f"{what} argmax (axis {axis}) disagrees at "
                                  f"{int((~ok).sum())} places beyond ties")
     return err
+
+
+def _normal(device, shape, rs, dtype=torch.float32) -> torch.Tensor:
+    return torch.from_numpy(rs.standard_normal(shape).astype(np.float32)).to(device, dtype)
+
+
+def check_matcher(device, shape=MATCH_SHAPE, seed=1) -> float:
+    """f32 mode: kernel wrapper vs plain version on f32 descriptors
+    (:func:`_hold_matcher`)."""
+    t, d = shape
+    rs = np.random.default_rng(seed)
+    a, b = _normal(device, (t, d), rs), _normal(device, (t, d), rs)
+    sim = (a * matcher.inverse_norms(a)[:, None]) @ (b * matcher.inverse_norms(b)[:, None]).T
+    return _hold_matcher(matcher.dual_argmax_cosine(a, b),
+                         matcher.dual_argmax_cosine_plain(a, b), sim, "matcher")
+
+
+def check_matcher_bf16(device, shapes=MATCH_BF16_SHAPES, seed=6) -> float:
+    """bf16 mode: kernel wrapper vs plain version on bf16 descriptors at each
+    (t1, t2, d) of ``shapes`` (:func:`_hold_matcher`), then duplicated rows
+    and columns, whose exact ties must go to the first index across blocks.
+    Returns the max abs error at the first shape."""
+    rs = np.random.default_rng(seed)
+    errs = []
+    for t1, t2, d in shapes:
+        a = _normal(device, (t1, d), rs, torch.bfloat16)
+        b = _normal(device, (t2, d), rs, torch.bfloat16)
+        sim = matcher.unit_rows(a).float() @ matcher.unit_rows(b).float().T
+        errs.append(_hold_matcher(matcher.dual_argmax_cosine_bf16(a, b),
+                                  matcher.dual_argmax_cosine_bf16_plain(a, b), sim,
+                                  f"bf16 matcher {(t1, t2, d)}"))
+    t, d = shapes[0][0] // 2 + 1, shapes[0][2]
+    base = _normal(device, (t, d), rs, torch.bfloat16)
+    twice = torch.cat([base, base])                      # row i + t repeats row i
+    _, nn_1, _, nn_2 = matcher.dual_argmax_cosine_bf16(twice, twice)
+    first = torch.arange(2 * t, device=nn_1.device) % t
+    if not (torch.equal(nn_1.long(), first) and torch.equal(nn_2.long(), first)):
+        raise AssertionError("bf16 matcher: exact ties do not go to the first index")
+    return errs[0]
 
 
 def check_matcher_exact(device, t=300, d=3456, seed=2) -> None:
@@ -192,7 +231,8 @@ def _max_err(out: torch.Tensor, ref: torch.Tensor, what: str, tol: float = ATTN_
 
 
 def check_attention_fast(device, shape=SERVE_ATTN_SHAPE, seed=4) -> float:
-    """No-max kernel vs its plain version on random bf16 inputs and on rows
+    """No-max kernel vs its plain version on random bf16 inputs at ``shape``
+    and at B = 2 for each T of FAST_ATTN_T (``shape``'s heads), and on rows
     whose real logits are all about -30 (T = 139 pads the last tile).
     Returns the max abs error at ``shape``."""
     rs = np.random.default_rng(seed)
@@ -200,6 +240,11 @@ def check_attention_fast(device, shape=SERVE_ATTN_SHAPE, seed=4) -> float:
                .to(device, torch.bfloat16) for _ in range(3))
     err = _max_err(attention.mha_attention_fast(q, k, v),
                    attention.mha_attention_fast_plain(q, k, v), "no-max attention")
+    for T in FAST_ATTN_T:
+        q, k, v = (_normal(device, (2, T, shape[2], shape[3]), rs, torch.bfloat16)
+                   for _ in range(3))
+        _max_err(attention.mha_attention_fast(q, k, v),
+                 attention.mha_attention_fast_plain(q, k, v), f"no-max attention, B = 2, T = {T}")
     q, k, v = (torch.from_numpy(x).to(device, torch.bfloat16)
                for x in underflow_qkv((1, 139, 2, 64), rows=4, c=30.0, seed=11))
     _max_err(attention.mha_attention_fast(q, k, v), attention.mha_attention_fast_plain(q, k, v),
@@ -367,7 +412,8 @@ def float_twists(fnet, cfg: VSConfig, device, seed=0) -> list:
 
 def _counters():
     return {"attention": attention.mha_attention, "attention_fast": attention.mha_attention_fast,
-            "attn_int8": attn_int8.fused_int8_attention, "matcher": matcher.dual_argmax_cosine}
+            "attn_int8": attn_int8.fused_int8_attention, "matcher": matcher.dual_argmax_cosine,
+            "matcher_bf16": matcher.dual_argmax_cosine_bf16}
 
 
 def run_main_path(net, cfg: VSConfig, model_kernels: ServoModel, seed=0, frames=None,
@@ -451,28 +497,41 @@ def int8_attention_bound_ms(shape=SERVE_ATTN_SHAPE) -> tuple[float, str]:
     return _bound(mm / PEAK_INT8_OPS + mm / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES)
 
 
-def matcher_bound_ms(shape=MATCH_SHAPE) -> tuple[float, str]:
+def matcher_bound_ms(shape=MATCH_SHAPE, bf16: bool = False) -> tuple[float, str]:
+    """f32 mode: f32 rows, products outside the tensor cores; bf16 mode: bf16
+    rows on the bf16 tensor cores."""
     t, d = shape
     flops = 2.0 * t * t * d
-    nbytes = 2.0 * t * d * 4 + 2.0 * t * 8       # descriptors read, quartet written
-    return _bound(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES)
+    nbytes = 2.0 * t * d * (2 if bf16 else 4) + 2.0 * t * 8   # rows read, quartet written
+    return _bound(flops / (PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS), nbytes / PEAK_BYTES)
 
 
 def _bound(t_ops: float, t_bytes: float) -> tuple[float, str]:
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
 
 
-def cuda_ms(fn, iters=200, warmup=10) -> float:
-    """Mean milliseconds per call by CUDA events around ``iters`` calls."""
+def cuda_ms(fn, iters=200, warmup=10, sleep_cycles=50_000_000, tries=4) -> float:
+    """Mean device milliseconds per call by CUDA events around ``iters``
+    calls.  A device sleep ahead of the first timed call lets the host queue
+    every call before the device starts them, so the events read the
+    device's time and not the host's launch rate.  If the start event has
+    already run when the last call is queued, the sleep was too short: it
+    doubles and the measurement repeats (at most ``tries`` times)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
+    for _ in range(tries):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(sleep_cycles)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        queued_in_time = not start.query()
+        torch.cuda.synchronize()
+        if queued_in_time:
+            break
+        sleep_cycles *= 2
     return start.elapsed_time(end) / iters
 
 
@@ -498,6 +557,13 @@ def time_kernels(device) -> dict:
         sim = an @ bn.T
         return sim.max(1), sim.max(0)
 
+    a16, b16 = a.to(torch.bfloat16), b.to(torch.bfloat16)
+    ua, ub = matcher.bf16_unit_rows(a16), matcher.bf16_unit_rows(b16)
+
+    def library_match_bf16():       # cuBLAS bf16 with a bf16 output: the similarities rounded
+        sim = ua @ ub.T
+        return sim.max(1), sim.max(0)
+
     B, T, H, hd = SERVE_ATTN_SHAPE
     fq, fk, fv = (bf16(SERVE_ATTN_SHAPE) for _ in range(3))
     fqs = attention._fast_scaled_q(fq)
@@ -515,6 +581,11 @@ def time_kernels(device) -> dict:
         "matcher": {"ms": cuda_ms(lambda: matcher.dual_argmax_cosine(a, b), iters=50),
                     "plain_ms": cuda_ms(lambda: matcher.dual_argmax_cosine_plain(a, b), iters=50),
                     "library_ms": cuda_ms(library_match, iters=50)},
+        "matcher_bf16": {
+            "ms": cuda_ms(lambda: matcher._launch_bf16(ua, ub)),
+            "plain_ms": cuda_ms(lambda: matcher.dual_argmax_cosine_bf16_plain(a16, b16), iters=50),
+            "library_ms": cuda_ms(library_match_bf16),
+            "wrapper_ms": cuda_ms(lambda: matcher.dual_argmax_cosine_bf16(a16, b16))},
         "attention_fast": {
             "ms": cuda_ms(lambda: attention._launch("vitvs_attention_fast_fwd", fqs, fk, fv)),
             "plain_ms": cuda_ms(lambda: attention.mha_attention_fast_plain(fq, fk, fv), iters=50),
@@ -628,6 +699,9 @@ def main() -> int:
     with phase("2 kernels-vs-plain"):
         errs = {"attention": check_attention(device)}
         log(f"attention {ATTN_SHAPE} bf16: max abs err {errs['attention']:.3e} (tol {ATTN_TOL})")
+        errs["matcher_bf16"] = check_matcher_bf16(device)
+        log(f"bf16 matcher {MATCH_SHAPE} bf16: max abs err {errs['matcher_bf16']:.3e} "
+            f"(tol {MATCH_VAL_TOL}), argmax ok; ragged shapes and first-index ties ok")
         errs["matcher"] = check_matcher(device)
         log(f"matcher {MATCH_SHAPE} f32: max abs err {errs['matcher']:.3e} "
             f"(tol {MATCH_VAL_TOL}), argmax ok")
@@ -635,7 +709,8 @@ def main() -> int:
         log("matcher exact-index case ok")
         errs["attention_fast"] = check_attention_fast(device)
         log(f"no-max attention {SERVE_ATTN_SHAPE} bf16: max abs err "
-            f"{errs['attention_fast']:.3e} (tol {ATTN_TOL}); underflow rows ok")
+            f"{errs['attention_fast']:.3e} (tol {ATTN_TOL}); B = 2 at T = {FAST_ATTN_T} "
+            f"and underflow rows ok")
         errs["attn_int8"] = check_int8_attention(device)
         log(f"int8 attention {SERVE_ATTN_SHAPE} int8/bf16: max abs err "
             f"{errs['attn_int8']:.3e} (tol {ATTN_TOL}); padded columns ok")
@@ -660,8 +735,8 @@ def main() -> int:
     with phase("3 main-path"):
         summary = run_main_path(net, cfg, model)
         log(f"main path: {json.dumps(summary)}")
-        want = {"attention": (cfg.layer + 1) * (1 + N_STEPS), "attention_fast": 0,
-                "attn_int8": 0, "matcher": N_STEPS}
+        want = {name: 0 for name in _counters()}
+        want.update(attention=(cfg.layer + 1) * (1 + N_STEPS), matcher_bf16=N_STEPS)
         if summary["launches"] != want:
             raise AssertionError(f"launch counts {summary['launches']} != {want}")
     launches = dict(summary["launches"])
@@ -692,6 +767,7 @@ def main() -> int:
                 f"variant {variant}, kernels)")
         times = time_kernels(device)
         bounds = {"attention": attention_bound_ms(), "matcher": matcher_bound_ms(),
+                  "matcher_bf16": matcher_bound_ms(bf16=True),
                   "attention_fast": attention_bound_ms(SERVE_ATTN_SHAPE),
                   "attn_int8": int8_attention_bound_ms()}
         for name, tm in times.items():
@@ -703,7 +779,8 @@ def main() -> int:
 
     sources = {"attention": ("vitvs_tpu_torch/csrc/attention.cu", "vitvs_tpu/ops/attention.py:42"),
                "matcher": ("vitvs_tpu_torch/csrc/matcher.cu", "vitvs_tpu/ops/matcher.py:39"),
-               "attention_fast": ("vitvs_tpu_torch/csrc/attention.cu",
+               "matcher_bf16": ("vitvs_tpu_torch/csrc/matcher.cu", "vitvs_tpu/ops/matcher.py:39"),
+               "attention_fast": ("vitvs_tpu_torch/csrc/attention_fast.cu",
                                   "vitvs_tpu/ops/attention.py:65"),
                "attn_int8": ("vitvs_tpu_torch/csrc/attn_int8.cu", "vitvs_tpu/ops/attn_int8.py:80")}
     kernels = [

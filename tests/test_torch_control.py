@@ -40,6 +40,23 @@ def test_ibvs_velocity_matches(mode, masked):
     np.testing.assert_allclose(out, ref, rtol=1e-4, atol=1e-6)
 
 
+@pytest.mark.parametrize("num_valid", [1, 2])
+def test_dls_with_one_or_two_valid_pairs_is_non_finite(num_valid):
+    """1 or 2 live pairs leave L^T L singular in f32 (the 1e-9 damping is
+    below its rounding): the reference's cho_factor gives non-finite
+    values, and the port's solve gives them too instead of raising."""
+    s, s_star, Z, _ = _features()
+    valid = np.arange(len(Z)) < num_valid
+    ref = np.asarray(jibvs.ibvs_velocity(jnp.asarray(s), jnp.asarray(s_star), jnp.asarray(Z),
+                                         0.5, valid=jnp.asarray(valid), mode="dls"))
+    out = tibvs.ibvs_velocity(torch.from_numpy(s), torch.from_numpy(s_star),
+                              torch.from_numpy(Z), 0.5, valid=torch.from_numpy(valid),
+                              mode="dls")
+    assert out.shape == (6,)
+    assert not np.isfinite(ref).all()
+    assert not torch.isfinite(out).all()
+
+
 def test_ema_and_body_twist_match():
     v1, v2 = (RNG.standard_normal(6).astype(np.float32) for _ in range(2))
     js, ts = jibvs.EmaState.init(), tibvs.EmaState.init(device="cpu")

@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import underflow_qkv
+from chip_smoke import FAST_ATTN_T, MATCH_BF16_SHAPES, underflow_qkv
 from vitvs_tpu_torch.match.correspondence import cosine_similarity_matrix
 from vitvs_tpu_torch.ops import _build, attention, attn_int8, matcher
 from vitvs_tpu_torch.ops.int_mm import int8_matmul_nt
@@ -89,6 +89,46 @@ def test_matcher_kernel_exact_ties_take_first_index(cuda):
     assert nn_2.tolist() == list(range(70)) * 2
 
 
+@pytest.mark.parametrize("t1,t2,d", MATCH_BF16_SHAPES)
+def test_matcher_bf16_kernel_matches_plain(cuda, t1, t2, d):
+    """bf16 mode on the tensor cores: maxima within 1e-4 of the plain
+    version (f32 sums of exact products in another order); an argmax may
+    differ from the plain one only at a tie within 1e-5."""
+    rs = np.random.default_rng(t1 + t2 + d)
+    a = torch.from_numpy(rs.standard_normal((t1, d)).astype(np.float32)).cuda().bfloat16()
+    b = torch.from_numpy(rs.standard_normal((t2, d)).astype(np.float32)).cuda().bfloat16()
+    before = (matcher.dual_argmax_cosine.launches, matcher.dual_argmax_cosine_bf16.launches)
+    got = matcher.dual_argmax_cosine_bf16(a, b)
+    torch.cuda.synchronize()
+    assert (matcher.dual_argmax_cosine.launches,
+            matcher.dual_argmax_cosine_bf16.launches) == (before[0], before[1] + 1)
+    ref = matcher.dual_argmax_cosine_bf16_plain(a, b)
+    sim = matcher.unit_rows(a).float() @ matcher.unit_rows(b).float().T
+    for v, rv in ((got[0], ref[0]), (got[2], ref[2])):
+        assert v.dtype == torch.float32 and (v - rv).abs().max().item() <= 1e-4
+    rows, cols = torch.arange(t1, device=cuda), torch.arange(t2, device=cuda)
+    assert got[1].dtype == torch.int32 and got[3].dtype == torch.int32
+    assert ((got[1] == ref[1]) | (sim[rows, got[1].long()] >= ref[0] - 1e-5)).all()
+    assert ((got[3] == ref[3]) | (sim[got[3].long(), cols] >= ref[2] - 1e-5)).all()
+
+
+def test_matcher_bf16_kernel_exact_ties_take_first_index(cuda):
+    """Row i + 300 repeats row i on both sides: exact ties across row and
+    column blocks go to the first index, whatever order the blocks finish."""
+    rs = np.random.default_rng(10)
+    base = torch.from_numpy(rs.standard_normal((300, 3456)).astype(np.float32)).cuda().bfloat16()
+    twice = torch.cat([base, base])
+    for _ in range(3):
+        _, nn_1, _, nn_2 = matcher.dual_argmax_cosine_bf16(twice, twice)
+        assert nn_1.tolist() == list(range(300)) * 2
+        assert nn_2.tolist() == list(range(300)) * 2
+
+
+def test_matcher_bf16_kernel_refuses_other_dtypes(cuda):
+    with pytest.raises(TypeError):
+        matcher.dual_argmax_cosine_bf16(torch.zeros(4, 8, device=cuda), torch.zeros(4, 8, device=cuda))
+
+
 def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     q, k, v = _bf16((1, 16, 2, 64), 1)
     with pytest.raises(TypeError):
@@ -106,7 +146,8 @@ def _underflow(shape, rows, c, seed, k_noise=0.05):
 
 
 @pytest.mark.parametrize("shape", [(1, 1370, 12, 64), (1, 485, 6, 64), (2, 64, 3, 64),
-                                   (1, 1, 2, 64), (3, 130, 1, 64)])
+                                   (1, 1, 2, 64), (3, 130, 1, 64)]
+                         + [(2, T, 12, 64) for T in FAST_ATTN_T])
 def test_attention_fast_kernel_matches_plain(cuda, shape):
     q, k, v = _bf16(shape, sum(shape) + 1)
     before = (attention.mha_attention.launches, attention.mha_attention_fast.launches)

@@ -6,6 +6,7 @@ exact softmax, which is not the kernels' arithmetic."""
 
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -159,6 +160,55 @@ def test_dual_argmax_cosine_exact_ties_take_first_index():
     # tie between rows (1, 6) and (3, 7): the first of each pair wins
     assert out[1][[0, 2]].tolist() == [1, 0]
     assert out[3][[2, 5]].tolist() == [1, 3]
+
+
+@pytest.mark.parametrize("t1,t2,d", [(100, 100, 96), (130, 70, 200)])
+def test_dual_argmax_cosine_bf16_matches_reference_default(t1, t2, d):
+    """The bf16 mode's plain version (what the wrapper takes on the CPU)
+    against vitvs_tpu's default similarity on the same bf16 descriptors:
+    rows normalized in bf16 by f32 norms, f32 accumulation.  Values within
+    1e-6 (exact products summed in another order), the same argmaxes."""
+    from vitvs_tpu.match.correspondence import cosine_similarity_matrix as j_sim
+
+    ja, jb = (jnp.asarray(RNG.standard_normal((t, d)), jnp.bfloat16) for t in (t1, t2))
+    ta, tb = (torch.from_numpy(np.asarray(x, np.float32)).bfloat16() for x in (ja, jb))
+    sim = j_sim(ja, jb)
+    before = tmatch.dual_argmax_cosine_bf16.launches
+    out = tmatch.dual_argmax_cosine_bf16(ta, tb)
+    assert tmatch.dual_argmax_cosine_bf16.launches == before
+    for o, r in ((out[0], sim.max(1)), (out[2], sim.max(0))):
+        assert o.dtype == torch.float32
+        np.testing.assert_allclose(o.numpy(), np.asarray(r), rtol=0, atol=1e-6)
+    for o, r in ((out[1], sim.argmax(1)), (out[3], sim.argmax(0))):
+        assert o.dtype == torch.int32
+        np.testing.assert_array_equal(o.numpy(), np.asarray(r))
+    # the unit rows are bf16, as the reference's
+    np.testing.assert_array_equal(
+        tmatch.unit_rows(ta).float().numpy(),
+        np.asarray(ja * jax.lax.rsqrt(jnp.sum(jnp.square(ja.astype(jnp.float32)), -1,
+                                                keepdims=True) + 1e-24).astype(jnp.bfloat16),
+                   np.float32))
+
+
+def test_dual_argmax_cosine_bf16_exact_ties_take_first_index():
+    """Duplicated bf16 rows tie exactly: the first index wins on both axes."""
+    base = torch.from_numpy(RNG.standard_normal((9, 40)).astype(np.float32)).bfloat16()
+    twice = torch.cat([base, base])
+    _, nn_1, _, nn_2 = tmatch.dual_argmax_cosine_bf16(twice, twice)
+    assert nn_1.tolist() == list(range(9)) * 2 and nn_2.tolist() == list(range(9)) * 2
+
+
+def test_bf16_unit_rows_pad_depth_with_zeros():
+    """The bf16 kernel's operands: unit rows padded to a depth that is a
+    multiple of 8 with zero columns, which leave every similarity as it is."""
+    a = torch.from_numpy(RNG.standard_normal((12, 100)).astype(np.float32)).bfloat16()
+    b = torch.from_numpy(RNG.standard_normal((7, 100)).astype(np.float32)).bfloat16()
+    ua, ub = tmatch.bf16_unit_rows(a), tmatch.bf16_unit_rows(b)
+    assert ua.shape == (12, 104) and ua.dtype == torch.bfloat16 and ua.is_contiguous()
+    assert not ua[:, 100:].any()
+    padded = tmatch.dual_argmax_cosine_bf16_plain(ua, ub)
+    for o, r in zip(padded, tmatch.dual_argmax_cosine_bf16_plain(a, b)):
+        assert torch.equal(o, r)
 
 
 def test_wrappers_reject_bad_inputs_before_launch():

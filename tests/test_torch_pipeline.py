@@ -102,6 +102,80 @@ def test_servo_step_matches(pinv_mode, subpixel, pad_bug):
     assert min(speeds) > 1e-2, speeds   # the loop really commands motion
 
 
+@pytest.mark.parametrize("num_pairs", [1, 2])
+def test_servo_step_dls_few_pairs_keeps_command(num_pairs):
+    """A dls step asking for 1 or 2 pairs: L^T L is singular, the reference's
+    solve gives non-finite values and its feature-failure select discards
+    them.  The port's step must not raise, and like the reference it keeps
+    the previous command and freezes the EMA."""
+    params, jmodel, tmodel, net = _setup(pinv_mode="dls")
+    goal, frames, depth = _frames([(18, 20), (16, 17)])
+    jg = jpipe.goal_descriptors(params, jmodel, jnp.asarray(goal))
+    tg = tpipe.goal_descriptors(net, tmodel, goal)
+    jema, jprev = JEma.init(), jnp.zeros(6)
+    tema, tprev = TEma.init(device="cpu"), torch.zeros(6)
+    t = tg.shape[0]
+    for i, (frame, k) in enumerate(zip(frames, (None, num_pairs))):
+        key = jax.random.PRNGKey(30 + i)
+        jr = jpipe.servo_step(params, jmodel, jg, jnp.asarray(frame), jnp.asarray(depth),
+                              jema, jprev, key, num_pairs=k)
+        scores = torch.tensor(np.asarray(jax.random.uniform(key, (t,))))
+        tr = tpipe.servo_step(net, tmodel, tg, frame, depth, tema, tprev, scores=scores,
+                              num_pairs=k)
+        for name in ("valid", "num_valid", "feature_ok"):
+            np.testing.assert_array_equal(getattr(tr, name).numpy(),
+                                          np.asarray(getattr(jr, name)), err_msg=name)
+        for name in ("v_c", "body_twist"):
+            np.testing.assert_allclose(getattr(tr, name).numpy(),
+                                       np.asarray(getattr(jr, name)), atol=1e-3, err_msg=name)
+        np.testing.assert_allclose(tr.ema.value.numpy(), np.asarray(jr.ema.value), atol=1e-3)
+        if k is not None:
+            assert not bool(tr.feature_ok) and int(tr.num_valid) == num_pairs
+            np.testing.assert_array_equal(tr.v_c.numpy(), tprev.numpy())
+            np.testing.assert_array_equal(tr.ema.value.numpy(), tema.value.numpy())
+            assert bool(tr.ema.initialized)
+        jema, jprev, tema, tprev = jr.ema, jr.v_c, tr.ema, tr.v_c
+    assert float(torch.abs(tprev).max()) > 1e-2     # the held command is a real one
+
+
+def test_servo_step_bf16_matches():
+    """The bf16 step (blocks and descriptors in bf16, matching in the
+    reference's default arithmetic) against vitvs_tpu's bf16 step: the
+    same pairs and the velocity within 1e-3 (BASELINE.md)."""
+    params, _, _, _ = _setup(pinv_mode="dls")
+    jcfg, tcfg = JVSConfig(**CFG, pinv_mode="dls"), TVSConfig(**CFG, pinv_mode="dls")
+    jmodel = jpipe.ServoModel(vit=jvit.ViTConfig(**VIT), cfg=jcfg, compute_dtype=jnp.bfloat16)
+    tmodel = tpipe.ServoModel(vit=tvit.ViTConfig(**VIT), cfg=tcfg,
+                              compute_dtype=torch.bfloat16, device="cpu")
+    net = tmodel.load_vit(from_jax_params(params))
+    goal, frames, depth = _frames([(18, 20), (16, 17), (10, 15)])
+    jg = jpipe.goal_descriptors(params, jmodel, jnp.asarray(goal))
+    tg = tpipe.goal_descriptors(net, tmodel, goal)
+    assert jg.dtype == jnp.bfloat16 and tg.dtype == torch.bfloat16
+    jema, jprev = JEma.init(), jnp.zeros(6)
+    tema, tprev = TEma.init(device="cpu"), torch.zeros(6)
+    t = tg.shape[0]
+    for i, frame in enumerate(frames):
+        key = jax.random.PRNGKey(40 + i)
+        jr = jpipe.servo_step(params, jmodel, jg, jnp.asarray(frame), jnp.asarray(depth),
+                              jema, jprev, key)
+        scores = torch.tensor(np.asarray(jax.random.uniform(key, (t,))))
+        tr = tpipe.servo_step(net, tmodel, tg, frame, depth, tema, tprev, scores=scores)
+        for name in ("valid", "num_valid", "feature_ok"):
+            np.testing.assert_array_equal(getattr(tr, name).numpy(),
+                                          np.asarray(getattr(jr, name)), err_msg=name)
+        np.testing.assert_array_equal(tr.s_uv_star.numpy(), np.asarray(jr.s_uv_star))
+        # the same matched patches; the sub-patch offsets come from the two
+        # packages' bf16 descriptors, which round at different points of the
+        # forward (per-token cosine >= 0.9999, test_torch_vit.py): 0.05 px
+        np.testing.assert_allclose(tr.s_uv.numpy(), np.asarray(jr.s_uv), atol=5e-2)
+        for name in ("v_c", "body_twist"):
+            np.testing.assert_allclose(getattr(tr, name).numpy(),
+                                       np.asarray(getattr(jr, name)), atol=1e-3, err_msg=name)
+        assert bool(tr.feature_ok) and float(torch.abs(tr.v_c).max()) > 1e-2
+        jema, jprev, tema, tprev = jr.ema, jr.v_c, tr.ema, tr.v_c
+
+
 def test_servo_step_draws_scores_from_generator():
     params, _, tmodel, net = _setup(pinv_mode="dls")
     goal, (frame,), depth = _frames([(18, 20)])

@@ -38,7 +38,8 @@ def test_port_imports_neither_jax_nor_reference(path):
 
 def test_kernels_use_plain_c_interface():
     cu = sorted((REPO / "vitvs_tpu_torch" / "csrc").glob("*.cu"))
-    assert [p.name for p in cu] == ["attention.cu", "attn_int8.cu", "matcher.cu"]
+    assert [p.name for p in cu] == ["attention.cu", "attention_fast.cu", "attn_int8.cu",
+                                    "matcher.cu"]
     for p in cu:
         text = p.read_text()
         assert "torch/extension.h" not in text and "ATen" not in text, p
@@ -59,6 +60,7 @@ def test_chip_smoke_kernel_phase_runs_on_cpu():
     assert chip_smoke.check_attention("cpu", shape=(1, 37, 2, 64)) == 0.0
     assert chip_smoke.check_matcher("cpu", shape=(50, 72)) == 0.0
     chip_smoke.check_matcher_exact("cpu", t=40, d=64)
+    assert chip_smoke.check_matcher_bf16("cpu", shapes=[(50, 50, 72), (1, 3, 10), (9, 33, 20)]) == 0.0
     assert chip_smoke.check_attention_fast("cpu", shape=(1, 37, 2, 64)) == 0.0
     assert chip_smoke.check_int8_attention("cpu", shape=(1, 37, 2, 64)) == 0.0
 
@@ -68,6 +70,9 @@ def test_chip_smoke_bounds_follow_the_shapes():
     assert by == "bytes" and ms == pytest.approx(4 * 485 * 6 * 64 * 2 / 3.35e12 * 1e3)  # q, k, v, o in bf16
     ms, by = chip_smoke.matcher_bound_ms()
     assert by == "operations" and ms == pytest.approx(2 * 484 ** 2 * 3456 / 67e12 * 1e3)
+    # bf16 mode: bf16 rows read and the quartet written, on the bf16 tensor cores
+    ms, by = chip_smoke.matcher_bound_ms(bf16=True)
+    assert by == "bytes" and ms == pytest.approx((2 * 484 * 3456 * 2 + 2 * 484 * 8) / 3.35e12 * 1e3)
     # the serving kernels at ViT-B/14 @ 518: both bounded by operations
     ms, by = chip_smoke.attention_bound_ms(chip_smoke.SERVE_ATTN_SHAPE)
     assert by == "operations" and ms == pytest.approx(4 * 12 * 1370 ** 2 * 64 / 989e12 * 1e3)
@@ -89,7 +94,7 @@ def test_chip_smoke_main_path_runs_tiny_on_cpu():
                         layerscale=1.0).cast_blocks(torch.bfloat16).eval()
     summary = chip_smoke.run_main_path(net, cfg, model)
     assert summary["launches"] == {"attention": 0, "attention_fast": 0, "attn_int8": 0,
-                                   "matcher": 0}
+                                   "matcher": 0, "matcher_bf16": 0}
     assert summary["differing_pairs"] == [0] * chip_smoke.N_STEPS
     assert summary["desc_rel_err"] == 0.0 and summary["twist_max_abs_err"] == 0.0
     assert summary["steps_compared"] == chip_smoke.N_STEPS

@@ -52,8 +52,13 @@ def ibvs_velocity(
         return -lambda_ * (torch.linalg.pinv(L, rtol=rtol) @ e)
     if mode == "dls":
         LtL = L.T @ L + damping * torch.eye(6, dtype=L.dtype, device=L.device)
-        chol = torch.linalg.cholesky(LtL)
-        return -lambda_ * torch.cholesky_solve((L.T @ e)[:, None], chol)[:, 0]
+        # fewer than 3 live pairs leave L^T L singular in f32; as the
+        # reference's cho_factor, give non-finite values (the step's
+        # feature-failure select discards them) instead of raising, and
+        # without a host sync on the factorization's status
+        chol, info = torch.linalg.cholesky_ex(LtL)
+        v = -lambda_ * torch.cholesky_solve((L.T @ e)[:, None], chol)[:, 0]
+        return torch.where(info == 0, v, torch.full_like(v, torch.nan))
     raise ValueError(f"unknown pinv mode {mode!r}")
 
 

@@ -17,7 +17,7 @@ The int8 W8A8 serving step (``ServoModel.quantized``) runs a ``QuantViT``
 (``models/quant.py``, made by :func:`quantized_vit`), quantizes the binned
 descriptors at the source (``fused_bin_quant``, ``match/binned.py``) and
 matches them with an int8 matmul; ``use_kernels`` then selects the
-attention kernels or their plain versions, and never the f32 matcher kernel.
+attention kernels or their plain versions, and never a matcher kernel.
 """
 
 from __future__ import annotations
@@ -56,6 +56,11 @@ class ServoModel:
     # attention and matching launch the CUDA kernels on the card; False runs
     # their plain versions (the reference pass of chip_smoke.py)
     use_kernels: bool = True
+    # the reference's flag: float matching in the TPU matcher kernel's
+    # arithmetic (rows cast to f32, then normalized) instead of the
+    # reference's default (rows normalized in their dtype, product with f32
+    # accumulation); ops/matcher.py's f32 and bf16 modes
+    use_match_kernel: bool = False
     device: str = "cuda"
     # int8 W8A8 serving path (the ViT must be a QuantViT, from quantized_vit)
     quantized: bool = False
@@ -215,11 +220,11 @@ def servo_step(
     cur_desc = _descriptors(net, model, frame_rgb)
     if scores is None:
         scores = torch.rand(grid[0] * grid[1], generator=generator)
-    # int8 serving matches with an int8 matmul, never the f32 matcher kernel
+    # int8 serving matches with an int8 matmul, never a matcher kernel
     match = find_correspondences(goal_desc, cur_desc, grid, k, scores.to(model.device),
                                  distance_threshold=cfg.thresh_filter_keypoints,
                                  use_kernel=model.use_kernels and not model.quantized,
-                                 int8=model.quantized)
+                                 int8=model.quantized, use_match_kernel=model.use_match_kernel)
     if cfg.subpixel_matching:
         match = refine_matches_subpixel(goal_desc, cur_desc, match, grid)
 

@@ -1,12 +1,17 @@
 """Dense patch correspondence with cyclical-consistency filtering
 (``vitvs_tpu/match/correspondence.py``), fixed-size and branch-free.
 
-The row/column nearest neighbours of f32 matching come from
-``ops.matcher``: the CUDA kernel on the card, its plain version on the CPU
-or when ``use_kernel`` is off.  int8 matching (``int8=True``, or
+The row/column nearest neighbours of float matching come from
+``ops.matcher``, in the arithmetic ``use_match_kernel`` selects as the
+reference's flag does: by default the reference's default (rows normalized
+in their dtype, product with f32 accumulation: the bf16 mode), or with
+``use_match_kernel=True`` the TPU kernel's (rows cast to f32 first: the f32
+mode, which f32 descriptors take either way).  ``use_kernel`` picks the
+CUDA kernel of that mode, or with ``use_kernel`` off its plain version;
+CPU tensors always take the plain version.  int8 matching (``int8=True``, or
 source-quantized :class:`QuantizedBinned` descriptors) takes its similarity
 from :func:`cosine_similarity_matrix`, an int8 matmul, then row/column
-max/argmax; it never goes through the f32 matcher kernel.
+max/argmax; it never goes through a matcher kernel.
 
 Kept from the JAX package: first-index argmax ties; the float32
 ``(d - min) / (max(d - min) + 1e-8) >= threshold`` eligibility, plus perfect
@@ -25,7 +30,9 @@ import torch
 
 from vitvs_tpu_torch.match.binned import QuantizedBinned, quantize_rows_int8
 from vitvs_tpu_torch.ops.int_mm import int8_matmul_nt
-from vitvs_tpu_torch.ops.matcher import dual_argmax_cosine, dual_argmax_cosine_plain
+from vitvs_tpu_torch.ops.matcher import (dual_argmax_cosine, dual_argmax_cosine_bf16,
+                                         dual_argmax_cosine_bf16_plain,
+                                         dual_argmax_cosine_plain, unit_rows)
 
 
 class MatchResult(NamedTuple):
@@ -56,11 +63,7 @@ def cosine_similarity_matrix(desc1, desc2, int8: bool = False) -> torch.Tensor:
         return (acc * torch.rsqrt(desc1.nq + 1e-12)[:, None]
                 * torch.rsqrt(desc2.nq + 1e-12)[None, :])
 
-    def normalize(d):
-        sq = torch.square(d.float()).sum(-1, keepdim=True)
-        return d * torch.rsqrt(sq + 1e-24).to(d.dtype)
-
-    a, b = normalize(desc1), normalize(desc2)
+    a, b = unit_rows(desc1), unit_rows(desc2)
     if int8:
         qa, sa = quantize_rows_int8(a)
         qb, sb = quantize_rows_int8(b)
@@ -86,6 +89,7 @@ def find_correspondences(
     same_image_thresh: float = 0.99,
     use_kernel: bool = True,
     int8: bool = False,
+    use_match_kernel: bool = False,
 ) -> MatchResult:
     """Mutual-NN correspondences via cyclical consistency.
 
@@ -93,8 +97,11 @@ def find_correspondences(
     or :class:`QuantizedBinned` pairs.
     scores: (t,) sampling scores; the ``num_pairs`` eligible tokens with the
     largest scores are taken (ties to the lower index, as ``lax.top_k``).
-    use_kernel: f32 matching through the matcher kernel; it does not compose
-    with int8 matching, which is an int8 matmul (as in the JAX package).
+    use_kernel: float matching through the matcher kernel of the selected
+    mode (else its plain version); it does not compose with int8 matching,
+    which is an int8 matmul (as in the JAX package).
+    use_match_kernel: the reference's flag: match in the TPU kernel's f32
+    arithmetic instead of its default (see the module docstring).
     """
     gh, gw = num_patches
     quantized = isinstance(desc1, QuantizedBinned)
@@ -107,11 +114,14 @@ def find_correspondences(
     if int8 or quantized:
         if use_kernel:
             raise ValueError("use_kernel does not compose with int8 matching: the "
-                             "matcher kernel computes an f32 similarity")
+                             "matcher kernels compute a float similarity")
         sim = cosine_similarity_matrix(desc1, desc2, int8=int8)
         sim_1, nn_1, nn_2 = sim.amax(1), sim.argmax(1), sim.argmax(0)
     else:
-        match_fn = dual_argmax_cosine if use_kernel else dual_argmax_cosine_plain
+        if use_match_kernel or rows.dtype == torch.float32:
+            match_fn = dual_argmax_cosine if use_kernel else dual_argmax_cosine_plain
+        else:
+            match_fn = dual_argmax_cosine_bf16 if use_kernel else dual_argmax_cosine_bf16_plain
         sim_1, nn_1, _, nn_2 = match_fn(desc1, desc2)
     nn_1, nn_2 = nn_1.long(), nn_2.long()
     same_image = sim_1.mean() > same_image_thresh
@@ -164,7 +174,7 @@ def refine_matches_subpixel(
     if isinstance(desc1, QuantizedBinned):
         desc1, desc2 = desc1.q, desc2.q
 
-    def unit_rows(x):
+    def unit_f32(x):
         x = x.float()
         return x / torch.clamp(torch.linalg.vector_norm(x, dim=-1, keepdim=True), min=1e-12)
 
@@ -175,8 +185,8 @@ def refine_matches_subpixel(
     cc = (c2[:, None] + dr[None, :]).clamp(0, gw - 1)
     nidx = rr[:, :, None] * gw + cc[:, None, :]                # (k, 3, 3)
     # gather first, normalize after: only k + 9k rows are needed
-    q = unit_rows(desc1[r1 * gw + c1])
-    nb = unit_rows(desc2[nidx.reshape(-1)]).reshape(*nidx.shape, -1)
+    q = unit_f32(desc1[r1 * gw + c1])
+    nb = unit_f32(desc2[nidx.reshape(-1)]).reshape(*nidx.shape, -1)
     s = torch.einsum("kd,krcd->krc", q, nb)
 
     def axis_offset(s_m, s0, s_p, at_border):

@@ -4,9 +4,10 @@ One ``nvcc -c`` per ``csrc/*.cu``, all started together, then one ``nvcc``
 link of the objects into one shared library with a plain C interface,
 loaded with ``ctypes`` (no PyTorch headers: the build takes seconds).  The
 library lands in ``vitvs_tpu_torch/_build/`` under a name that carries the
-hash of the sources and flags, so it is rebuilt only when they change.  The
-build writes to temporary names and renames the library into place, so an
-interrupted build leaves no lock or partial file behind.
+hash of the sources, the headers they share and the flags, so it is rebuilt
+only when they change.  The build writes to temporary names and renames the
+library into place, so an interrupted build leaves no lock or partial file
+behind.
 
 Nothing here runs at import; the first kernel launch builds and loads.
 """
@@ -35,6 +36,7 @@ _SIGNATURES = {
     "vitvs_attention_fast_fwd": ([_P, _P, _P, _P, _I, _I, _I, _P], _I),
     "vitvs_attn_int8_fwd": ([_P] * 6 + [_I, _I, _I, _L, _L, _P], _I),
     "vitvs_dual_argmax_cosine": ([_P] * 12 + [_I, _I, _I, _P], _I),
+    "vitvs_dual_argmax_bf16": ([_P] * 7 + [_I, _I, _I, _P], _I),
     "vitvs_matcher_row_tile": ([], _I),
     "vitvs_matcher_col_tile": ([], _I),
     "vitvs_error_string": ([_I], ctypes.c_char_p),
@@ -71,7 +73,7 @@ def build() -> dict:
     srcs = sorted(CSRC_DIR.glob("*.cu"))
     if not srcs:
         raise RuntimeError(f"no CUDA sources under {CSRC_DIR}")
-    tag = _digest(srcs)
+    tag = _digest(srcs + sorted(CSRC_DIR.glob("*.cuh")))
     lib = BUILD_DIR / f"libvitvs_kernels-{tag}.so"
     log = BUILD_DIR / f"libvitvs_kernels-{tag}.log"
     if lib.is_file():

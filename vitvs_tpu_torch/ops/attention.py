@@ -11,11 +11,13 @@ once per 64 query rows.
 
 fast=True: the no-max, deferred-normalize serving kernel ``_fast_kernel``
 (bounded logits).  Q is scaled by hd^-0.5 * log2(e) in Q's dtype before
-the kernel, exactly as the JAX package does, and the kernel (the same
-source, a template flag) applies exp2 to the scores without a row max,
-zeroes padded columns and multiplies the output by 1/denom.  Bound at
-(1, 1370, 12, 64): operations, 5.77 GFLOP in 5.8 us on the tensor cores.
-It keeps its own entry point and launch count (``mha_attention_fast``).
+the kernel, exactly as the JAX package does, and the kernel
+(``csrc/attention_fast.cu``) applies exp2 to the scores without a row max,
+zeroes padded columns and multiplies the output by 1/denom; its products
+are wgmma on the bf16 tensor cores with the scores and P in registers, and
+K/V stream through a cp.async ring.  Bound at (1, 1370, 12, 64):
+operations, 5.77 GFLOP in 5.8 us on the tensor cores.  It keeps its own entry point and launch count
+(``mha_attention_fast``).
 
 ``mha_attention`` launches the kernel for CUDA tensors and takes the plain
 version only for CPU tensors; ``mha_attention_plain`` and
