@@ -11,13 +11,16 @@ Phases, each announced with a flushed, timestamped start/done line:
 1. card and build: the card's name and power limit (nvidia-smi), then the
    kernels' build, one nvcc per csrc/*.cu started together and one link
    (build seconds and -Xptxas -v lines);
-2. kernels vs plain versions at the main paths' shapes: attention at
-   (1, 485, 6, 64) bf16; the matcher's bf16 mode at (484, 3456) bf16 and at
-   ragged sizes, plus first-index ties across blocks; its f32 mode at
-   (484, 3456) f32 plus an exact-index case; no-max attention at
-   (1, 1370, 12, 64) bf16, at B = 2 with T in {1, 63, 64, 65, 70, 1370}, and
-   rows whose logits are all about -30; fused int8 attention at
-   (1, 1370, 768) (column slices of a qkv output) plus 58 padded columns;
+2. kernels vs plain versions at the main paths' shapes: exact attention at
+   (1, 485, 6, 64) bf16, at B = 2, 6 heads with T in {1, 63, 64, 65, 127,
+   129, 485, 1370}, and rows whose scaled logits are about +-200; the
+   matcher's bf16 mode at (484, 3456) bf16 and at ragged sizes, plus
+   first-index ties across blocks; its f32 mode at (484, 3456) f32 plus an
+   exact-index case; no-max attention at (1, 1370, 12, 64) bf16, at B = 2
+   with T in {1, 63, 64, 65, 70, 1370}, and rows whose logits are all about
+   -30; fused int8 attention at (1, 1370, 768) (column slices of a qkv
+   output), at B = 2 with the exact kernel's T list, plus 58 padded columns;
+   the int8 kernel's Q and K quantization against _quant_th, bit for bit;
 3. the bf16 main path: goal_descriptors + 5 servo_steps of the DINO servo
    step at ViT-S/14 @ 308 (configs/config.yaml's settings, seeded weights,
    seeded 640x480 frames), once through the kernels and once through the
@@ -33,7 +36,9 @@ Phases, each announced with a flushed, timestamped start/done line:
    pairs agree compares its twist; the bf16 ViT-B step on the same frames
    is logged beside it (twist scale, int8 vs float);
 4. times on the card (CUDA events / synchronized host clock) beside each
-   kernel's bound and the PyTorch library call for the same function.
+   kernel's bound and the PyTorch library call for the same function (the
+   exact kernel at T = 485 and T = 1370; the int8 kernel from the bf16
+   slices, its quantization included).
 
 The last three lines of standard output are the kernel JSON line, the card
 line and {"ok": true, "device": {...}}.  Any failed check raises, so the
@@ -83,6 +88,10 @@ MATCH_TIE_TOL = 1e-5
 MATCH_BF16_SHAPES = [(484, 484, 3456), (1, 1, 3456), (33, 33, 3456), (65, 65, 3456),
                      (485, 485, 3456), (33, 485, 100)]
 FAST_ATTN_T = [1, 63, 64, 65, 70, 1370]   # no-max attention at B = 2, 12 heads
+# exact attention (B = 2, 6 heads) and int8 attention (B = 2, 12 heads): 64-key
+# block edges, one and two 128-row blocks, both work splits of the exact kernel
+ATTN_T = [1, 63, 64, 65, 127, 129, 485, 1370]
+LARGE_LOGIT = 200.0                # |scaled logit| of the exact kernel's large-logit rows
 # bf16 descriptors after 12 blocks, max |diff| / max |ref| (int8 rows: of unit rows,
 # where one int8 step is 1/127 of a row's largest entry)
 DESC_REL_TOL = 5e-2
@@ -119,17 +128,40 @@ def card_line() -> str:
 # ---------------------------------------------------------------------------
 
 
-def check_attention(device, shape=ATTN_SHAPE, seed=0) -> float:
-    """Kernel wrapper vs plain version on the same bf16 inputs; returns the
-    max abs error (f32) and raises above ATTN_TOL."""
+def large_logit_qkv(shape, c, seed, k_noise=0.05):
+    """(B, T, H, hd) f32 q, k, v: keys clustered around a unit direction u
+    and query rows at +-c sqrt(hd) u (even rows +, odd rows -), so the scaled
+    logits of a row are all about +c or -c: exp of them overflows f32 unless
+    the row max is subtracted first."""
+    B, T, H, D = shape
     rs = np.random.default_rng(seed)
-    q, k, v = (torch.from_numpy(rs.standard_normal(shape).astype(np.float32))
-               .to(device, torch.bfloat16) for _ in range(3))
-    out = attention.mha_attention(q, k, v)
-    ref = attention.mha_attention_plain(q, k, v)
-    err = (out.float() - ref.float()).abs().max().item()
-    if not err <= ATTN_TOL:
-        raise AssertionError(f"attention kernel vs plain: max abs err {err} > {ATTN_TOL}")
+    u = rs.standard_normal(D).astype(np.float32)
+    u /= np.linalg.norm(u)
+    k = (u + k_noise * rs.standard_normal(shape)).astype(np.float32)
+    sign = np.where(np.arange(T) % 2 == 0, 1.0, -1.0).astype(np.float32)[None, :, None, None]
+    q = np.ascontiguousarray(np.broadcast_to(sign * c * np.sqrt(D) * u, shape), np.float32)
+    v = rs.standard_normal(shape).astype(np.float32)
+    return q, k, v
+
+
+def check_attention(device, shape=ATTN_SHAPE, ts=ATTN_T, seed=0) -> float:
+    """Exact kernel vs its plain version on random bf16 inputs at ``shape``,
+    at B = 2 for each T of ``ts`` (``shape``'s heads), and on rows whose
+    scaled logits are about +-LARGE_LOGIT (T = 130).  Returns the max abs
+    error at ``shape`` and raises above ATTN_TOL."""
+    rs = np.random.default_rng(seed)
+    q, k, v = (_normal(device, shape, rs, torch.bfloat16) for _ in range(3))
+    err = _max_err(attention.mha_attention(q, k, v), attention.mha_attention_plain(q, k, v),
+                   "exact attention")
+    for T in ts:
+        q, k, v = (_normal(device, (2, T, shape[2], shape[3]), rs, torch.bfloat16)
+                   for _ in range(3))
+        _max_err(attention.mha_attention(q, k, v), attention.mha_attention_plain(q, k, v),
+                 f"exact attention, B = 2, T = {T}")
+    q, k, v = (torch.from_numpy(x).to(device, torch.bfloat16)
+               for x in large_logit_qkv((2, 130, shape[2], shape[3]), LARGE_LOGIT, seed=12))
+    _max_err(attention.mha_attention(q, k, v), attention.mha_attention_plain(q, k, v),
+             f"exact attention, logits of about +-{LARGE_LOGIT}")
     return err
 
 
@@ -252,24 +284,67 @@ def check_attention_fast(device, shape=SERVE_ATTN_SHAPE, seed=4) -> float:
     return err
 
 
-def check_int8_attention(device, shape=SERVE_ATTN_SHAPE, seed=5) -> float:
+def _qkv_slices(device, B, T, D, rs):
+    """q, k, v as the column slices of one seeded (B, T, 3 D) bf16 qkv output."""
+    qkv = _normal(device, (B, T, 3 * D), rs, torch.bfloat16)
+    return qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
+
+
+def check_int8_attention(device, shape=SERVE_ATTN_SHAPE, ts=ATTN_T, seed=5) -> float:
     """Fused int8 kernel vs its plain version: q, k, v are column slices of
-    one (B, T, 3 H hd) bf16 qkv output, as the main path hands them over;
-    then rows with real logits about -25 and 58 padded columns (T = 70).
-    Returns the max abs error at ``shape``."""
+    one (B, T, 3 H hd) bf16 qkv output, as the main path hands them over, at
+    ``shape`` and at B = 2 for each T of ``ts``; then rows with real logits
+    about -25 and 58 padded columns (T = 70).  Returns the max abs error at
+    ``shape``."""
     B, T, H, hd = shape
-    D = H * hd
-    qkv = torch.from_numpy(np.random.default_rng(seed).standard_normal((B, T, 3 * D))
-                           .astype(np.float32)).to(device, torch.bfloat16)
-    q, k, v = qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
+    rs = np.random.default_rng(seed)
+    q, k, v = _qkv_slices(device, B, T, H * hd, rs)
     err = _max_err(attn_int8.fused_int8_attention(q, k, v, heads=H),
                    attn_int8.fused_int8_attention_plain(q, k, v, heads=H), "int8 attention")
+    for t in ts:
+        q, k, v = _qkv_slices(device, 2, t, H * hd, rs)
+        _max_err(attn_int8.fused_int8_attention(q, k, v, heads=H),
+                 attn_int8.fused_int8_attention_plain(q, k, v, heads=H),
+                 f"int8 attention, B = 2, T = {t}")
     q, k, v = (torch.from_numpy(x.reshape(1, 70, 128)).to(device, torch.bfloat16)
                for x in underflow_qkv((1, 70, 2, 64), rows=8, c=25.0, seed=11, k_noise=0.0))
     _max_err(attn_int8.fused_int8_attention(q, k, v, heads=2),
              attn_int8.fused_int8_attention_plain(q, k, v, heads=2),
              "int8 attention, padded columns")
     return err
+
+
+def check_quant_probe(device, shape=SERVE_ATTN_SHAPE, seed=7) -> dict:
+    """The int8 kernel's own quantization (its Q path with the Q scale factor,
+    its K path) against _quant_th on CPU tensors, the reference's arithmetic
+    (a true division by 127, as in JAX): int8 values equal and scales equal
+    bit for bit, on column slices of a seeded qkv output whose first token
+    is 0, second 1000x and third 1e-20x (amax below the 1e-12 floor).
+    Returns the number of rows compared and the number of scales in which
+    _quant_th run on the card's own tensors differs from the reference
+    (PyTorch's CUDA division by a Python number multiplies by its
+    reciprocal)."""
+    B, T, H, hd = shape
+    D = H * hd
+    qkv = _normal(device, (B, T, 3 * D), np.random.default_rng(seed), torch.bfloat16)
+    qkv[:, 0] = 0
+    qkv[:, 1] *= 1000
+    qkv[:, 2] *= 1e-20
+    q, k = qkv[..., :D], qkv[..., D:2 * D]
+    card_diffs = 0
+    for x, extra, k_path in ((q, attn_int8._q_extra_scale(q, H), False), (k, 1.0, True)):
+        what = "K" if k_path else "Q"
+        q8, sc = attn_int8.quant_th_probe(x, H, extra, k_path=k_path)
+        ref8, ref_s = attn_int8._quant_th(x.cpu(), H, extra)
+        if not torch.equal(q8.cpu(), ref8):
+            raise AssertionError(f"int8 kernel's {what} quantization: "
+                                 f"{int((q8.cpu() != ref8).sum())} int8 values differ")
+        bits = lambda t: t.cpu().contiguous().view(torch.int32)
+        if not torch.equal(bits(sc), bits(ref_s)):
+            raise AssertionError(f"int8 kernel's {what} quantization: "
+                                 f"{int((bits(sc) != bits(ref_s)).sum())} scales differ")
+        card_diffs += int((bits(attn_int8._quant_th(x, H, extra)[1]) != bits(ref_s)).sum())
+    return {"rows": 2 * B * T * H, "card_quant_th_scale_diffs": card_diffs}
 
 
 # ---------------------------------------------------------------------------
@@ -489,11 +564,11 @@ def attention_bound_ms(shape=ATTN_SHAPE) -> tuple[float, str]:
 
 
 def int8_attention_bound_ms(shape=SERVE_ATTN_SHAPE) -> tuple[float, str]:
-    """Fused int8 attention: QK^T at the int8 peak plus P.V at the bf16 peak."""
+    """Fused int8 attention: QK^T at the int8 peak plus P.V at the bf16 peak
+    (the Q/K quantization, a few operations an element, is left out)."""
     B, T, H, hd = shape
     mm = 2.0 * B * H * T * T * hd
-    # q, k int8 and v bf16 read, o bf16 written, q and k scales f32 read
-    nbytes = B * T * H * hd * (1 + 1 + 2 + 2) + 2.0 * B * T * H * 4
+    nbytes = B * T * H * hd * (2 + 2 + 2 + 2)    # bf16 q, k, v read, o written
     return _bound(mm / PEAK_INT8_OPS + mm / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES)
 
 
@@ -537,9 +612,9 @@ def cuda_ms(fn, iters=200, warmup=10, sleep_cycles=50_000_000, tries=4) -> float
 
 def time_kernels(device) -> dict:
     """Each kernel alone (its launch on the inputs it is handed, after the
-    wrapper's checks and, for the serving kernels, the Q scaling or the Q/K
-    quantization), its plain version on the same inputs and one PyTorch
-    call computing the same function where there is one."""
+    wrapper's checks and, for the no-max kernel, the Q scaling; the int8
+    kernel quantizes Q and K itself), its plain version on the same inputs
+    and one PyTorch call computing the same function where there is one."""
     rs = np.random.default_rng(3)
     bf16 = lambda shape: (torch.from_numpy(rs.standard_normal(shape).astype(np.float32))
                           .to(device, torch.bfloat16))
@@ -571,13 +646,17 @@ def time_kernels(device) -> dict:
     qkv = bf16((B, T, 3 * H * hd))
     D = H * hd
     iq, ik, iv = qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
-    q8, qsc = attn_int8._quant_th(iq, H, attn_int8._q_extra_scale(iq, H))
-    k8, ksc = attn_int8._quant_th(ik, H)
-    ks_t = ksc.transpose(1, 2).contiguous()
+    split = lambda name, *qkv: cuda_ms(lambda: attention._launch(
+        "vitvs_attention_split_fwd", *qkv, attention.EXACT_SPLITS[name]))
     return {
         "attention": {"ms": cuda_ms(lambda: attention.mha_attention(q, k, v)),
                       "plain_ms": cuda_ms(lambda: attention.mha_attention_plain(q, k, v)),
-                      "library_ms": cuda_ms(lambda: sdpa(qh, kh, vh))},
+                      "library_ms": cuda_ms(lambda: sdpa(qh, kh, vh)),
+                      "ms_t1370": cuda_ms(lambda: attention.mha_attention(fq, fk, fv)),
+                      "library_ms_t1370": cuda_ms(lambda: sdpa(fqh, fkh, fvh)),
+                      # the exact kernel's two work splits at both shapes
+                      **{f"{name}_ms{sfx}": split(name, *x) for name in ("64-row", "128-row")
+                         for sfx, x in (("", (q, k, v)), ("_t1370", (fq, fk, fv)))}},
         "matcher": {"ms": cuda_ms(lambda: matcher.dual_argmax_cosine(a, b), iters=50),
                     "plain_ms": cuda_ms(lambda: matcher.dual_argmax_cosine_plain(a, b), iters=50),
                     "library_ms": cuda_ms(library_match, iters=50)},
@@ -591,10 +670,10 @@ def time_kernels(device) -> dict:
             "plain_ms": cuda_ms(lambda: attention.mha_attention_fast_plain(fq, fk, fv), iters=50),
             "library_ms": cuda_ms(lambda: sdpa(fqh, fkh, fvh)),
             "wrapper_ms": cuda_ms(lambda: attention.mha_attention_fast(fq, fk, fv))},
-        "attn_int8": {
-            "ms": cuda_ms(lambda: attn_int8._launch(q8, k8, iv, qsc, ks_t, H)),
-            "plain_ms": cuda_ms(lambda: attn_int8._int8_attention_plain(
-                q8, k8, iv, qsc, ksc, H, torch.bfloat16), iters=50),
+        "attn_int8": {       # from the bf16 slices: the Q/K quantization included
+            "ms": cuda_ms(lambda: attn_int8._launch(iq, ik, iv, H)),
+            "plain_ms": cuda_ms(lambda: attn_int8.fused_int8_attention_plain(iq, ik, iv, H),
+                                iters=50),
             # no PyTorch call computes int8-QK^T no-max attention: library_ms is
             # null; SDPA on bf16 at the same shape is logged as a reference point
             "library_ms": None,
@@ -698,7 +777,8 @@ def main() -> int:
 
     with phase("2 kernels-vs-plain"):
         errs = {"attention": check_attention(device)}
-        log(f"attention {ATTN_SHAPE} bf16: max abs err {errs['attention']:.3e} (tol {ATTN_TOL})")
+        log(f"attention {ATTN_SHAPE} bf16: max abs err {errs['attention']:.3e} (tol {ATTN_TOL}); "
+            f"B = 2 at T = {ATTN_T} and logits of about +-{LARGE_LOGIT} ok")
         errs["matcher_bf16"] = check_matcher_bf16(device)
         log(f"bf16 matcher {MATCH_SHAPE} bf16: max abs err {errs['matcher_bf16']:.3e} "
             f"(tol {MATCH_VAL_TOL}), argmax ok; ragged shapes and first-index ties ok")
@@ -713,7 +793,12 @@ def main() -> int:
             f"and underflow rows ok")
         errs["attn_int8"] = check_int8_attention(device)
         log(f"int8 attention {SERVE_ATTN_SHAPE} int8/bf16: max abs err "
-            f"{errs['attn_int8']:.3e} (tol {ATTN_TOL}); padded columns ok")
+            f"{errs['attn_int8']:.3e} (tol {ATTN_TOL}); B = 2 at T = {ATTN_T} and padded "
+            f"columns ok")
+        probe = check_quant_probe(device)
+        log(f"int8 kernel's Q/K quantization equals _quant_th bit for bit on "
+            f"{probe['rows']} rows; _quant_th on the card's tensors differs from it in "
+            f"{probe['card_quant_th_scale_diffs']} scales")
 
     cfg = reference_config()
     model = ServoModel.create(cfg, use_kernels=True, device=device)

@@ -13,7 +13,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import FAST_ATTN_T, MATCH_BF16_SHAPES, underflow_qkv
+from chip_smoke import (ATTN_T, FAST_ATTN_T, LARGE_LOGIT, MATCH_BF16_SHAPES, large_logit_qkv,
+                        underflow_qkv)
 from vitvs_tpu_torch.match.correspondence import cosine_similarity_matrix
 from vitvs_tpu_torch.ops import _build, attention, attn_int8, matcher
 from vitvs_tpu_torch.ops.int_mm import int8_matmul_nt
@@ -61,6 +62,30 @@ def test_attention_kernel_large_logits_stay_finite(cuda):
     ref = attention.mha_attention_plain(q * 30, k * 30, v)
     assert torch.isfinite(out.float()).all()
     assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+
+
+@pytest.mark.parametrize("T", ATTN_T)
+def test_attention_kernel_matches_plain_at_block_edges(cuda, T):
+    """B = 2, 6 heads: 64-key block edges, one and two 128-row blocks, and
+    both work splits (64-row blocks with four key groups while 128-row
+    blocks would not fill the SMs; T = 1370 fills them)."""
+    q, k, v = _bf16((2, T, 6, 64), T + 7)
+    out = attention.mha_attention(q, k, v)
+    ref = attention.mha_attention_plain(q, k, v)
+    assert torch.isfinite(out.float()).all()
+    assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+
+
+def test_attention_kernel_logits_of_200_stay_finite(cuda):
+    """Rows whose scaled logits are all about +200 or -200: the running max
+    keeps exp finite, where the no-max arithmetic overflows."""
+    q, k, v = (torch.from_numpy(x).cuda().to(torch.bfloat16)
+               for x in large_logit_qkv((2, 130, 6, 64), LARGE_LOGIT, seed=12))
+    out = attention.mha_attention(q, k, v)
+    ref = attention.mha_attention_plain(q, k, v)
+    assert torch.isfinite(out.float()).all()
+    assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+    assert not torch.isfinite(attention.mha_attention_fast_plain(q, k, v).float()).all()
 
 
 @pytest.mark.parametrize("t1,t2,d", [(484, 484, 3456), (100, 37, 96), (1, 5, 7), (1369, 700, 130)])
@@ -186,6 +211,38 @@ def test_int8_attention_kernel_matches_plain(cuda, shape):
     assert out.dtype == torch.bfloat16 and out.shape == q.shape
     # the same int8 products; exp2 and sums in another order
     assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+
+
+@pytest.mark.parametrize("T", ATTN_T)
+def test_int8_attention_kernel_matches_plain_at_block_edges(cuda, T):
+    """B = 2, 12 heads, q, k, v column slices of one qkv output."""
+    D = 12 * 64
+    qkv = torch.from_numpy(np.random.default_rng(T).standard_normal((2, T, 3 * D))
+                           .astype(np.float32)).cuda().to(torch.bfloat16)
+    q, k, v = qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
+    out = attn_int8.fused_int8_attention(q, k, v, heads=12)
+    ref = attn_int8.fused_int8_attention_plain(q, k, v, heads=12)
+    assert torch.isfinite(out.float()).all()
+    assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+
+
+@pytest.mark.parametrize("k_path", [False, True], ids=["Q", "K"])
+def test_int8_kernel_quantization_is_quant_th(cuda, k_path):
+    """The kernel's own quantizer against _quant_th on CPU tensors (the
+    reference's arithmetic, a true division by 127): int8 values equal and
+    scales equal bit for bit, zero, large and sub-1e-12 rows included."""
+    D = 12 * 64
+    qkv = torch.from_numpy(np.random.default_rng(8).standard_normal((2, 300, 3 * D))
+                           .astype(np.float32)).cuda().to(torch.bfloat16)
+    qkv[:, 0] = 0
+    qkv[:, 1] *= 1000
+    qkv[:, 2] *= 1e-20
+    x = qkv[..., D:2 * D] if k_path else qkv[..., :D]
+    extra = 1.0 if k_path else attn_int8._q_extra_scale(x, 12)
+    q8, s = attn_int8.quant_th_probe(x, 12, extra, k_path=k_path)
+    ref8, ref_s = attn_int8._quant_th(x.cpu(), 12, extra)
+    assert torch.equal(q8.cpu(), ref8)
+    assert torch.equal(s.cpu().view(torch.int32), ref_s.view(torch.int32))
 
 
 def test_int8_attention_kernel_reads_qkv_column_slices(cuda):

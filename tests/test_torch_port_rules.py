@@ -63,6 +63,8 @@ def test_chip_smoke_kernel_phase_runs_on_cpu():
     assert chip_smoke.check_matcher_bf16("cpu", shapes=[(50, 50, 72), (1, 3, 10), (9, 33, 20)]) == 0.0
     assert chip_smoke.check_attention_fast("cpu", shape=(1, 37, 2, 64)) == 0.0
     assert chip_smoke.check_int8_attention("cpu", shape=(1, 37, 2, 64)) == 0.0
+    assert chip_smoke.check_quant_probe("cpu", shape=(1, 37, 2, 64)) == {
+        "rows": 148, "card_quant_th_scale_diffs": 0}
 
 
 def test_chip_smoke_bounds_follow_the_shapes():

@@ -57,76 +57,13 @@ constexpr int NTHREAD = 128 * (BQ / 64) * KG;     // 512
 constexpr int TILE = BK * HD;       // bf16 elements of one K or V stage
 constexpr int SMEM = STAGES * 2 * TILE * 2 + 1024;   // 197,632 bytes: the ring + alignment slack
 
-// exp2 in one SFU instruction; denormal results flush to 0
-__device__ __forceinline__ float ex2(float x) {
-    float y;
-    asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-    return y;
-}
-
-// wgmma matrix descriptor of a 128B-swizzled tile at a shared address that
-// lies a multiple of 1024 B (8 rows of 128 B) from a 1024-aligned base:
-// stride 1024 B between 8-row groups (the leading offset is unused here)
-__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr) {
-    return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16)
-           | ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit_wait() {
-    asm volatile("wgmma.commit_group.sync.aligned;\nwgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// cp.async writes become visible to wgmma's (async proxy) reads
-__device__ __forceinline__ void fence_async_smem() {
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// D (64 x 64, f32) = A (64 x 16 bf16, registers) B (16 x 64 bf16, shared) + (accumulate ? D : 0);
-// TRANS_B = 0: B's rows in shared memory are its columns (K-major), 1: its rows (MN-major)
-template <int TRANS_B>
-__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[8][4], const uint32_t (&a)[4],
-                                                uint64_t desc, int accumulate) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %38, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "{%32, %33, %34, %35}, %36, p, 1, 1, %37;\n}\n"
-        :
-          "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-          "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "n"(TRANS_B), "r"(accumulate));
-}
-
-// rows [r0, r0 + BK) of one head's K and V into a ring stage, 128B-swizzled:
-// 16-byte chunk c of row r lands at chunk c ^ (r % 8) of that row
+// rows [r0, r0 + BK) of one head's K and V into a ring stage, 128B-swizzled
 __device__ __forceinline__ void load_kv(__nv_bfloat16* ks, __nv_bfloat16* vs,
                                         const __nv_bfloat16* __restrict__ k,
                                         const __nv_bfloat16* __restrict__ v, int r0, int T,
                                         long row_stride, int tid) {
-#pragma unroll
-    for (int i = tid; i < 2 * BK * (HD / 8); i += NTHREAD) {
-        const bool is_v = i >= BK * (HD / 8);
-        const int j = is_v ? i - BK * (HD / 8) : i;
-        const int r = j / (HD / 8), c = j % (HD / 8);
-        const __nv_bfloat16* src = is_v ? v : k;
-        const bool ok = r0 + r < T;
-        cp_async16((is_v ? vs : ks) + r * HD + ((c ^ (r & 7)) * 8),
-                   ok ? src + (long)(r0 + r) * row_stride + c * 8 : src, ok ? 16 : 0);
-    }
-}
-
-__device__ __forceinline__ uint32_t ld_q(const __nv_bfloat16* p, bool ok) {
-    return ok ? *reinterpret_cast<const uint32_t*>(p) : 0u;
+    cp_async_rows_sw128<BK, NTHREAD>(ks, k, r0, T, row_stride, tid);
+    cp_async_rows_sw128<BK, NTHREAD>(vs, v, r0, T, row_stride, tid);
 }
 
 // One warpgroup's 64 rows against keys [k0, k0 + 64) at shared addresses
@@ -141,7 +78,7 @@ __device__ __forceinline__ void key_block(const uint32_t (&qa)[HD / 16][4], uint
     wgmma_fence();
 #pragma unroll
     for (int s = 0; s < HD / 16; ++s)      // 16 head dims a step: 32 B along K's rows
-        wgmma_m64n64k16<0>(sacc, qa[s], gmma_desc(ks_addr + s * 32), s);
+        wgmma_m64n64k16<0>(sacc, qa[s], gmma_desc<128>(ks_addr + s * 32), s);
     wgmma_commit_wait();
 
     uint32_t pa[KSUB / 8][2];
@@ -165,7 +102,7 @@ __device__ __forceinline__ void key_block(const uint32_t (&qa)[HD / 16][4], uint
 #pragma unroll
     for (int j = 0; j < KSUB / 16; ++j) {  // 16 keys a step: 2 swizzle atoms of V's rows
         const uint32_t a[4] = {pa[2 * j][0], pa[2 * j][1], pa[2 * j + 1][0], pa[2 * j + 1][1]};
-        wgmma_m64n64k16<1>(oacc, a, gmma_desc(vs_addr + j * 16 * HD * 2), 1);
+        wgmma_m64n64k16<1>(oacc, a, gmma_desc<128>(vs_addr + j * 16 * HD * 2), 1);
     }
     wgmma_commit_wait();
 }
@@ -202,13 +139,7 @@ attention_fast_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
     const __nv_bfloat16* q0p = q + base + (long)row0 * row_stride + 2 * t4;
     const __nv_bfloat16* q1p = q + base + (long)row1 * row_stride + 2 * t4;
     uint32_t qa[HD / 16][4];
-#pragma unroll
-    for (int s = 0; s < HD / 16; ++s) {
-        qa[s][0] = ld_q(q0p + s * 16, row0 < T);
-        qa[s][1] = ld_q(q1p + s * 16, row1 < T);
-        qa[s][2] = ld_q(q0p + s * 16 + 8, row0 < T);
-        qa[s][3] = ld_q(q1p + s * 16 + 8, row1 < T);
-    }
+    load_q_bf16(qa, q0p, q1p, row0 < T, row1 < T);
 
     float oacc[HD / 8][4];
 #pragma unroll

@@ -87,7 +87,7 @@ class ServoModel:
         ViTConfig (quant_attn matters only with quantized=True)."""
         if cfg.attn_score != "softmax" or cfg.kv_pool != 1:
             raise NotImplementedError("attn_score and kv_pool are not ported "
-                                      "(ROADMAP.md queue 1, item 9)")
+                                      "(ROADMAP.md queue 1, item 3)")
         if compute_dtype is None:
             compute_dtype = getattr(torch, cfg.compute_dtype)
         vit = dataclasses.replace(make_config(cfg.model_name, cfg.stride),

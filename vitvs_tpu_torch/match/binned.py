@@ -10,7 +10,7 @@ values equal quantizing the materialized binned rows on the same grid.
 
 ``binned_cosine_similarity`` and ``fast_binned_match`` (the factorized
 similarity) are not ported: the serving step does not run them (ROADMAP.md
-queue 1, item 9).
+queue 1, item 3).
 """
 
 from __future__ import annotations

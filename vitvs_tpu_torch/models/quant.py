@@ -14,7 +14,7 @@ Attention inside the int8 block follows ``ViTConfig.quant_attn``:
 (``ops/attn_int8.py``), each the CUDA kernel on the card or its plain
 version.  The other modes of the JAX package ('pv', 'qk+pv', 'nomax',
 'nomax2', 'nomax3'), ``kv_pool``, ``attn_score`` and the 'attn' facet are
-not ported (ROADMAP.md queue 1, item 9).
+not ported (ROADMAP.md queue 1, item 3).
 
 Dtype points follow the JAX package: activation scales are f32, the
 inverse scale is rounded to the activation dtype and ``round(x * inv)``
@@ -200,7 +200,7 @@ def vit_features_quant(qnet: QuantViT, images: torch.Tensor, layer: int = 11,
     'token' -> (B, 1+t, D); 'query' | 'key' | 'value' -> (B, h, 1+t, hd)."""
     if facet == "attn":
         raise NotImplementedError("the 'attn' facet of the int8 path is not ported "
-                                  "(ROADMAP.md queue 1, item 9)")
+                                  "(ROADMAP.md queue 1, item 3)")
     if facet not in ("token", "query", "key", "value"):
         raise ValueError(f"unsupported facet {facet!r}")
     cfg = qnet.cfg

@@ -36,7 +36,8 @@ from vitvs_tpu_torch.ops.attention import (mha_attention, mha_attention_fast_pla
 # port runs them all as exact softmax.  'fast' is the no-max serving kernel.
 ATTN_IMPLS = ("xla", "pallas", "auto", "fast")
 # int8 serving attention modes of models/quant.py that the port runs; the
-# others ('pv', 'qk+pv', 'nomax', 'nomax2', 'nomax3') are ROADMAP item 9's
+# others ('pv', 'qk+pv', 'nomax', 'nomax2', 'nomax3') wait for ROADMAP.md
+# queue 1, item 3
 QUANT_ATTN_MODES = ("none", "fused")
 
 
@@ -62,7 +63,7 @@ class ViTConfig:
             raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {self.attn_impl!r}")
         if self.quant_attn not in QUANT_ATTN_MODES:
             raise NotImplementedError(
-                f"quant_attn={self.quant_attn!r} is not ported (ROADMAP.md queue 1, item 9); "
+                f"quant_attn={self.quant_attn!r} is not ported (ROADMAP.md queue 1, item 3); "
                 f"the port runs {QUANT_ATTN_MODES}")
 
     @property

@@ -29,12 +29,14 @@ BUILD_DIR = PKG_DIR / "_build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
 # C entry points: (argtypes, restype)
 _SIGNATURES = {
     "vitvs_attention_fwd": ([_P, _P, _P, _P, _I, _I, _I, _P], _I),
+    "vitvs_attention_split_fwd": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
     "vitvs_attention_fast_fwd": ([_P, _P, _P, _P, _I, _I, _I, _P], _I),
-    "vitvs_attn_int8_fwd": ([_P] * 6 + [_I, _I, _I, _L, _L, _P], _I),
+    "vitvs_attn_int8_fwd": ([_P] * 4 + [_I] * 3 + [_L] * 6 + [_F, _P], _I),
+    "vitvs_quant_th_probe": ([_P] * 3 + [_I, _I, _L, _F, _I, _P], _I),
     "vitvs_dual_argmax_cosine": ([_P] * 12 + [_I, _I, _I, _P], _I),
     "vitvs_dual_argmax_bf16": ([_P] * 7 + [_I, _I, _I, _P], _I),
     "vitvs_matcher_row_tile": ([], _I),
@@ -54,6 +56,12 @@ def _nvcc() -> str:
     return found
 
 
+def sources() -> tuple[list[Path], list[Path]]:
+    """The CUDA sources (one object each) and the headers they share (which
+    enter the library's hash)."""
+    return sorted(CSRC_DIR.glob("*.cu")), sorted(CSRC_DIR.glob("*.cuh"))
+
+
 def _digest(srcs: list[Path]) -> str:
     h = hashlib.sha256(" ".join(COMPILE_FLAGS).encode())
     for p in srcs:
@@ -70,10 +78,10 @@ def build() -> dict:
     output (the ``-Xptxas -v`` register and shared-memory lines).  Raises
     when nvcc fails.
     """
-    srcs = sorted(CSRC_DIR.glob("*.cu"))
+    srcs, headers = sources()
     if not srcs:
         raise RuntimeError(f"no CUDA sources under {CSRC_DIR}")
-    tag = _digest(srcs + sorted(CSRC_DIR.glob("*.cuh")))
+    tag = _digest(srcs + headers)
     lib = BUILD_DIR / f"libvitvs_kernels-{tag}.so"
     log = BUILD_DIR / f"libvitvs_kernels-{tag}.log"
     if lib.is_file():

@@ -2,12 +2,12 @@
 
 Replaces ``vitvs_tpu/ops/attention.py:mha_attention``.  fast=False: the
 Pallas kernel ``_flash_kernel`` scores each Q tile against the whole K/V in
-VMEM.  On the card the kernel is ``csrc/attention.cu``: K/V stream through
-shared memory with an online softmax, since the whole K/V of a head does not
-fit a block's static shared memory.  Bound on the H100 at (1, 485, 6, 64):
-bytes, 4 x 372 KB in 0.44 us at 3.35 TB/s (0.36 GFLOP take 0.37 us on the
-tensor cores); the kernel keeps the scores on chip and reads each K/V tile
-once per 64 query rows.
+VMEM.  On the card the kernel is ``csrc/attention.cu``: wgmma on the bf16
+tensor cores with the scores and P in registers, K/V in 128-byte-swizzled
+shared memory (the whole K/V of a head at T <= 512, a cp.async ring beyond),
+a running row max, and key groups of warpgroups merged at the end.  Bound on
+the H100 at (1, 485, 6, 64): bytes, 4 x 372 KB in 0.44 us at 3.35 TB/s
+(0.36 GFLOP take 0.37 us on the tensor cores).
 
 fast=True: the no-max, deferred-normalize serving kernel ``_fast_kernel``
 (bounded logits).  Q is scaled by hd^-0.5 * log2(e) in Q's dtype before
@@ -81,14 +81,21 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"attention kernel runs on CUDA tensors, q is on {q.device}")
 
 
-def _launch(entry: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """One kernel launch on inputs that passed :func:`_check`."""
+# the exact kernel's work splits (csrc/attention.cu), which vitvs_attention_fwd
+# picks between by the grid's size; named to time each (chip_smoke.py)
+EXACT_SPLITS = {"64-row": 1, "128-row": 2}
+
+
+def _launch(entry: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            *split: int) -> torch.Tensor:
+    """One kernel launch on inputs that passed :func:`_check` (``split``:
+    the work split of ``vitvs_attention_split_fwd``)."""
     B, T, H, _ = q.shape
     out = torch.empty_like(q)
     lib = _build.library()
     with torch.cuda.device(q.device):
         err = getattr(lib, entry)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, T, H,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, T, H, *split,
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, entry)
     return out

@@ -3,20 +3,23 @@ layout.
 
 Replaces ``vitvs_tpu/ops/attn_int8.py:fused_int8_attention``, whose Pallas
 kernel ``_kernel`` runs int8 QK^T, a dequantizing FMA with a -1e30 pad bias,
-a no-max exp2 softmax and bf16 P.V with the score tile resident in VMEM.
-As there, Q and K are quantized per (token, head) outside the kernel
-(:func:`_quant_th`, plain torch), with hd^-0.5 * log2(e) folded into the Q
-scales.  On the card the kernel is ``csrc/attn_int8.cu``: heads are a grid
-axis, K/V stream through shared memory in 64-row tiles, the score product
-runs on the int8 tensor cores and P.V on the bf16 ones.  V is read in place
-with its row stride (the qkv output's column slice, no copy).  Bound on the
-H100 at (1, 1370, 12 * 64): operations, 2.9 G int8 operations at 1979 TOPS
-plus 2.9 GFLOP of bf16 P.V at 989 TFLOP/s, 4.4 us.
+a no-max exp2 softmax and bf16 P.V with the score tile resident in VMEM,
+after Q and K are quantized per (token, head) (:func:`_quant_th`, with
+hd^-0.5 * log2(e) folded into the Q scales).  On the card one launch of
+``csrc/attn_int8.cu`` does all of it: the kernel reads the bf16 q, k, v
+column slices of the qkv output in place at their strides, quantizes Q and
+K itself in ``_quant_th``'s arithmetic, runs the score product on the int8
+tensor cores (wgmma s8) and P.V on the bf16 ones; heads are a grid axis and
+K/V stream through shared memory.  Bound on the H100 at (1, 1370, 12 * 64):
+operations, 2.9 G int8 operations at 1979 TOPS plus 2.9 GFLOP of bf16 P.V
+at 989 TFLOP/s, 4.4 us.
 
 ``fused_int8_attention`` launches the kernel for CUDA tensors and takes the
 plain version only for CPU tensors.  ``fused_int8_attention_plain`` is the
 plain version: it computes the kernel's int8 arithmetic (not exact softmax,
 which the JAX function returns off the TPU unless run in interpret mode).
+``quant_th_probe`` runs the kernel's own quantization on a matrix, so that
+it can be held to :func:`_quant_th` bit for bit.
 """
 
 from __future__ import annotations
@@ -74,10 +77,10 @@ def fused_int8_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     return _int8_attention_plain(q8, k8, v, qs, ks, heads, q.dtype)
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int) -> None:
-    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
-        raise ValueError(f"int8 attention kernel runs on CUDA tensors; q, k, v are on "
-                         f"{q.device}, {k.device}, {v.device}")
+def _check_layout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int) -> None:
+    """What the kernel reads, on any device: bf16 (B, T, heads * 64) q, k, v
+    of one shape, each at unit column stride with 16-byte aligned rows (a
+    column slice of the qkv output is read in place)."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype != torch.bfloat16:
             raise TypeError(f"int8 attention kernel takes bfloat16, {name} is {t.dtype}")
@@ -86,9 +89,27 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int) -> Non
     if q.dim() != 3 or q.shape[1] < 1 or q.shape[2] != heads * HEAD_DIM:
         raise ValueError(f"int8 attention kernel takes (B, T, {heads} * {HEAD_DIM}), "
                          f"got {tuple(q.shape)}")
-    if v.stride(2) != 1 or v.stride(1) % 8 or v.stride(0) % 8 or v.data_ptr() % 16:
-        raise ValueError(f"v rows must be 16-byte aligned with unit column stride, "
-                         f"strides {v.stride()}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if (t.stride(2) != 1 or t.data_ptr() % 16
+                or any(t.stride(d) % 8 for d in (0, 1) if t.shape[d] > 1)):
+            raise ValueError(f"{name} rows must be 16-byte aligned with unit column stride, "
+                             f"strides {t.stride()}")
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int) -> None:
+    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
+        raise ValueError(f"int8 attention kernel runs on CUDA tensors; q, k, v are on "
+                         f"{q.device}, {k.device}, {v.device}")
+    _check_layout(q, k, v, heads)
+
+
+def _kernel_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int) -> tuple:
+    """The kernel's shape and stride arguments for inputs that passed
+    :func:`_check_layout`: B, T, H, the (batch, row) strides of q, k and v
+    in elements, and the Q scale factor hd^-0.5 log2(e)."""
+    B, T, _ = q.shape
+    strides = [s for t in (q, k, v) for s in (t.stride(0), t.stride(1))]
+    return (B, T, heads, *strides, _q_extra_scale(q, heads))
 
 
 def fused_int8_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -96,33 +117,51 @@ def fused_int8_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(B, T, H*hd) q, k, v (column slices of the qkv output may be passed
     as they are) -> (B, T, H*hd) attention output in q's dtype.
 
-    CUDA tensors: quantize Q/K here, then the kernel (bf16, hd = 64), or an
-    error.  CPU tensors: :func:`fused_int8_attention_plain`.
+    CUDA tensors: one launch of the kernel, which quantizes Q and K itself
+    (bf16, hd = 64), or an error.  CPU tensors:
+    :func:`fused_int8_attention_plain`.
     """
     if q.device.type == "cpu":
         return fused_int8_attention_plain(q, k, v, heads)
     _check(q, k, v, heads)
-    q8, qs = _quant_th(q, heads, _q_extra_scale(q, heads))
-    k8, ks = _quant_th(k, heads)
-    out = _launch(q8, k8, v, qs, ks.transpose(1, 2).contiguous(), heads)
+    out = _launch(q, k, v, heads)
     fused_int8_attention.launches += 1
     return out
 
 
-def _launch(q8, k8, v, qs, ks_t, heads: int) -> torch.Tensor:
-    """The kernel on quantized inputs: q8, k8 (B, T, D) int8 contiguous,
-    v bf16 rows at unit column stride, qs (B, T, H) and ks_t (B, H, T) f32
-    contiguous -> (B, T, D) bf16."""
-    B, T, D = q8.shape
-    out = torch.empty((B, T, D), dtype=v.dtype, device=v.device)
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int) -> torch.Tensor:
+    """The kernel on bf16 q, k, v that passed :func:`_check` -> (B, T, D) bf16."""
+    out = torch.empty(q.shape, dtype=torch.bfloat16, device=q.device)
     lib = _build.library()
-    with torch.cuda.device(v.device):
+    with torch.cuda.device(q.device):
         err = lib.vitvs_attn_int8_fwd(
-            q8.data_ptr(), k8.data_ptr(), v.data_ptr(), qs.data_ptr(), ks_t.data_ptr(),
-            out.data_ptr(), B, T, heads, v.stride(0), v.stride(1),
-            torch.cuda.current_stream(v.device).cuda_stream)
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            *_kernel_args(q, k, v, heads), torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "int8 attention")
     return out
+
+
+def quant_th_probe(x: torch.Tensor, heads: int, extra_scale: float = 1.0,
+                   k_path: bool = False):
+    """:func:`_quant_th` computed by the attention kernel's own quantizer
+    (its Q path, or with ``k_path`` its K path): (B, T, H*64) bf16 -> int8
+    (B, T, H*64) and f32 scales (B, T, H), the scales times
+    ``extra_scale``.  CPU tensors: :func:`_quant_th`."""
+    if x.device.type == "cpu":
+        return _quant_th(x, heads, extra_scale)
+    _check(x, x, x, heads)
+    B, T, D = x.shape
+    if B > 1 and x.stride(0) != T * x.stride(1):
+        raise ValueError(f"the probe takes rows at one stride, strides {x.stride()}")
+    q8 = torch.empty((B, T, D), dtype=torch.int8, device=x.device)
+    s = torch.empty((B, T, heads), dtype=torch.float32, device=x.device)
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        err = lib.vitvs_quant_th_probe(x.data_ptr(), q8.data_ptr(), s.data_ptr(), B * T, heads,
+                                       x.stride(1), extra_scale, int(k_path),
+                                       torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "quantization probe")
+    return q8, s
 
 
 fused_int8_attention.launches = 0
