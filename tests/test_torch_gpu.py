@@ -13,7 +13,9 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (ATTN_T, FAST_ATTN_T, LARGE_LOGIT, MATCH_BF16_SHAPES, large_logit_qkv,
+import chip_smoke
+from chip_smoke import (ATTN_F32_T, ATTN_F32_TOL, ATTN_T, FAST_ATTN_T, LARGE_LOGIT,
+                        LARGE_LOGIT_F32_TOL, MATCH_BF16_SHAPES, MATCH_F32_SHAPES, large_logit_qkv,
                         underflow_qkv)
 from vitvs_tpu_torch.match.correspondence import cosine_similarity_matrix
 from vitvs_tpu_torch.ops import _build, attention, attn_int8, matcher
@@ -39,7 +41,7 @@ def test_kernels_build_into_package_build_dir(cuda):
     info = _build.build()
     assert Path(info["path"]).is_file()
     assert Path(info["path"]).parent == _build.BUILD_DIR
-    assert _build.library().vitvs_matcher_row_tile() > 0
+    assert _build.library().vitvs_error_string(0)
 
 
 @pytest.mark.parametrize("shape", [(1, 485, 6, 64), (2, 64, 3, 64), (1, 1, 2, 64),
@@ -156,8 +158,8 @@ def test_matcher_bf16_kernel_refuses_other_dtypes(cuda):
 
 def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     q, k, v = _bf16((1, 16, 2, 64), 1)
-    with pytest.raises(TypeError):
-        attention.mha_attention(q.float(), k.float(), v.float())
+    with pytest.raises(TypeError):      # f32 has its own kernel; f16 has none
+        attention.mha_attention(q.half(), k.half(), v.half())
     with pytest.raises(ValueError):
         attention.mha_attention(q[..., :32].contiguous(), k[..., :32].contiguous(),
                                 v[..., :32].contiguous())
@@ -307,3 +309,125 @@ def test_int8_cosine_similarity_matches_cpu(cuda):
     # an int8 value may round the other way where the f32 row norms differ
     # in the last bit; each such flip moves a similarity by about 5e-6
     assert (got - ref).abs().max().item() <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# the f32 step: f32 exact attention (fault 3.4) and the f32 matcher
+# ---------------------------------------------------------------------------
+
+
+def _f32(shape, seed):
+    rs = np.random.default_rng(seed)
+    return [torch.from_numpy(rs.standard_normal(shape).astype(np.float32)).cuda()
+            for _ in range(3)]
+
+
+@pytest.mark.parametrize("shape", [(1, 485, 6, 64), (1, 1370, 12, 64)]
+                         + [(2, T, 6, 64) for T in ATTN_F32_T])
+def test_attention_f32_kernel_matches_plain(cuda, shape):
+    """f32 inputs launch the f32 kernel (its own count, not the bf16 one's):
+    f32 out, within ATTN_F32_TOL of the plain version at 64-key chunk edges,
+    T = 1 and B = 2."""
+    q, k, v = _f32(shape, sum(shape) + 3)
+    before = (attention.mha_attention.launches, attention.mha_attention_f32.launches)
+    out = attention.mha_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert (attention.mha_attention.launches,
+            attention.mha_attention_f32.launches) == (before[0], before[1] + 1)
+    ref = attention.mha_attention_plain(q, k, v)
+    assert out.dtype == torch.float32 and out.shape == q.shape
+    assert (out - ref).abs().max().item() <= ATTN_F32_TOL
+
+
+def test_attention_f32_kernel_logits_of_200(cuda):
+    """Scaled logits of about +-200: the running max keeps exp finite; the
+    f32 dot products of about 1600 carry 1.2e-4 ulps, hence the looser
+    tolerance."""
+    q, k, v = (torch.from_numpy(x).cuda()
+               for x in large_logit_qkv((2, 130, 6, 64), LARGE_LOGIT, seed=12))
+    out = attention.mha_attention(q, k, v)
+    ref = attention.mha_attention_plain(q, k, v)
+    assert torch.isfinite(out).all()
+    assert (out - ref).abs().max().item() <= LARGE_LOGIT_F32_TOL
+
+
+@pytest.mark.parametrize("t1,t2,d", MATCH_F32_SHAPES)
+def test_matcher_f32_kernel_ragged_depths(cuda, t1, t2, d):
+    """Depths of 1, 3, 97 and others that leave ragged chunks and empty
+    slices of a cluster's CTAs: one launch, maxima within 1e-4, argmax equal
+    or a tie within 1e-5."""
+    rs = np.random.default_rng(t1 + t2 + d)
+    a = torch.from_numpy(rs.standard_normal((t1, d)).astype(np.float32)).cuda()
+    b = torch.from_numpy(rs.standard_normal((t2, d)).astype(np.float32)).cuda()
+    before = (matcher.dual_argmax_cosine.launches, matcher.dual_argmax_cosine_bf16.launches)
+    got = matcher.dual_argmax_cosine(a, b)
+    torch.cuda.synchronize()
+    assert (matcher.dual_argmax_cosine.launches,
+            matcher.dual_argmax_cosine_bf16.launches) == (before[0] + 1, before[1])
+    ref = matcher.dual_argmax_cosine_plain(a, b)
+    sim = (a * matcher.inverse_norms(a)[:, None]) @ (b * matcher.inverse_norms(b)[:, None]).T
+    for v, rv in ((got[0], ref[0]), (got[2], ref[2])):
+        assert v.dtype == torch.float32 and (v - rv).abs().max().item() <= 1e-4
+    rows, cols = torch.arange(t1, device=cuda), torch.arange(t2, device=cuda)
+    assert ((got[1] == ref[1]) | (sim[rows, got[1].long()] >= ref[0] - 1e-5)).all()
+    assert ((got[3] == ref[3]) | (sim[got[3].long(), cols] >= ref[2] - 1e-5)).all()
+
+
+def test_matcher_f32_kernel_is_deterministic(cuda):
+    """The partial sums of a cluster meet in rank order: two launches on the
+    same inputs give the same bits."""
+    rs = np.random.default_rng(21)
+    a = torch.from_numpy(rs.standard_normal((484, 3456)).astype(np.float32)).cuda()
+    b = torch.from_numpy(rs.standard_normal((484, 3456)).astype(np.float32)).cuda()
+    first = matcher.dual_argmax_cosine(a, b)
+    for _ in range(3):
+        again = matcher.dual_argmax_cosine(a, b)
+        assert torch.equal(first[0].view(torch.int32), again[0].view(torch.int32))
+        assert torch.equal(first[2].view(torch.int32), again[2].view(torch.int32))
+        assert torch.equal(first[1], again[1]) and torch.equal(first[3], again[3])
+
+
+def test_matcher_f32_kernel_exact_ties_take_first_index(cuda):
+    """Row i + 300 repeats row i on both sides: exact ties across row tiles,
+    column tiles and clusters go to the first index."""
+    rs = np.random.default_rng(11)
+    base = torch.from_numpy(rs.standard_normal((300, 3456)).astype(np.float32)).cuda()
+    twice = torch.cat([base, base])
+    for _ in range(3):
+        _, nn_1, _, nn_2 = matcher.dual_argmax_cosine(twice, twice)
+        assert nn_1.tolist() == list(range(300)) * 2
+        assert nn_2.tolist() == list(range(300)) * 2
+
+
+def test_f32_servo_step_with_kernels_matches_plain(cuda):
+    """The f32 step (ViT-S/14 @ 308, f32, exact GELU, seeded weights):
+    goal_descriptors + 5 servo steps through the kernels against the plain
+    run, at chip_smoke.py's f32 tolerances; 72 f32 attention and 5 f32
+    matcher launches, no other kernel."""
+    cfg = chip_smoke.reference_config()
+    net, model = chip_smoke.f32_step(cfg, "cuda")
+    summary = chip_smoke.run_main_path(net, cfg, model, tol=chip_smoke.F32_TOL)
+    want = dict.fromkeys(summary["launches"], 0)
+    want.update(attention_f32=12 * 6, matcher=5)
+    assert summary["launches"] == want
+    assert summary["steps_compared"] >= 1
+
+
+@pytest.mark.parametrize("mode", ["f32", "bf16"])
+def test_matcher_kernels_leave_their_scratch_zero(cuda, mode):
+    """The last block zeroes the packed keys it decoded: a launch after one
+    with larger similarities (identical rows) and more rows still gives the
+    plain version's maxima, and the scratch is all zero afterwards."""
+    fn, plain = ((matcher.dual_argmax_cosine, matcher.dual_argmax_cosine_plain) if mode == "f32"
+                 else (matcher.dual_argmax_cosine_bf16, matcher.dual_argmax_cosine_bf16_plain))
+    dtype = torch.float32 if mode == "f32" else torch.bfloat16
+    rs = np.random.default_rng(31)
+    same = torch.from_numpy(rs.standard_normal((400, 256)).astype(np.float32)).cuda().to(dtype)
+    fn(same, same)                              # every maximum about 1
+    a = torch.from_numpy(rs.standard_normal((150, 256)).astype(np.float32)).cuda().to(dtype)
+    b = torch.from_numpy(rs.standard_normal((170, 256)).astype(np.float32)).cuda().to(dtype)
+    got, ref = fn(a, b), plain(a, b)
+    torch.cuda.synchronize()
+    assert (got[0] - ref[0]).abs().max().item() <= 1e-4
+    assert (got[2] - ref[2]).abs().max().item() <= 1e-4
+    assert all(int(buf.abs().sum()) == 0 for buf in matcher._keys_scratch.values())

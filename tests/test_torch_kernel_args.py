@@ -1,5 +1,7 @@
 """What the port's kernel wrappers hand the CUDA kernels, checked on the CPU
-before any launch: the fused int8 attention kernel's layout checks, the
+before any launch: which exact attention kernel a dtype goes to and what
+both refuse, the f32 matcher's cluster grid and depth slices, the fused
+int8 attention kernel's layout checks, the
 shapes and strides it is given for the bf16 q, k, v column slices of the
 qkv output, the arithmetic of its in-kernel Q/K quantization (a numpy model
 of its quantizer held to ``_quant_th``), and the build's list of sources
@@ -12,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from vitvs_tpu_torch.ops import _build, attn_int8
+from vitvs_tpu_torch.ops import _build, attention, attn_int8, matcher
 
 RNG = np.random.default_rng(17)
 
@@ -155,8 +157,8 @@ def test_build_sources_and_entry_points():
     hash; every C entry point the sources define is bound with its number of
     arguments, and nothing else is."""
     srcs, headers = _build.sources()
-    assert [p.name for p in srcs] == ["attention.cu", "attention_fast.cu", "attn_int8.cu",
-                                      "matcher.cu"]
+    assert [p.name for p in srcs] == ["attention.cu", "attention_f32.cu", "attention_fast.cu",
+                                      "attn_int8.cu", "matcher.cu"]
     assert [p.name for p in headers] == ["sm90_ptx.cuh"]
     entries = {}
     for p in srcs:
@@ -175,3 +177,107 @@ def test_int8_entry_point_takes_strides_and_q_scale():
     # q, k, v, o; B, T, H; six strides; the Q scale factor; the stream
     assert argtypes == ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_long] * 6
                         + [ctypes.c_float, ctypes.c_void_p])
+
+
+def _heads(shape, dtype):
+    return [torch.from_numpy(RNG.standard_normal(shape).astype(np.float32)).to(dtype)
+            for _ in range(3)]
+
+
+@pytest.mark.parametrize("dtype,entry", [(torch.bfloat16, "vitvs_attention_fwd"),
+                                         (torch.float32, "vitvs_attention_f32_fwd")])
+def test_exact_attention_routes_by_dtype(no_library, dtype, entry):
+    """bf16 inputs go to the exact kernel, f32 ones to the f32 kernel (the
+    f32 step's attention, fault 3.4), each with its own launch count."""
+    q, k, v = _heads((2, 37, 3, 64), dtype)
+    assert attention.exact_entry(q, k, v) == entry
+    counters = (attention.mha_attention.launches, attention.mha_attention_f32.launches)
+    out = attention.mha_attention(q, k, v)      # CPU tensors: the plain version
+    assert out.dtype == dtype and out.shape == q.shape
+    assert (attention.mha_attention.launches, attention.mha_attention_f32.launches) == counters
+
+
+@pytest.mark.parametrize("case", ["float16", "float64", "mixed", "head_dim_32", "shape_mismatch",
+                                  "not_contiguous", "unaligned"])
+def test_exact_attention_refuses_what_neither_kernel_reads(no_library, case):
+    """Refused before any launch: a dtype other than bf16 and f32, mixed
+    dtypes, a head dim other than 64, mismatched shapes, strided or
+    unaligned rows."""
+    q, k, v = _heads((1, 20, 2, 64), torch.float32)
+    err = ValueError
+    if case in ("float16", "float64"):
+        q, k, v = (x.to(getattr(torch, case)) for x in (q, k, v))
+        err = TypeError
+    elif case == "mixed":
+        k, err = k.bfloat16(), TypeError
+    elif case == "head_dim_32":
+        q, k, v = _heads((1, 20, 4, 32), torch.float32)
+    elif case == "shape_mismatch":
+        v = v[:, :-1].contiguous()
+    elif case == "not_contiguous":
+        q = q.transpose(1, 2).contiguous().transpose(1, 2)
+    else:                                       # one float (4 bytes) into a buffer
+        buf = torch.zeros(20 * 2 * 64 + 1)
+        q = buf[1:].view(1, 20, 2, 64)
+    with pytest.raises(err):
+        attention.exact_entry(q, k, v)
+    with pytest.raises((TypeError, ValueError)):
+        attention._check(q, k, v, q.dtype)      # and never a CPU tensor
+
+
+@pytest.mark.parametrize("t1,t2,d,want", [
+    (484, 484, 3456, (64, 8, 448)),             # the main path: 64 clusters, 512 CTAs
+    (1, 1, 1, (8, 1, 32)),                      # one chunk: ranks 1-7 take none
+    (33, 65, 3, (16, 1, 32)),
+    (65, 33, 97, (8, 2, 32)),                   # four chunks, the last one ragged
+    (100, 37, 100, (8, 2, 32)),
+    (485, 485, 130, (64, 8, 32)),               # 5 chunks: 1 a rank, ranks 5-7 none
+    (484, 484, 3460, (64, 8, 448)),             # 109 chunks: 14 a rank, 11 in the last
+    (1369, 700, 6912, (88, 22, 864)),
+])
+def test_f32_matcher_launch_splits_depth_over_a_cluster(t1, t2, d, want):
+    """One cluster of 8 CTAs per 64 x 64 tile along grid x; each CTA a
+    slice of d in whole 32-deep chunks that together cover d with less
+    than one chunk a rank to spare (the kernel zero-fills past d)."""
+    gx, gy, d_slice = matcher.f32_launch(t1, t2, d)
+    assert (gx, gy, d_slice) == want
+    assert gx % matcher.F32_CLUSTER == 0
+    tiles = gx // matcher.F32_CLUSTER
+    assert tiles * matcher.F32_TILE >= t2 > (tiles - 1) * matcher.F32_TILE
+    assert gy * matcher.F32_TILE >= t1 > (gy - 1) * matcher.F32_TILE
+    assert d_slice % matcher.F32_CHUNK == 0
+    assert matcher.F32_CLUSTER * d_slice >= d > matcher.F32_CLUSTER * (d_slice - matcher.F32_CHUNK)
+
+
+def test_f32_matcher_kernel_constants_match_the_wrapper():
+    """csrc/matcher.cu refuses launch arguments from other tile constants:
+    the wrapper's must be the kernel's."""
+    text = (_build.CSRC_DIR / "matcher.cu").read_text()
+    consts = {k: int(v) for k, v in re.findall(r"constexpr int (F\w+) = (\d+);", text)}
+    assert (consts["FT"], consts["FCL"], consts["FDK"]) == (
+        matcher.F32_TILE, matcher.F32_CLUSTER, matcher.F32_CHUNK)
+
+
+def test_f32_matcher_takes_plain_version_on_cpu(no_library):
+    """CPU tensors of any float dtype: the plain version, no launch."""
+    a, b = (torch.from_numpy(RNG.standard_normal((9, 13)).astype(np.float32)) for _ in range(2))
+    before = matcher.dual_argmax_cosine.launches
+    for x, y in ((a, b), (a.bfloat16(), b.bfloat16())):
+        got = matcher.dual_argmax_cosine(x, y)
+        ref = matcher.dual_argmax_cosine_plain(x, y)
+        assert all(torch.equal(g, r) for g, r in zip(got, ref))
+    assert matcher.dual_argmax_cosine.launches == before
+
+
+def test_matcher_key_scratch_is_kept_per_device_and_grown():
+    """The kernels' key scratch: zero, reused while large enough, replaced by
+    a larger zero buffer when a launch needs more."""
+    matcher._keys_scratch.clear()
+    cpu = torch.device("cpu")
+    first = matcher._keys(cpu, 10)
+    assert first.dtype == torch.int64 and first.numel() == 10 and not first.any()
+    assert matcher._keys(cpu, 7) is first
+    bigger = matcher._keys(cpu, 11)
+    assert bigger is not first and bigger.numel() == 11 and not bigger.any()
+    assert matcher._keys(cpu, 11) is bigger
+    matcher._keys_scratch.clear()

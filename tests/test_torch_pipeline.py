@@ -268,3 +268,63 @@ def test_quantized_model_checks_its_vit():
         tpipe.goal_descriptors(qnet, tmodel, goal)
     desc = tpipe.goal_descriptors(qnet, dataclasses.replace(qmodel, fused_bin_quant=False), goal)
     assert desc.shape == (qmodel.grid()[0] * qmodel.grid()[1], qmodel.desc_dim())
+
+
+def test_f32_servo_step_full_size_on_trained_weights_matches():
+    """The f32 step at full size (ROADMAP.md fault 3.4's path: f32 compute,
+    exact GELU, the reference's strict-parity numerics): ViT-S/14 @ 308 on
+    the trained ckpt_real308, layer-11 binned descriptors (d = 3456), the
+    dls solve, against vitvs_tpu's f32 step on the CPU.  The frames are two
+    308 px crops of a seeded smoothed texture shifted by (6, 9) px, so the
+    preprocess keeps the size; the goal descriptors agree within 1e-4
+    (largest magnitude about 9), every nearest neighbour agrees both ways,
+    and two steps select the same pairs with the velocity within 1e-5
+    (4.7e-6 seen, on velocities of about 1e-2)."""
+    import os
+
+    from vitvs_tpu.models.convert import load_params
+    from vitvs_tpu.ops import matcher as jm
+    from vitvs_tpu_torch.ops import matcher as tm
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    params = jax.tree.map(np.asarray, load_params(os.path.join(repo, "artifacts", "ckpt_real308")))
+    kw = dict(u_max=308, v_max=308, pinv_mode="dls")
+    jmodel = jpipe.ServoModel.create(JVSConfig(**kw), compute_dtype=jnp.float32, gelu_approx=False)
+    tmodel = tpipe.ServoModel.create(TVSConfig(**kw), compute_dtype=torch.float32,
+                                     gelu_approx=False, device="cpu")
+    assert tmodel.grid() == (22, 22) and tmodel.desc_dim() == 3456
+    net = tmodel.load_vit(from_jax_params(params))
+    big = texture(340, 340, seed=3)
+    goal, frame = big[16:324, 16:324], big[22:330, 25:333]
+    depth = np.full((308, 308), 0.6, np.float32)
+
+    jg = jpipe.goal_descriptors(params, jmodel, jnp.asarray(goal))
+    tg = tpipe.goal_descriptors(net, tmodel, goal)
+    assert tg.shape == (484, 3456) and tg.dtype == torch.float32
+    np.testing.assert_allclose(tg.numpy(), np.asarray(jg), rtol=0, atol=1e-4)
+    jf = jpipe.goal_descriptors(params, jmodel, jnp.asarray(frame))
+    tf = tpipe.goal_descriptors(net, tmodel, frame)
+    ref, got = jm.dual_argmax_cosine(jf, jg), tm.dual_argmax_cosine(tf, tg)
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(ref[1]))
+    np.testing.assert_array_equal(got[3].numpy(), np.asarray(ref[3]))
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(ref[0]), rtol=0, atol=1e-6)
+
+    jema, jprev = JEma.init(), jnp.zeros(6)
+    tema, tprev = TEma.init(device="cpu"), torch.zeros(6)
+    for i in range(2):
+        key = jax.random.PRNGKey(50 + i)
+        jr = jpipe.servo_step(params, jmodel, jg, jnp.asarray(frame), jnp.asarray(depth),
+                              jema, jprev, key)
+        scores = torch.tensor(np.asarray(jax.random.uniform(key, (484,))))
+        tr = tpipe.servo_step(net, tmodel, tg, frame, depth, tema, tprev, scores=scores)
+        for name in ("valid", "num_valid", "feature_ok", "s_uv_star"):
+            np.testing.assert_array_equal(getattr(tr, name).numpy(),
+                                          np.asarray(getattr(jr, name)), err_msg=name)
+        # the sub-patch offsets come from ratios of neighbouring similarities,
+        # which carry the f32 descriptors' last-bit differences (1.7e-4 px seen)
+        np.testing.assert_allclose(tr.s_uv.numpy(), np.asarray(jr.s_uv), rtol=0, atol=1e-3)
+        for name in ("v_c", "body_twist"):
+            np.testing.assert_allclose(getattr(tr, name).numpy(), np.asarray(getattr(jr, name)),
+                                       rtol=0, atol=1e-5, err_msg=name)
+        assert bool(tr.feature_ok) and float(torch.abs(tr.v_c).max()) > 1e-3
+        jema, jprev, tema, tprev = jr.ema, jr.v_c, tr.ema, tr.v_c

@@ -38,8 +38,8 @@ def test_port_imports_neither_jax_nor_reference(path):
 
 def test_kernels_use_plain_c_interface():
     cu = sorted((REPO / "vitvs_tpu_torch" / "csrc").glob("*.cu"))
-    assert [p.name for p in cu] == ["attention.cu", "attention_fast.cu", "attn_int8.cu",
-                                    "matcher.cu"]
+    assert [p.name for p in cu] == ["attention.cu", "attention_f32.cu", "attention_fast.cu",
+                                    "attn_int8.cu", "matcher.cu"]
     for p in cu:
         text = p.read_text()
         assert "torch/extension.h" not in text and "ATen" not in text, p
@@ -58,6 +58,8 @@ def test_chip_smoke_serving_config_is_config_vitb_518():
 
 def test_chip_smoke_kernel_phase_runs_on_cpu():
     assert chip_smoke.check_attention("cpu", shape=(1, 37, 2, 64)) == 0.0
+    assert chip_smoke.check_attention("cpu", shape=(1, 37, 2, 64), dtype=torch.float32,
+                                      tol=chip_smoke.ATTN_F32_TOL) == 0.0
     assert chip_smoke.check_matcher("cpu", shape=(50, 72)) == 0.0
     chip_smoke.check_matcher_exact("cpu", t=40, d=64)
     assert chip_smoke.check_matcher_bf16("cpu", shapes=[(50, 50, 72), (1, 3, 10), (9, 33, 20)]) == 0.0
@@ -70,6 +72,10 @@ def test_chip_smoke_kernel_phase_runs_on_cpu():
 def test_chip_smoke_bounds_follow_the_shapes():
     ms, by = chip_smoke.attention_bound_ms()
     assert by == "bytes" and ms == pytest.approx(4 * 485 * 6 * 64 * 2 / 3.35e12 * 1e3)  # q, k, v, o in bf16
+    # the f32 step's exact attention: f32 FMA outside the tensor cores
+    ms, by = chip_smoke.attention_bound_ms(f32=True)
+    assert by == "operations" and ms == pytest.approx(4 * 6 * 485 ** 2 * 64 / 67e12 * 1e3)
+    assert ms == pytest.approx(5.39e-3, rel=1e-3)
     ms, by = chip_smoke.matcher_bound_ms()
     assert by == "operations" and ms == pytest.approx(2 * 484 ** 2 * 3456 / 67e12 * 1e3)
     # bf16 mode: bf16 rows read and the quartet written, on the bf16 tensor cores
@@ -95,12 +101,34 @@ def test_chip_smoke_main_path_runs_tiny_on_cpu():
     net = tvit.init_vit(vcfg, torch.Generator().manual_seed(0), device="cpu",
                         layerscale=1.0).cast_blocks(torch.bfloat16).eval()
     summary = chip_smoke.run_main_path(net, cfg, model)
-    assert summary["launches"] == {"attention": 0, "attention_fast": 0, "attn_int8": 0,
-                                   "matcher": 0, "matcher_bf16": 0}
+    assert summary["launches"] == {"attention": 0, "attention_f32": 0, "attention_fast": 0,
+                                   "attn_int8": 0, "matcher": 0, "matcher_bf16": 0}
     assert summary["differing_pairs"] == [0] * chip_smoke.N_STEPS
     assert summary["desc_rel_err"] == 0.0 and summary["twist_max_abs_err"] == 0.0
     assert summary["steps_compared"] == chip_smoke.N_STEPS
     assert len(summary["body_twist_last"]) == 6 and np.isfinite(summary["body_twist_last"]).all()
+
+
+def test_chip_smoke_f32_step_runs_tiny_on_cpu():
+    """Phase 3c with a tiny 2-block ViT on the CPU: the f32 step (f32
+    blocks and descriptors, exact GELU) through the plain versions, held at
+    the f32 tolerances."""
+    cfg = VSConfig(u_max=96, v_max=72, f_x=75.0, f_y=75.0, dino_input_size=84,
+                   num_pairs=12, layer=1, model_name="tiny", pinv_mode="dls")
+    vcfg = tvit.ViTConfig(patch_size=14, embed_dim=96, depth=2, num_heads=3, pos_grid=5,
+                          gelu_approx=False, model_name="tiny")
+    model = ServoModel(vit=vcfg, cfg=cfg, compute_dtype=torch.float32, device="cpu")
+    net = tvit.init_vit(vcfg, torch.Generator().manual_seed(0), device="cpu",
+                        layerscale=1.0).eval()
+    summary = chip_smoke.run_main_path(net, cfg, model, tol=chip_smoke.F32_TOL)
+    assert summary["launches"] == dict.fromkeys(summary["launches"], 0)
+    assert summary["differing_pairs"] == [0] * chip_smoke.N_STEPS
+    assert summary["desc_rel_err"] == 0.0 and summary["twist_max_abs_err"] == 0.0
+    assert np.isfinite(summary["body_twist_last"]).all()
+    # the full-size f32 step chip_smoke.py drives: config.yaml's settings in f32
+    net32, model32 = chip_smoke.f32_step(chip_smoke.reference_config(), "cpu")
+    assert model32.compute_dtype == torch.float32 and not model32.vit.gelu_approx
+    assert net32.compute_dtype == torch.float32 and model32.vit.embed_dim == 384
 
 
 @pytest.mark.parametrize("variant", sorted(chip_smoke.VARIANTS))

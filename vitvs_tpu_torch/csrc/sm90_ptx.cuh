@@ -1,5 +1,5 @@
 // Inline PTX the Hopper kernels of this directory share: cp.async copies
-// into shared memory (plain, and into the 128-byte swizzle that wgmma
+// into shared memory (16 and 4 bytes, and into the 128-byte swizzle that wgmma
 // reads), ldmatrix fragment loads, the bf16 mma.sync, the wgmma products
 // (bf16 and s8) with their shared-memory descriptors and the fences around
 // them, the A fragments of bf16 query rows, and the one-instruction exp2.
@@ -20,6 +20,13 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 // 16 bytes global -> shared, asynchronous; bytes = 0 fills the 16 bytes with zeros
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(smem_addr(dst)), "l"(src), "r"(bytes));
+}
+
+// 4 bytes global -> shared, asynchronous (a source only 4-byte aligned);
+// bytes = 0 writes a zero
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
                  :: "r"(smem_addr(dst)), "l"(src), "r"(bytes));
 }
 

@@ -7,7 +7,12 @@ tensor cores with the scores and P in registers, K/V in 128-byte-swizzled
 shared memory (the whole K/V of a head at T <= 512, a cp.async ring beyond),
 a running row max, and key groups of warpgroups merged at the end.  Bound on
 the H100 at (1, 485, 6, 64): bytes, 4 x 372 KB in 0.44 us at 3.35 TB/s
-(0.36 GFLOP take 0.37 us on the tensor cores).
+(0.36 GFLOP take 0.37 us on the tensor cores).  f32 inputs (the f32 servo
+step) go to ``csrc/attention_f32.cu`` (:func:`mha_attention_f32`, its own
+launch count): the same softmax in f32 FMA on the CUDA cores, f32 logits,
+probabilities and P.V (not TF32), K/V streamed through a cp.async ring of
+64-key chunks.  Bound at (1, 485, 6, 64) f32: operations, 0.361 GFLOP in
+5.4 us at 67 TFLOP/s (2.98 MB move in 0.9 us).
 
 fast=True: the no-max, deferred-normalize serving kernel ``_fast_kernel``
 (bounded logits).  Q is scaled by hd^-0.5 * log2(e) in Q's dtype before
@@ -19,7 +24,8 @@ K/V stream through a cp.async ring.  Bound at (1, 1370, 12, 64):
 operations, 5.77 GFLOP in 5.8 us on the tensor cores.  It keeps its own entry point and launch count
 (``mha_attention_fast``).
 
-``mha_attention`` launches the kernel for CUDA tensors and takes the plain
+``mha_attention`` launches a kernel for CUDA tensors (bf16: the exact
+kernel, f32: the f32 kernel; any other dtype raises) and takes the plain
 version only for CPU tensors; ``mha_attention_plain`` and
 ``mha_attention_fast_plain`` are the plain versions, which the CPU tests and
 the card's reference pass call directly.
@@ -65,20 +71,44 @@ def mha_attention_fast_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) 
     return (num * (1.0 / denom).transpose(1, 2)[..., None]).to(q.dtype)
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+def _check_layout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  dtype: torch.dtype = torch.bfloat16) -> None:
+    """What a kernel reads, on any device: (B, T, h, 64) ``dtype`` tensors
+    of one shape on one device, contiguous, 16-byte aligned."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"attention kernel takes bfloat16, {name} is {t.dtype}")
+        if t.dtype != dtype:
+            raise TypeError(f"attention kernel takes {dtype}, {name} is {t.dtype}")
         if t.shape != q.shape:
             raise ValueError(f"{name} shape {tuple(t.shape)} != q shape {tuple(q.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start 16-byte aligned")
     if q.dim() != 4 or q.shape[-1] != HEAD_DIM or q.shape[1] < 1:
         raise ValueError(f"attention kernel takes (B, T, h, {HEAD_DIM}), got {tuple(q.shape)}")
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           dtype: torch.dtype = torch.bfloat16) -> None:
+    _check_layout(q, k, v, dtype)
     if q.device.type != "cuda":
         raise ValueError(f"attention kernel runs on CUDA tensors, q is on {q.device}")
+
+
+# the exact kernels' C entry points by input dtype
+EXACT_ENTRIES = {torch.bfloat16: "vitvs_attention_fwd", torch.float32: "vitvs_attention_f32_fwd"}
+
+
+def exact_entry(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The C entry point :func:`mha_attention` launches for these inputs
+    (their layout checked, on any device), or an error: TypeError for a
+    dtype neither kernel takes, ValueError for a layout they cannot read."""
+    if q.dtype not in EXACT_ENTRIES:
+        raise TypeError(f"exact attention kernels take {list(EXACT_ENTRIES)}, q is {q.dtype}")
+    _check_layout(q, k, v, q.dtype)
+    return EXACT_ENTRIES[q.dtype]
 
 
 # the exact kernel's work splits (csrc/attention.cu), which vitvs_attention_fwd
@@ -106,16 +136,33 @@ def mha_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(B, T, h, d) -> (B, T, h, d) softmax attention, scale d^-0.5.
 
     fast=True goes to :func:`mha_attention_fast`.  Otherwise CUDA tensors:
-    the exact kernel (bf16, d = 64, contiguous), or an error; CPU tensors:
+    the exact kernel (bf16, d = 64, contiguous), the f32 kernel for f32
+    ones (:func:`mha_attention_f32`), or an error; CPU tensors:
     :func:`mha_attention_plain`.
     """
     if fast:
         return mha_attention_fast(q, k, v)
     if q.device.type == "cpu":
         return mha_attention_plain(q, k, v)
+    if exact_entry(q, k, v) == EXACT_ENTRIES[torch.float32]:
+        return mha_attention_f32(q, k, v)
     _check(q, k, v)
     out = _launch("vitvs_attention_fwd", q, k, v)
     mha_attention.launches += 1
+    return out
+
+
+def mha_attention_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Exact attention in f32 (the f32 servo step).
+
+    CUDA tensors: the f32 kernel (f32, d = 64, contiguous), or an error;
+    CPU tensors: :func:`mha_attention_plain`.
+    """
+    if q.device.type == "cpu":
+        return mha_attention_plain(q, k, v)
+    _check(q, k, v, torch.float32)
+    out = _launch("vitvs_attention_f32_fwd", q, k, v)
+    mha_attention_f32.launches += 1
     return out
 
 
@@ -134,4 +181,5 @@ def mha_attention_fast(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tor
 
 
 mha_attention.launches = 0
+mha_attention_f32.launches = 0
 mha_attention_fast.launches = 0

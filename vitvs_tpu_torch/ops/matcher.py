@@ -17,11 +17,13 @@ version and its own launch count:
   take 1.6 us at 989 TFLOP/s).
 * **f32 mode** (``dual_argmax_cosine``), the TPU kernel's arithmetic
   (``use_match_kernel=True``, and f32 descriptors): the descriptors are
-  cast to f32 and the inverse row norms ``rsqrt(sum(x^2) + 1e-24)`` are
-  computed here, outside the kernel, and folded in after the f32 product.
-  On the card: a tile pass with per-tile partials and an in-order reduce
-  pass.  Bound at (484, 3456): f32 operations, 1.62 GFLOP in 24 us at 67
-  TFLOP/s outside the tensor cores.
+  cast to f32, multiplied in f32, and the inverse row norms
+  ``rsqrt(sum(x^2) + 1e-24)`` are folded in after the product.  On the card
+  one launch does it all: clusters of 8 CTAs per 64 x 64 output tile, each
+  CTA an eighth of d (:func:`f32_launch`), f32 FMA on the CUDA cores, the
+  sums of squares taken from the staged rows, the partials summed in a
+  fixed order through distributed shared memory.  Bound at (484, 3456): f32
+  operations, 1.62 GFLOP in 24 us at 67 TFLOP/s outside the tensor cores.
 
 Each wrapper launches its kernel for CUDA tensors and takes its plain
 version only for CPU tensors.
@@ -32,6 +34,24 @@ from __future__ import annotations
 import torch
 
 from vitvs_tpu_torch.ops import _build
+
+
+# zeroed int64 scratch of the kernels' packed keys and finished-block count,
+# one per (device, stream); each launch leaves the entries it used zero again
+_keys_scratch: dict[tuple[int | None, int], torch.Tensor] = {}
+
+
+def _keys(device: torch.device, n: int) -> torch.Tensor:
+    """At least ``n`` zero int64 entries for one kernel launch on the
+    current stream of ``device``: the launch's last block zeroes what it
+    used, so consecutive launches on a stream share the buffer without a
+    clearing pass, and launches on other streams get their own."""
+    stream = torch.cuda.current_stream(device).cuda_stream if device.type == "cuda" else 0
+    key = (device.index, stream)
+    buf = _keys_scratch.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _keys_scratch[key] = torch.zeros(n, dtype=torch.int64, device=device)
+    return buf
 
 
 def inverse_norms(x: torch.Tensor) -> torch.Tensor:
@@ -81,41 +101,55 @@ def _check(desc1: torch.Tensor, desc2: torch.Tensor) -> None:
                          f"{desc1.device}, desc2 on {desc2.device}")
 
 
+# the f32-mode kernel's tiling (csrc/matcher.cu, which refuses other launch
+# arguments): a cluster of F32_CLUSTER CTAs per F32_TILE x F32_TILE output
+# tile, each CTA a slice of the depth in whole F32_CHUNK-deep chunks
+F32_TILE, F32_CLUSTER, F32_CHUNK = 64, 8, 32
+
+
+def f32_launch(t1: int, t2: int, d: int) -> tuple[int, int, int]:
+    """(grid x, grid y, depth per CTA) of the f32-mode kernel: the clusters
+    of a row of column tiles side by side along x, one row tile per y; the
+    depth split into F32_CLUSTER slices of whole chunks (the last slices
+    of a short d may be empty, and the kernel zero-fills past d)."""
+    chunks = -(-d // F32_CHUNK)
+    return (F32_CLUSTER * -(-t2 // F32_TILE), -(-t1 // F32_TILE),
+            F32_CHUNK * -(-chunks // F32_CLUSTER))
+
+
+def _launch_f32(a: torch.Tensor, b: torch.Tensor):
+    """One f32-mode kernel launch on f32 contiguous rows."""
+    (t1, d), t2 = a.shape, b.shape[0]
+    f32 = dict(dtype=torch.float32, device=a.device)
+    i32 = dict(dtype=torch.int32, device=a.device)
+    rmax, rarg = torch.empty(t1, **f32), torch.empty(t1, **i32)
+    cmax, carg = torch.empty(t2, **f32), torch.empty(t2, **i32)
+    work = _keys(a.device, t1 + t2 + 1)
+    lib = _build.library()
+    with torch.cuda.device(a.device):
+        err = lib.vitvs_dual_argmax_cosine(
+            a.data_ptr(), b.data_ptr(), work.data_ptr(), rmax.data_ptr(), rarg.data_ptr(),
+            cmax.data_ptr(), carg.data_ptr(), t1, t2, d, *f32_launch(t1, t2, d),
+            torch.cuda.current_stream(a.device).cuda_stream)
+    _build.check(err, "matcher")
+    return rmax, rarg, cmax, carg
+
+
 def dual_argmax_cosine(desc1: torch.Tensor, desc2: torch.Tensor):
     """f32 mode: row and column max/argmax of cosine(desc1, desc2), computed
     in f32.
 
     Returns (sim_1 (t1,), nn_1 (t1,) int32, sim_2 (t2,), nn_2 (t2,) int32),
     the ``sim.max(-1) / argmax(-1) / max(-2) / argmax(-2)`` quartet.
-    CUDA tensors: the kernel, or an error.  CPU tensors: the plain version.
+    CUDA tensors: the kernel (one launch; a cast first for other float
+    dtypes), or an error.  CPU tensors: the plain version.
     """
     if desc1.device.type == "cpu":
         return dual_argmax_cosine_plain(desc1, desc2)
     _check(desc1, desc2)
-    a = desc1.float().contiguous()
-    b = desc2.float().contiguous()
-    (t1, d), t2 = a.shape, b.shape[0]
-    ainv = inverse_norms(a)
-    binv = inverse_norms(b)
-    lib = _build.library()
-    tr, tc = lib.vitvs_matcher_row_tile(), lib.vitvs_matcher_col_tile()
-    n_rt, n_ct = -(-t1 // tr), -(-t2 // tc)
-    f32 = dict(dtype=torch.float32, device=a.device)
-    i32 = dict(dtype=torch.int32, device=a.device)
-    rmax, rarg = torch.empty(t1, **f32), torch.empty(t1, **i32)
-    cmax, carg = torch.empty(t2, **f32), torch.empty(t2, **i32)
-    rpart_val, rpart_idx = torch.empty(n_ct, t1, **f32), torch.empty(n_ct, t1, **i32)
-    cpart_val, cpart_idx = torch.empty(n_rt, t2, **f32), torch.empty(n_rt, t2, **i32)
-    with torch.cuda.device(a.device):
-        err = lib.vitvs_dual_argmax_cosine(
-            a.data_ptr(), b.data_ptr(), ainv.data_ptr(), binv.data_ptr(),
-            rmax.data_ptr(), rarg.data_ptr(), cmax.data_ptr(), carg.data_ptr(),
-            rpart_val.data_ptr(), rpart_idx.data_ptr(),
-            cpart_val.data_ptr(), cpart_idx.data_ptr(), t1, t2, d,
-            torch.cuda.current_stream(a.device).cuda_stream)
-    _build.check(err, "matcher")
+    out = _launch_f32(desc1.float().contiguous(), desc2.float().contiguous())
     dual_argmax_cosine.launches += 1
-    return rmax, rarg, cmax, carg
+    return out
 
 
 def bf16_unit_rows(desc: torch.Tensor) -> torch.Tensor:
@@ -133,7 +167,7 @@ def _launch_bf16(a: torch.Tensor, b: torch.Tensor):
     i32 = dict(dtype=torch.int32, device=a.device)
     rmax, rarg = torch.empty(t1, **f32), torch.empty(t1, **i32)
     cmax, carg = torch.empty(t2, **f32), torch.empty(t2, **i32)
-    work = torch.empty(t1 + t2 + 1, dtype=torch.int64, device=a.device)
+    work = _keys(a.device, t1 + t2 + 1)
     lib = _build.library()
     with torch.cuda.device(a.device):
         err = lib.vitvs_dual_argmax_bf16(
