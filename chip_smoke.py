@@ -14,7 +14,8 @@ Phases, each announced with a flushed, timestamped start/done line:
 2. kernels vs plain versions at the main paths' shapes: exact attention at
    (1, 485, 6, 64) bf16, at B = 2, 6 heads with T in {1, 63, 64, 65, 127,
    129, 485, 1370}, and rows whose scaled logits are about +-200; the f32
-   exact attention likewise in f32 (T in {1, 63, 64, 65, 485, 1370}); the
+   exact attention likewise in f32 (T in {1, 7, 9, 63, 64, 65, 129, 485,
+   1370}), two launches bit for bit; the
    matcher's bf16 mode at (484, 3456) bf16 and at ragged sizes, plus
    first-index ties across blocks; its f32 mode at (484, 3456) f32, at
    ragged sizes and depths (d of 1, 3, 97 and not a multiple of 256), two
@@ -45,7 +46,9 @@ Phases, each announced with a flushed, timestamped start/done line:
 4. times on the card (CUDA events / synchronized host clock) beside each
    kernel's bound and the PyTorch library call for the same function (the
    exact kernels at T = 485 and T = 1370; the int8 kernel from the bf16
-   slices, its quantization included), and the servo steps' medians.
+   slices, its quantization included), and the servo steps' medians.  The
+   f32 attention kernel is held to the tensor-core bound of f32-accurate
+   work (three TF32 passes), its f32 FMA bound logged beside it.
 
 The last three lines of standard output are the kernel JSON line, the card
 line and {"ok": true, "device": {...}}.  Any failed check raises, so the
@@ -83,6 +86,8 @@ T0 = time.perf_counter()
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_F32_FLOPS = 67e12     # outside the tensor cores
+PEAK_TF32_FLOPS = 495e12
+TF32_PASSES = 3            # split-precision TF32: hi.hi + hi.lo + lo.hi, f32 accurate
 PEAK_BYTES = 3.35e12
 
 ATTN_SHAPE = (1, 485, 6, 64)       # (B, T, h, hd) of ViT-S/14 @ 308
@@ -96,7 +101,10 @@ ATTN_F32_TOL = 2e-5
 # 1600, one f32 ulp there is 1.2e-4, so two summation orders move the
 # probabilities by about 1e-4 relative (the plain version is 4.0e-5 from f64)
 LARGE_LOGIT_F32_TOL = 5e-4
-ATTN_F32_T = [1, 63, 64, 65, 485, 1370]   # f32 exact attention at B = 2, 6 heads
+# f32 exact attention at B = 2, 6 heads: a ragged 8-key group (7, 9), 64-key
+# chunk edges, an almost empty last chunk (65, 129), one and two 128-row blocks,
+# clusters of 1 to 4 blocks splitting the keys
+ATTN_F32_T = [1, 7, 9, 63, 64, 65, 129, 485, 1370]
 MATCH_VAL_TOL = 1e-4               # f32 dot products of 3456 terms, other order
 MATCH_TIE_TOL = 1e-5
 # f32-mode matcher shapes (t1, t2, d): ragged tiles, and depths of 1, 3, 97 and
@@ -173,13 +181,16 @@ def check_attention(device, shape=ATTN_SHAPE, ts=ATTN_T, seed=0, dtype=torch.bfl
     """Exact kernel of ``dtype`` (bf16, or f32: fault 3.4's kernel) vs its
     plain version on random inputs at ``shape``, at B = 2 for each T of
     ``ts`` (``shape``'s heads), within ``tol``, and on rows whose scaled
-    logits are about +-LARGE_LOGIT (T = 130), within ``large_tol``.
-    Returns the max abs error at ``shape``."""
+    logits are about +-LARGE_LOGIT (T = 130), within ``large_tol``.  Both
+    kernels merge key groups without atomics, so a second launch at
+    ``shape`` gives the same bits.  Returns the max abs error at ``shape``."""
     rs = np.random.default_rng(seed)
     what = f"exact attention ({dtype})"
     q, k, v = (_normal(device, shape, rs, dtype) for _ in range(3))
-    err = _max_err(attention.mha_attention(q, k, v), attention.mha_attention_plain(q, k, v),
-                   what, tol)
+    out = attention.mha_attention(q, k, v)
+    err = _max_err(out, attention.mha_attention_plain(q, k, v), what, tol)
+    if not torch.equal(out.view(torch.uint8), attention.mha_attention(q, k, v).view(torch.uint8)):
+        raise AssertionError(f"{what}: two launches on the same inputs differ")
     for T in ts:
         q, k, v = (_normal(device, (2, T, shape[2], shape[3]), rs, dtype) for _ in range(3))
         _max_err(attention.mha_attention(q, k, v), attention.mha_attention_plain(q, k, v),
@@ -611,12 +622,17 @@ def run_serving_path(fnet, cfg: VSConfig, variant: str, device, seed=0, vit=None
 # ---------------------------------------------------------------------------
 
 
-def attention_bound_ms(shape=ATTN_SHAPE, f32: bool = False) -> tuple[float, str]:
+def attention_bound_ms(shape=ATTN_SHAPE, f32: bool = False,
+                       tensor_cores: bool = False) -> tuple[float, str]:
     """Exact or no-max attention: QK^T and P.V on the bf16 tensor cores, or
-    (``f32``) in f32 outside them."""
+    (``f32``) in f32 FMA outside them, or (``f32`` and ``tensor_cores``) f32
+    accurate on the TF32 tensor cores, each product taken TF32_PASSES times
+    (split precision)."""
     B, T, H, hd = shape
     flops = 4.0 * B * H * T * T * hd
     nbytes = 4.0 * B * T * H * hd * (4 if f32 else 2)   # q, k, v read, o written
+    if f32 and tensor_cores:
+        return _bound(TF32_PASSES * flops / PEAK_TF32_FLOPS, nbytes / PEAK_BYTES)
     return _bound(flops / (PEAK_F32_FLOPS if f32 else PEAK_BF16_FLOPS), nbytes / PEAK_BYTES)
 
 
@@ -725,6 +741,8 @@ def time_kernels(device) -> dict:
             "plain_ms": cuda_ms(lambda: attention.mha_attention_plain(q32, k32, v32), iters=50),
             "library_ms": cuda_ms(lambda: sdpa(q32h, k32h, v32h)),
             "ms_t1370": cuda_ms(lambda: attention.mha_attention(fq32, fk32, fv32)),
+            "plain_ms_t1370": cuda_ms(lambda: attention.mha_attention_plain(fq32, fk32, fv32),
+                                      iters=20),
             "library_ms_t1370": cuda_ms(lambda: sdpa(fq32h, fk32h, fv32h))},
         "matcher": {"ms": cuda_ms(lambda: matcher._launch_f32(a, b)),
                     "plain_ms": cuda_ms(lambda: matcher.dual_argmax_cosine_plain(a, b), iters=50),
@@ -841,7 +859,8 @@ def main() -> int:
         _build.library()
         log(f"kernels built in {info['seconds']:.2f} s (compiled={info['compiled']}): {info['path']}")
         for line in info["log"].splitlines():
-            if any(w in line for w in ("registers", "Compiling entry", "spill")):
+            if any(w in line for w in ("registers", "Compiling entry", "spill", "wgmma",
+                                       "warning")):
                 log(f"ptxas: {line.strip()}")
 
     with phase("2 kernels-vs-plain"):
@@ -852,8 +871,8 @@ def main() -> int:
                                                 dtype=torch.float32, tol=ATTN_F32_TOL,
                                                 large_tol=LARGE_LOGIT_F32_TOL)
         log(f"f32 attention {ATTN_SHAPE} f32: max abs err {errs['attention_f32']:.3e} "
-            f"(tol {ATTN_F32_TOL}); B = 2 at T = {ATTN_F32_T} ok, and logits of about "
-            f"+-{LARGE_LOGIT} within {LARGE_LOGIT_F32_TOL}")
+            f"(tol {ATTN_F32_TOL}), two launches bit for bit; B = 2 at T = {ATTN_F32_T} ok, "
+            f"and logits of about +-{LARGE_LOGIT} within {LARGE_LOGIT_F32_TOL}")
         errs["matcher_bf16"] = check_matcher_bf16(device)
         log(f"bf16 matcher {MATCH_SHAPE} bf16: max abs err {errs['matcher_bf16']:.3e} "
             f"(tol {MATCH_VAL_TOL}), argmax ok; ragged shapes and first-index ties ok")
@@ -942,7 +961,8 @@ def main() -> int:
                 f"variant {variant}, kernels)")
         times = time_kernels(device)
         bounds = {"attention": attention_bound_ms(),
-                  "attention_f32": attention_bound_ms(f32=True), "matcher": matcher_bound_ms(),
+                  "attention_f32": attention_bound_ms(f32=True, tensor_cores=True),
+                  "matcher": matcher_bound_ms(),
                   "matcher_bf16": matcher_bound_ms(bf16=True),
                   "attention_fast": attention_bound_ms(SERVE_ATTN_SHAPE),
                   "attn_int8": int8_attention_bound_ms()}
@@ -952,6 +972,11 @@ def main() -> int:
             log(f"[{card}] {name}: kernel {tm['ms']:.4f} ms, plain {tm['plain_ms']:.4f} ms, "
                 f"library {lib_ms}, bound {bounds[name][0]:.5f} ms ({bounds[name][1]}) "
                 + " ".join(f"{k} {v:.4f} ms" for k, v in extra.items()))
+        f32_bounds = [attention_bound_ms(shape, f32=True, tensor_cores=tc)[0]
+                      for tc in (True, False) for shape in (ATTN_SHAPE, SERVE_ATTN_SHAPE)]
+        log(f"[{card}] attention_f32 bounds at T = 485 and 1370: tensor cores "
+            f"({TF32_PASSES} TF32 passes) {f32_bounds[0]:.5f} and {f32_bounds[1]:.5f} ms; "
+            f"f32 FMA {f32_bounds[2]:.5f} and {f32_bounds[3]:.5f} ms")
 
     sources = {"attention": ("vitvs_tpu_torch/csrc/attention.cu", "vitvs_tpu/ops/attention.py:42"),
                "attention_f32": ("vitvs_tpu_torch/csrc/attention_f32.cu",

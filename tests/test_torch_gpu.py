@@ -322,12 +322,18 @@ def _f32(shape, seed):
             for _ in range(3)]
 
 
-@pytest.mark.parametrize("shape", [(1, 485, 6, 64), (1, 1370, 12, 64)]
+# shapes whose grids leave the most SMs to split keys over: clusters of the
+# largest size the entry point allows (4 blocks) and of 3
+F32_CLUSTER_SHAPES = [(1, 485, 1, 64), (1, 320, 6, 64)]
+
+
+@pytest.mark.parametrize("shape", [(1, 485, 6, 64), (1, 1370, 12, 64)] + F32_CLUSTER_SHAPES
                          + [(2, T, 6, 64) for T in ATTN_F32_T])
 def test_attention_f32_kernel_matches_plain(cuda, shape):
     """f32 inputs launch the f32 kernel (its own count, not the bf16 one's):
     f32 out, within ATTN_F32_TOL of the plain version at 64-key chunk edges,
-    T = 1 and B = 2."""
+    ragged 8-key groups, an almost empty last chunk, T = 1, B = 2 and every
+    cluster size from 1 to 4."""
     q, k, v = _f32(shape, sum(shape) + 3)
     before = (attention.mha_attention.launches, attention.mha_attention_f32.launches)
     out = attention.mha_attention(q, k, v)
@@ -337,6 +343,18 @@ def test_attention_f32_kernel_matches_plain(cuda, shape):
     ref = attention.mha_attention_plain(q, k, v)
     assert out.dtype == torch.float32 and out.shape == q.shape
     assert (out - ref).abs().max().item() <= ATTN_F32_TOL
+
+
+@pytest.mark.parametrize("shape", [(1, 485, 6, 64), (1, 1370, 12, 64)] + F32_CLUSTER_SHAPES)
+def test_attention_f32_kernel_is_deterministic(cuda, shape):
+    """No atomics, and a cluster's partials meet in rank order: three
+    launches give the same bits (clusters of 4 blocks at the f32 step's
+    shape, one block a cluster at T = 1370, 4 and 3 at the other two)."""
+    q, k, v = _f32(shape, 41)
+    first = attention.mha_attention(q, k, v)
+    for _ in range(2):
+        again = attention.mha_attention(q, k, v)
+        assert torch.equal(first.view(torch.int32), again.view(torch.int32))
 
 
 def test_attention_f32_kernel_logits_of_200(cuda):

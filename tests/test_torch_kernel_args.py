@@ -258,6 +258,14 @@ def test_f32_matcher_kernel_constants_match_the_wrapper():
         matcher.F32_TILE, matcher.F32_CLUSTER, matcher.F32_CHUNK)
 
 
+def test_f32_attention_kernel_constants_match_the_wrapper():
+    """csrc/attention_f32.cu is built for one head dim, the one the wrapper
+    lets through."""
+    text = (_build.CSRC_DIR / "attention_f32.cu").read_text()
+    consts = {k: int(v) for k, v in re.findall(r"constexpr int (\w+) = (\d+);", text)}
+    assert consts["HD"] == attention.HEAD_DIM
+
+
 def test_f32_matcher_takes_plain_version_on_cpu(no_library):
     """CPU tensors of any float dtype: the plain version, no launch."""
     a, b = (torch.from_numpy(RNG.standard_normal((9, 13)).astype(np.float32)) for _ in range(2))

@@ -2,9 +2,13 @@
 fused int8 attention and matcher kernel wrappers of vitvs_tpu_torch, against
 the Pallas kernels of vitvs_tpu run in interpret mode (as tests/test_ops.py
 runs them).  Off the TPU without interpret mode the JAX functions return
-exact softmax, which is not the kernels' arithmetic."""
+exact softmax, which is not the kernels' arithmetic.  Also the f32 attention
+kernel's split-precision TF32 arithmetic, emulated on the CPU: why it takes
+three passes."""
 
 import math
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -12,7 +16,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import underflow_qkv
+from chip_smoke import (ATTN_F32_TOL, LARGE_LOGIT, LARGE_LOGIT_F32_TOL, large_logit_qkv,
+                        underflow_qkv)
 from vitvs_tpu.ops.attention import mha_attention as j_mha
 from vitvs_tpu.ops.attn_int8 import fused_int8_attention as j_int8
 from vitvs_tpu.ops.matcher import dual_argmax_cosine as j_dual
@@ -44,6 +49,77 @@ def test_mha_attention_bf16_inputs_close():
     out = tattn.mha_attention(*(torch.from_numpy(x).bfloat16() for x in (q, k, v)))
     assert out.dtype == torch.bfloat16
     np.testing.assert_allclose(out.float().numpy(), ref, atol=2e-2)
+
+
+TF32_MASK = -0x2000  # 0xffffe000 as an int32: sign, exponent and the top 10 mantissa bits
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """x as a TF32 operand: its low 13 mantissa bits cleared."""
+    return (x.view(torch.int32) & TF32_MASK).view(torch.float32)
+
+
+def _mm_tf32(a: torch.Tensor, b: torch.Tensor, passes: int) -> torch.Tensor:
+    """a @ b from TF32 operands with f32 accumulation: one pass (hi.hi), or
+    the f32 kernel's three (lo.hi + hi.lo + hi.hi, hi = _tf32(x), lo = x - hi,
+    exact in f32 and itself read as TF32)."""
+    ahi, bhi = _tf32(a), _tf32(b)
+    if passes == 1:
+        return ahi @ bhi
+    return _tf32(a - ahi) @ bhi + ahi @ _tf32(b - bhi) + ahi @ bhi
+
+
+def _split_tf32_attention(q, k, v, passes: int) -> torch.Tensor:
+    """csrc/attention_f32.cu's arithmetic on (B, T, h, d) f32 CPU tensors:
+    raw scores from TF32 products, exp2(s c - m c) with c = d^-0.5 log2(e)
+    and m the row max, f32 row sums, P.V from TF32 products, then the
+    division by the row sum."""
+    c = torch.tensor(q.shape[-1] ** -0.5 * math.log2(math.e), dtype=torch.float32)
+    qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))            # (B, h, T, d)
+    s = _mm_tf32(qh, kh.transpose(-1, -2), passes)
+    e = torch.exp2(s * c - s.amax(-1, keepdim=True) * c)
+    return (_mm_tf32(e, vh, passes) / e.sum(-1, keepdim=True)).transpose(1, 2)
+
+
+def test_split_tf32_emulation_masks_as_the_kernel():
+    """The emulation's TF32 mask is the one csrc/sm90_ptx.cuh's tf32_hi
+    applies, and lo = x - hi is exact: hi + lo gives x back bit for bit."""
+    text = (Path(tattn.__file__).parent.parent / "csrc" / "sm90_ptx.cuh").read_text()
+    mask = re.search(r"float tf32_hi\(float x\) \{\s*return __uint_as_float\("
+                     r"__float_as_uint\(x\) & (0x[0-9a-f]+)u\);", text)
+    assert mask and int(mask.group(1), 16) == TF32_MASK & 0xFFFFFFFF
+    rs = np.random.default_rng(3)
+    x = torch.from_numpy((rs.standard_normal(4096) * 10.0 ** rs.integers(-20, 20, 4096))
+                         .astype(np.float32))
+    hi = _tf32(x)
+    assert not (hi.view(torch.int32) & 0x1FFF).any()
+    assert torch.equal((hi + (x - hi)).view(torch.int32), x.view(torch.int32))
+
+
+@pytest.mark.parametrize("ref", ["plain", "pallas-interpret"])
+@pytest.mark.parametrize("case", ["normal-485", "logits-200"])
+def test_split_tf32_attention_needs_three_passes(case, ref):
+    """Why the f32 attention kernel takes three TF32 passes: emulated on the
+    CPU, its arithmetic is within chip_smoke.py's f32 tolerances of the
+    plain version and of vitvs_tpu's Pallas kernel (interpret mode, f32
+    inputs) at the f32 step's shape and on rows whose scaled logits are
+    about +-200, and one TF32 pass is outside them."""
+    if case == "normal-485":
+        rs = np.random.default_rng(0)
+        q, k, v = (rs.standard_normal((1, 485, 6, 64)).astype(np.float32) for _ in range(3))
+        tol = ATTN_F32_TOL
+    else:
+        q, k, v = large_logit_qkv((2, 130, 6, 64), LARGE_LOGIT, seed=12)
+        tol = LARGE_LOGIT_F32_TOL
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    if ref == "plain":
+        want = tattn.mha_attention_plain(tq, tk, tv)
+    else:
+        want = torch.from_numpy(np.array(j_mha(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                               q_tile=128, interpret=True)))
+    err = {p: (_split_tf32_attention(tq, tk, tv, p) - want).abs().max().item() for p in (1, 3)}
+    assert err[3] <= tol, err
+    assert err[1] > tol, err
 
 
 @pytest.mark.parametrize("shape", [(1, 65, 2, 32), (2, 139, 3, 64)])

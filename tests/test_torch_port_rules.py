@@ -76,6 +76,13 @@ def test_chip_smoke_bounds_follow_the_shapes():
     ms, by = chip_smoke.attention_bound_ms(f32=True)
     assert by == "operations" and ms == pytest.approx(4 * 6 * 485 ** 2 * 64 / 67e12 * 1e3)
     assert ms == pytest.approx(5.39e-3, rel=1e-3)
+    # ... and f32 accurate on the tensor cores: three TF32 passes (split precision)
+    ms, by = chip_smoke.attention_bound_ms(f32=True, tensor_cores=True)
+    assert by == "operations" and ms == pytest.approx(3 * 4 * 6 * 485 ** 2 * 64 / 495e12 * 1e3)
+    assert ms == pytest.approx(2.19e-3, rel=1e-2)
+    ms, by = chip_smoke.attention_bound_ms(chip_smoke.SERVE_ATTN_SHAPE, f32=True,
+                                           tensor_cores=True)
+    assert by == "operations" and ms == pytest.approx(3 * 4 * 12 * 1370 ** 2 * 64 / 495e12 * 1e3)
     ms, by = chip_smoke.matcher_bound_ms()
     assert by == "operations" and ms == pytest.approx(2 * 484 ** 2 * 3456 / 67e12 * 1e3)
     # bf16 mode: bf16 rows read and the quartet written, on the bf16 tensor cores

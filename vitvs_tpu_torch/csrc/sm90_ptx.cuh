@@ -1,8 +1,9 @@
 // Inline PTX the Hopper kernels of this directory share: cp.async copies
 // into shared memory (16 and 4 bytes, and into the 128-byte swizzle that wgmma
 // reads), ldmatrix fragment loads, the bf16 mma.sync, the wgmma products
-// (bf16 and s8) with their shared-memory descriptors and the fences around
-// them, the A fragments of bf16 query rows, and the one-instruction exp2.
+// (bf16, s8 and tf32) with their shared-memory descriptors and the fences
+// around them, the A fragments of bf16 query rows, the TF32 split of an f32
+// value, and the one-instruction exp2.
 
 #pragma once
 
@@ -80,7 +81,7 @@ __device__ __forceinline__ float ex2(float x) {
 }
 
 // wgmma matrix descriptor of a swizzled tile whose rows are SWIZZLE bytes
-// (128: 64 bf16, 64: 64 int8), at a shared address that lies a multiple of
+// (128: 64 bf16 or 32 f32, 64: 64 int8), at a shared address that lies a multiple of
 // 8 rows from a 1024-aligned base (a k-step inside a row adds its byte
 // offset): stride 8 * SWIZZLE bytes between 8-row groups, the leading offset
 // unused.  Layout type 1 is the 128-byte swizzle, 2 the 64-byte one.
@@ -162,6 +163,38 @@ __device__ __forceinline__ void wgmma_m64n64k32_s8(int (&d)[8][4], const uint32_
           "+r"(d[5][0]), "+r"(d[5][1]), "+r"(d[5][2]), "+r"(d[5][3]),
           "+r"(d[6][0]), "+r"(d[6][1]), "+r"(d[6][2]), "+r"(d[6][3]),
           "+r"(d[7][0]), "+r"(d[7][1]), "+r"(d[7][2]), "+r"(d[7][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+}
+
+// The TF32 part of an f32 value: sign, exponent and the top 10 mantissa bits
+// (the low 13 cleared by an integer AND; the card converts types at the SFU's
+// rate).  x - tf32_hi(x) is exact in f32, and hi.hi + hi.lo + lo.hi is x.y
+// up to lo.lo (below 2^-20 |x y|): split-precision (3xTF32) products.
+__device__ __forceinline__ float tf32_hi(float x) {
+    return __uint_as_float(__float_as_uint(x) & 0xffffe000u);
+}
+
+// D (64 x 64, f32) = A (64 x 8 tf32, registers) B (8 x 64 tf32, shared, K-major)
+// + (accumulate ? D : 0).  TF32 wgmma takes both operands K-major only (no
+// transpose immediates).  A fragment of warp w % 4 of the warpgroup, g =
+// lane / 4, t = lane % 4: a[0] (row 16 (w % 4) + g, column t), a[1] (row + 8,
+// column t), a[2] (row, column t + 4), a[3] (row + 8, column t + 4).
+__device__ __forceinline__ void wgmma_m64n64k8_tf32(float (&d)[8][4], const uint32_t (&a)[4],
+                                                    uint64_t desc, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        :
+          "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+          "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
 }
 

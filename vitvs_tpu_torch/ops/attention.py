@@ -9,10 +9,15 @@ a running row max, and key groups of warpgroups merged at the end.  Bound on
 the H100 at (1, 485, 6, 64): bytes, 4 x 372 KB in 0.44 us at 3.35 TB/s
 (0.36 GFLOP take 0.37 us on the tensor cores).  f32 inputs (the f32 servo
 step) go to ``csrc/attention_f32.cu`` (:func:`mha_attention_f32`, its own
-launch count): the same softmax in f32 FMA on the CUDA cores, f32 logits,
-probabilities and P.V (not TF32), K/V streamed through a cp.async ring of
-64-key chunks.  Bound at (1, 485, 6, 64) f32: operations, 0.361 GFLOP in
-5.4 us at 67 TFLOP/s (2.98 MB move in 0.9 us).
+launch count): the same softmax with f32-accurate products on the tensor
+cores, split-precision TF32 (3 passes: each operand split into a TF32 hi
+and an exact f32 lo = x - hi, products hi.hi + hi.lo + lo.hi on wgmma);
+not the one-pass TF32 mode that ``ServoModel.create`` turns off for cuBLAS.
+Raw K/V chunks stream through a cp.async ring and are split (V transposed)
+in shared memory; clusters of blocks split the keys when 128-row blocks
+alone would leave SMs idle.  Bound at (1, 485, 6, 64) f32: operations, 3 x
+0.361 GFLOP in 2.19 us at the TF32 peak of 495 TFLOP/s (2.98 MB move in
+0.9 us).
 
 fast=True: the no-max, deferred-normalize serving kernel ``_fast_kernel``
 (bounded logits).  Q is scaled by hd^-0.5 * log2(e) in Q's dtype before
