@@ -2,9 +2,10 @@
 """Smoke run of the PyTorch/CUDA port (vitvs_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py              # the smoke run below
-    python3 chip_smoke.py --profile [bf16|f32|F|N] [--trace trace.json]
+    python3 chip_smoke.py --profile [bf16|f32|F|N|loop] [--trace trace.json]
                                        # only: device-time breakdown of servo steps
-                                       # of the bf16 or f32 path or an int8 serving variant
+                                       # of the bf16 or f32 path or an int8 serving variant,
+                                       # or of closed-loop steps
 
 Phases, each announced with a flushed, timestamped start/done line:
 
@@ -25,6 +26,7 @@ Phases, each announced with a flushed, timestamped start/done line:
    768) (column slices of a qkv output), at B = 2 with the exact kernel's T
    list, plus 58 padded columns;
    the int8 kernel's Q and K quantization against _quant_th, bit for bit;
+   the exact attention at the rotation search's batch, (4, 485, 6, 64);
 3. the bf16 main path: goal_descriptors + 5 servo_steps of the DINO servo
    step at ViT-S/14 @ 308 (configs/config.yaml's settings, seeded weights,
    seeded 640x480 frames), once through the kernels and once through the
@@ -43,6 +45,21 @@ Phases, each announced with a flushed, timestamped start/done line:
    (the reference's strict-parity numerics): f32 exact attention and the
    f32-mode matcher on the main path, checked as phase 3 at f32
    tolerances;
+3d. the closed loop: run_benchmark (harness/benchmark.py) at phase
+   3's settings on the poster scene (the port's npz copy of the texture),
+   ViT cast whole to bf16 as the benchmark casts it, cut to episodes 0 and 1
+   of the seed-41 stream (rotation search on) for 40 steps in segments of
+   20 with the ladder's minimum and maximum cut to 10 and 30, then episode
+   1 on its perturbed texture; the launch counters must rise by exactly what
+   the executed steps give (12 exact-attention launches for the goal, 12
+   for each episode's 4-view search, 12 a step; 4 bf16-matcher launches an
+   episode and 1 a step); every step of episode 0 is teacher-forced through
+   the plain step (its frame, EMA, command and scores), twists held within
+   1e-3 wherever no pair differs; episode 0 runs again plain and where the
+   trajectories part is reported; the npz's 22 arrays and finite poses are
+   checked; then the closed-loop step's median ms beside the bare step's,
+   timed in alternating rounds, and its device busy share (``--profile
+   loop`` profiles it alone);
 4. times on the card (CUDA events / synchronized host clock) beside each
    kernel's bound and the PyTorch library call for the same function (the
    exact kernels at T = 485 and T = 1370; the int8 kernel from the bf16
@@ -65,6 +82,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from contextlib import contextmanager
 from pathlib import Path
@@ -73,12 +91,17 @@ import numpy as np
 import torch
 
 from vitvs_tpu_torch.control.ibvs import EmaState
+from vitvs_tpu_torch.harness.benchmark import cast_for_benchmark, run_benchmark
 from vitvs_tpu_torch.harness.pipeline import (ServoModel, goal_descriptors, quantized_vit,
                                               servo_step)
+from vitvs_tpu_torch.harness.rollout import episode_init, goal_pose, rollout_segment
+from vitvs_tpu_torch.harness.samplers import generate_episode_starts
 from vitvs_tpu_torch.io_bridge.config import VSConfig
 from vitvs_tpu_torch.match.binned import QuantizedBinned
 from vitvs_tpu_torch.models.vit import init_vit
 from vitvs_tpu_torch.ops import _build, attention, attn_int8, matcher
+from vitvs_tpu_torch.sim.env import observe
+from vitvs_tpu_torch.sim.scene import Scene, load_poster_scene
 
 T0 = time.perf_counter()
 
@@ -135,6 +158,27 @@ SHIFTS = [(3, 4), (6, 8), (9, 12), (12, 16), (15, 20)]   # (dy, dx) px of each f
 CALIB_SHIFTS = [(-8, 5), (4, -10), (11, 3), (-5, -6), (7, 14), (-12, -2), (2, 9)]
 # int8 serving variants: (quant_attn, attn_impl) and the kernel the path launches
 VARIANTS = {"F": ("fused", "xla", "attn_int8"), "N": ("none", "fast", "attention_fast")}
+# phase 3d, the closed loop, cut from the config's 500 episodes of up to 1500 steps
+# (at least 300): episodes 0 and 1 of the seed-41 stream (episode 1 also on its
+# perturbed texture) for 40 steps in segments of 20, the ladder's minimum cut to 10
+# and its maximum to 30, so that it stops an episode inside the run
+LOOP_EPISODES = [0, 1]
+LOOP_PERTURBED = [1]
+LOOP_STEPS = 40
+LOOP_SEGMENT = 20
+LOOP_MIN_ITERATIONS = 10
+LOOP_MAX_ITERATIONS = 30
+SEARCH_ATTN_SHAPE = (4, 485, 6, 64)   # the rotation search's 4-view forward
+TIMING_ROUNDS = 7                     # alternating rounds, closed-loop step and bare step
+# the reference's npz: its 22 arrays and the run time
+NPZ_KEYS = ("initial_positions", "initial_orientations", "final_positions",
+            "final_quaternions", "convergence_flags", "position_errors", "orientation_errors",
+            "best_poses", "all_position_histories", "all_orientation_histories",
+            "all_iteration_histories", "lowest_position_errors", "lowest_orientation_errors",
+            "all_average_velocities", "all_velocity_mean_100", "all_velocity_mean_10",
+            "all_applied_velocity_x", "all_applied_velocity_y", "all_applied_velocity_z",
+            "all_applied_velocity_roll", "all_applied_velocity_pitch",
+            "all_applied_velocity_yaw", "total_execution_time")
 
 
 def log(msg: str) -> None:
@@ -618,6 +662,145 @@ def run_serving_path(fnet, cfg: VSConfig, variant: str, device, seed=0, vit=None
 
 
 # ---------------------------------------------------------------------------
+# phase 3d: the closed loop
+# ---------------------------------------------------------------------------
+
+
+def loop_config(cfg: VSConfig) -> VSConfig:
+    """``cfg`` with the ladder's iteration bounds cut for phase 3d."""
+    return cfg.replace(min_iterations=LOOP_MIN_ITERATIONS, max_iterations=LOOP_MAX_ITERATIONS)
+
+
+def loop_launches(layer: int, episodes: int, device_steps: int) -> dict:
+    """Launches of one benchmark run: the goal's forward, each episode's
+    4-view search (one forward at B = 4, 4 matches) and each step run on
+    the device (one forward, one match)."""
+    return {"attention": (layer + 1) * (1 + episodes + device_steps),
+            "matcher_bf16": 4 * episodes + device_steps}
+
+
+def check_npz(path: str, n: int) -> None:
+    """The reference's 22 arrays with their shapes, finite poses."""
+    d = np.load(path, allow_pickle=True)
+    if sorted(d.files) != sorted(NPZ_KEYS):
+        raise AssertionError(f"npz keys {sorted(d.files)} != {sorted(NPZ_KEYS)}")
+    fixed = {"initial_positions": (n, 3), "initial_orientations": (n, 4),
+             "final_positions": (n, 3), "final_quaternions": (n, 4)}
+    for k in NPZ_KEYS[:-1]:
+        a = np.asarray(d[k]) if k not in fixed else np.stack(list(d[k]))
+        if len(a) != n or (k in fixed and a.shape != fixed[k]):
+            raise AssertionError(f"npz {k}: shape {a.shape}, {n} episodes")
+    for i in range(n):
+        it = int(d["all_iteration_histories"][i])
+        for k, tail in (("all_position_histories", (3,)), ("all_orientation_histories", (4,)),
+                        ("all_average_velocities", ()), ("all_applied_velocity_yaw", ())):
+            if np.asarray(d[k][i]).shape != (it,) + tail:
+                raise AssertionError(f"npz {k}[{i}]: shape {np.asarray(d[k][i]).shape}, "
+                                     f"{it} iterations")
+        for k in ("final_positions", "final_quaternions", "all_position_histories",
+                  "all_orientation_histories"):
+            if not np.isfinite(np.asarray(d[k][i], np.float64)).all():
+                raise AssertionError(f"npz {k}[{i}] is not finite")
+
+
+def run_closed_loop(net, cfg: VSConfig, model: ServoModel, scene: Scene, out_dir: str,
+                    episodes=LOOP_EPISODES, perturbed=LOOP_PERTURBED, num_steps=LOOP_STEPS,
+                    segment_steps=LOOP_SEGMENT) -> dict:
+    """run_benchmark through the kernels on ``episodes`` (rotation
+    search on), then on ``perturbed`` with perturbed textures, the launch
+    counters zeroed before and read after each run; then every step of the
+    first episode teacher-forced through the plain step (the kernel run's
+    frame, EMA, command and scores; the plain goal descriptors), and the
+    whole episode again plain, reporting where the trajectories part."""
+    model_plain = dataclasses.replace(model, use_kernels=False)
+    common = dict(rotation_search=True, num_steps=num_steps, segment_steps=segment_steps,
+                  verbose=False, out_dir=out_dir, device=model.device)
+    record = []
+
+    def on_step(abs_idx, inputs, result):
+        if abs_idx == episodes[0]:
+            record.append((inputs, result))
+
+    runs, launches = {}, {}
+    for name, kw in (("standard", dict(episode_indices=episodes, on_step=on_step)),
+                     ("perturbed", dict(episode_indices=perturbed, perturbation=True))):
+        for fn in _counters().values():
+            fn.launches = 0
+        runs[name] = run_benchmark(cfg, net=net, model=model, scene=scene,
+                                   config_name="loop", **common, **kw)
+        launches[name] = {k: fn.launches for k, fn in _counters().items()}
+        check_npz(runs[name].path, len(kw["episode_indices"]))
+
+    cast = cast_for_benchmark(net, model.compute_dtype)
+    goal_rgb, _ = observe(scene, model.camera, *goal_pose(model.device))
+    goal_ker = goal_descriptors(cast, model, goal_rgb)
+    goal_plain = goal_descriptors(cast, model_plain, goal_rgb)
+    ref_steps = [servo_step(cast, model_plain, goal_plain, x.rgb, x.depth, x.ema, x.prev_v_c,
+                            scores=x.scores) for x, _ in record]
+    forced = compare_runs((goal_plain, ref_steps), (goal_ker, [r for _, r in record]),
+                          every_step=True)
+
+    plain = run_benchmark(cfg, net=net, model=model_plain, scene=scene, save=False,
+                          episode_indices=episodes[:1], **common)
+    pk = np.asarray(runs["standard"].summaries["all_position_histories"][0], np.float64)
+    pp = np.asarray(plain.summaries["all_position_histories"][0], np.float64)
+    m = min(len(pk), len(pp))
+    apart = np.nonzero(np.abs(pk[:m] - pp[:m]).max(-1) > 1e-4)[0]
+    return {"device_steps": {k: r.device_steps for k, r in runs.items()},
+            "episodes": {"standard": len(episodes), "perturbed": len(perturbed)},
+            "launches": launches,
+            "iterations": {k: [int(i) for i in r.summaries["all_iteration_histories"]]
+                           for k, r in runs.items()},
+            "converged": {k: [bool(c) for c in r.summaries["convergence_flags"]]
+                          for k, r in runs.items()},
+            "final_pos_err_cm": {k: [float(e) for e in r.summaries["position_errors"]]
+                                 for k, r in runs.items()},
+            "teacher_forced": {"steps": len(record),
+                               "steps_with_flips": sum(1 for f in forced["differing_pairs"] if f),
+                               "flipped_pairs": sum(forced["differing_pairs"]),
+                               "twist_max_abs_err": forced["twist_max_abs_err"],
+                               "steps_compared": forced["steps_compared"],
+                               "goal_desc_rel_err": forced["desc_rel_err"]},
+            "plain_episode": {"iterations": int(plain.summaries["all_iteration_histories"][0]),
+                              "parts_at_step": int(apart[0]) if len(apart) else None,
+                              "max_pos_diff_m": float(np.abs(pk[:m] - pp[:m]).max())}}
+
+
+def loop_runner(net, model: ServoModel, scene: Scene, start_p, start_q, generator):
+    """One closed-loop step a call (render, servo step, integrate, ladder)
+    from a start pose, on the benchmark's cast ViT, carrying its state."""
+    cast = cast_for_benchmark(net, model.compute_dtype)
+    desired = goal_pose(model.device)
+    goal = goal_descriptors(cast, model, observe(scene, model.camera, *desired)[0])
+    state = {"carry": episode_init(start_p, start_q, *desired)}
+
+    def run():
+        state["carry"], _ = rollout_segment(cast, model, scene, goal, state["carry"], 1,
+                                            *desired, generator=generator)
+    return run
+
+
+def loop_start(cfg: VSConfig):
+    """Episode 0's start pose of the seed-41 stream."""
+    positions, quats, _ = generate_episode_starts(cfg)
+    return positions[0], quats[0]
+
+
+def time_run(run, iters=20) -> float:
+    """Median host milliseconds of one call of ``run`` after 3 warm-up
+    calls, synchronized before and after."""
+    times = []
+    for i in range(iters + 3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        if i >= 3:
+            times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+# ---------------------------------------------------------------------------
 # phase 4: times and bounds
 # ---------------------------------------------------------------------------
 
@@ -769,35 +952,23 @@ def time_kernels(device) -> dict:
     }
 
 
-def time_step(net, model: ServoModel, iters=20) -> float:
-    """Median host milliseconds of one servo_step from a host (numpy) frame
-    and depth map to the twist on the card, synchronized."""
+def step_runner(net, model: ServoModel):
+    """One servo_step a call, from a host (numpy) frame and depth map of
+    phase 3 to the twist on the card."""
     goal, frames, depth = make_frames(model.cfg, seed=0)
     goal_desc = goal_descriptors(net, model, goal)
     ema, prev = EmaState.init(device=model.device), torch.zeros(6, device=model.device)
-    gen = torch.Generator().manual_seed(7)
-    times = []
-    for i in range(iters + 3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        servo_step(net, model, goal_desc, frames[0], depth, ema, prev, generator=gen)
-        torch.cuda.synchronize()
-        if i >= 3:
-            times.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(times)
+    gen = torch.Generator(device=model.device).manual_seed(7)
+    return lambda: servo_step(net, model, goal_desc, frames[0], depth, ema, prev, generator=gen)
 
 
-def profile_steps(net, model: ServoModel, steps=10, top=25,
-                  trace_path: Path | None = None) -> None:
-    """Device time by kernel over ``steps`` servo steps (torch.profiler), the
-    device's busy share of that window, and the host's waits on the device."""
+def profile_run(run, steps=10, top=25, trace_path: Path | None = None) -> dict:
+    """Device time by kernel over ``steps`` calls of ``run`` (torch.profiler)
+    after 3 warm-up calls, the device's busy share of that window, and the
+    host's waits on the device.  Returns the window's ms per step and busy
+    share."""
     from torch.profiler import ProfilerActivity, profile
 
-    goal, frames, depth = make_frames(model.cfg, seed=0)
-    goal_desc = goal_descriptors(net, model, goal)
-    ema, prev = EmaState.init(device=model.device), torch.zeros(6, device=model.device)
-    gen = torch.Generator().manual_seed(7)
-    run = lambda: servo_step(net, model, goal_desc, frames[0], depth, ema, prev, generator=gen)
     for _ in range(3):
         run()
     torch.cuda.synchronize()
@@ -826,6 +997,8 @@ def profile_steps(net, model: ServoModel, steps=10, top=25,
         trace_path.parent.mkdir(parents=True, exist_ok=True)
         prof.export_chrome_trace(str(trace_path))
         log(f"profile: trace written to {trace_path}")
+    return {"wall_ms_per_step": wall_ms / steps, "device_ms_per_step": device_ms / steps,
+            "busy_share": device_ms / wall_ms}
 
 
 # ---------------------------------------------------------------------------
@@ -833,9 +1006,11 @@ def profile_steps(net, model: ServoModel, steps=10, top=25,
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--profile", nargs="?", const="bf16", choices=["bf16", "f32", *VARIANTS],
+    ap.add_argument("--profile", nargs="?", const="bf16",
+                    choices=["bf16", "f32", *VARIANTS, "loop"],
                     help="build, then only profile servo steps of the bf16 path (default), "
-                         "the f32 path or an int8 serving variant (no checks, no result line)")
+                         "the f32 path or an int8 serving variant, or closed-loop steps "
+                         "(no checks, no result line)")
     ap.add_argument("--trace", type=Path, default=None,
                     help="with --profile: write the profiler's chrome trace here")
     args = ap.parse_args()
@@ -867,6 +1042,9 @@ def main() -> int:
         errs = {"attention": check_attention(device)}
         log(f"attention {ATTN_SHAPE} bf16: max abs err {errs['attention']:.3e} (tol {ATTN_TOL}); "
             f"B = 2 at T = {ATTN_T} and logits of about +-{LARGE_LOGIT} ok")
+        err = check_attention(device, shape=SEARCH_ATTN_SHAPE, ts=(), seed=14)
+        log(f"attention {SEARCH_ATTN_SHAPE} bf16 (the rotation search's batch): max abs err "
+            f"{err:.3e} (tol {ATTN_TOL}), two launches bit for bit")
         errs["attention_f32"] = check_attention(device, ts=ATTN_F32_T, seed=13,
                                                 dtype=torch.float32, tol=ATTN_F32_TOL,
                                                 large_tol=LARGE_LOGIT_F32_TOL)
@@ -905,15 +1083,19 @@ def main() -> int:
     net32, model32 = f32_step(cfg, device)
     if args.profile:
         with phase("profile"):
-            if args.profile == "bf16":
-                profile_steps(net, model, trace_path=args.trace)
+            if args.profile == "loop":
+                profile_run(loop_runner(net, model, load_poster_scene(device=device),
+                                        *loop_start(cfg), torch.Generator(device).manual_seed(0)),
+                            trace_path=args.trace)
+            elif args.profile == "bf16":
+                profile_run(step_runner(net, model), trace_path=args.trace)
             elif args.profile == "f32":
-                profile_steps(net32, model32, trace_path=args.trace)
+                profile_run(step_runner(net32, model32), trace_path=args.trace)
             else:
                 smodel = serving_model(scfg, args.profile, device)
                 goal, frames, _ = make_frames(scfg, 0, shifts=SHIFTS + CALIB_SHIFTS)
                 qnet = quantized_vit(fnet, smodel, [goal, *frames[N_STEPS:]])
-                profile_steps(qnet, smodel, trace_path=args.trace)
+                profile_run(step_runner(qnet, smodel), trace_path=args.trace)
         return 0
     with phase("3 main-path"):
         summary = run_main_path(net, cfg, model)
@@ -950,13 +1132,48 @@ def main() -> int:
             raise AssertionError(f"f32 step: launch counts {fsum['launches']} != {want}")
         launches.update(attention_f32=want["attention_f32"], matcher=want["matcher"])
 
+    with phase("3d closed-loop"):
+        scene = load_poster_scene(device=device)
+        lcfg = loop_config(cfg)
+        log(f"closed loop cut from the config: episodes {cfg.num_samples} -> {LOOP_EPISODES} "
+            f"(and {LOOP_PERTURBED} perturbed), steps {cfg.max_iterations} -> {LOOP_STEPS} "
+            f"in segments of {LOOP_SEGMENT}, min_iterations {cfg.min_iterations} -> "
+            f"{LOOP_MIN_ITERATIONS}, max_iterations {cfg.max_iterations} -> "
+            f"{LOOP_MAX_ITERATIONS}; ViT-S/14 @ 308 bf16, seeded weights, the poster scene")
+        with tempfile.TemporaryDirectory() as out:
+            lsum = run_closed_loop(net, lcfg, dataclasses.replace(model, cfg=lcfg), scene, out)
+        log(f"closed loop: {json.dumps(lsum)}")
+        for name, got in lsum["launches"].items():
+            want = {k: 0 for k in _counters()}
+            want.update(loop_launches(cfg.layer, lsum["episodes"][name],
+                                      lsum["device_steps"][name]))
+            if got != want:
+                raise AssertionError(f"closed loop ({name}): launch counts {got} != {want}")
+            for k in ("attention", "matcher_bf16"):
+                launches[k] += got[k]
+        run = loop_runner(net, model, scene, *loop_start(cfg),
+                          torch.Generator(device).manual_seed(0))
+        bare = step_runner(net, model)
+        # host times drift between moments of a call by more than the loop adds:
+        # the loop step and the bare step are timed in alternating rounds
+        rounds = [(time_run(run), time_run(bare)) for _ in range(TIMING_ROUNDS)]
+        loop_ms = statistics.median(r[0] for r in rounds)
+        prof = profile_run(run, top=12)
+        log(f"[{card}] closed-loop step median {loop_ms:.3f} ms (render, servo step, "
+            f"integrate, ladder; ViT-S/14 @ 308, bf16, kernels), the bare bf16 step "
+            f"{statistics.median(r[1] for r in rounds):.3f} ms, medians of {TIMING_ROUNDS} "
+            f"alternating rounds of 20 steps; loop - bare by round "
+            f"{[round(a - b, 3) for a, b in rounds]} ms; profiled "
+            f"{prof['wall_ms_per_step']:.3f} ms/step, device busy "
+            f"{prof['device_ms_per_step']:.3f} ms/step = {100 * prof['busy_share']:.1f}%")
+
     with phase("4 times"):
-        step_ms = time_step(net, model)
+        step_ms = time_run(step_runner(net, model))
         log(f"[{card}] servo_step median {step_ms:.3f} ms (ViT-S/14 @ 308, bf16, kernels)")
-        ms = time_step(net32, model32)
+        ms = time_run(step_runner(net32, model32))
         log(f"[{card}] servo_step median {ms:.3f} ms (ViT-S/14 @ 308, f32, exact GELU, kernels)")
         for variant, (qnet, smodel) in serving.items():
-            ms = time_step(qnet, smodel)
+            ms = time_run(step_runner(qnet, smodel))
             log(f"[{card}] servo_step median {ms:.3f} ms (ViT-B/14 @ 518, int8 W8A8, "
                 f"variant {variant}, kernels)")
         times = time_kernels(device)

@@ -449,3 +449,34 @@ def test_matcher_kernels_leave_their_scratch_zero(cuda, mode):
     assert (got[0] - ref[0]).abs().max().item() <= 1e-4
     assert (got[2] - ref[2]).abs().max().item() <= 1e-4
     assert all(int(buf.abs().sum()) == 0 for buf in matcher._keys_scratch.values())
+
+
+def test_attention_kernel_matches_plain_at_the_search_batch(cuda):
+    """The rotation search's 4-view forward: (4, 485, 6, 64) bf16."""
+    assert chip_smoke.check_attention("cuda", shape=chip_smoke.SEARCH_ATTN_SHAPE, ts=(),
+                                      seed=14) <= chip_smoke.ATTN_TOL
+
+
+def test_closed_loop_with_kernels_matches_plain(cuda, tmp_path):
+    """run_benchmark on the card at ViT-S/14 @ 308 bf16 on the poster
+    scene: episodes 0 and 1 (rotation search on) and 1 perturbed, 10 steps
+    in segments of 5; launches as the executed steps give, every step of
+    episode 0 teacher-forced through the plain step with its twist within
+    1e-3 wherever no pair differs (compare_runs raises otherwise)."""
+    from vitvs_tpu_torch.harness.pipeline import ServoModel
+    from vitvs_tpu_torch.models.vit import init_vit
+    from vitvs_tpu_torch.sim.scene import load_poster_scene
+
+    cfg = chip_smoke.loop_config(chip_smoke.reference_config())
+    model = ServoModel.create(cfg, device="cuda")
+    net = init_vit(model.vit, torch.Generator().manual_seed(0), device="cuda",
+                   layerscale=1.0).cast_blocks(model.compute_dtype).eval()
+    s = chip_smoke.run_closed_loop(net, cfg, model, load_poster_scene(device="cuda"),
+                                   str(tmp_path), num_steps=10, segment_steps=5)
+    for name, got in s["launches"].items():
+        want = dict.fromkeys(got, 0)
+        want.update(chip_smoke.loop_launches(cfg.layer, s["episodes"][name],
+                                             s["device_steps"][name]))
+        assert got == want, name
+    assert s["teacher_forced"]["steps"] == 10
+    assert s["teacher_forced"]["twist_max_abs_err"] <= chip_smoke.TWIST_TOL

@@ -164,3 +164,46 @@ def test_chip_smoke_frames_are_shifted_texture():
     assert goal.shape == (48, 64, 3) and goal.dtype == np.uint8 and depth.shape == (48, 64)
     np.testing.assert_array_equal(frames[0], goal)
     np.testing.assert_array_equal(frames[1][:-2, :-3], goal[2:, 3:])
+
+
+@pytest.fixture
+def one_intra_op_thread():
+    """Tiny shapes run thousands of small ops: one intra-op thread each, as
+    the suite's parallel workers share the machine's cores (restored after)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_chip_smoke_closed_loop_runs_tiny_on_cpu(tmp_path, one_intra_op_thread):
+    """Phase 3d with a tiny 2-block ViT on a synthetic poster on the CPU:
+    run_benchmark on episodes 0 and 1 (and 1 perturbed), the ladder
+    stopping them at 5 iterations so that segments of 4 end in the frozen
+    tail; through the plain versions, so no kernel counts a launch, the
+    teacher-forced plain steps agree exactly and the plain episode never
+    parts."""
+    from vitvs_tpu_torch.sim.scene import Scene, make_synthetic_poster
+
+    cfg = VSConfig(u_max=96, v_max=72, f_x=75.0, f_y=75.0, dino_input_size=84, num_pairs=12,
+                   layer=1, model_name="tiny", pinv_mode="dls", lambda_=0.5,
+                   min_iterations=2, max_iterations=5)
+    vcfg = tvit.ViTConfig(patch_size=14, embed_dim=96, depth=2, num_heads=3, pos_grid=5,
+                          gelu_approx=True, model_name="tiny")
+    model = ServoModel(vit=vcfg, cfg=cfg, compute_dtype=torch.bfloat16, device="cpu")
+    net = tvit.init_vit(vcfg, torch.Generator().manual_seed(0), device="cpu",
+                        layerscale=1.0).cast_blocks(torch.bfloat16).eval()
+    scene = Scene.create(make_synthetic_poster(128, seed=3), half_size=0.42, device="cpu")
+    s = chip_smoke.run_closed_loop(net, cfg, model, scene, str(tmp_path), num_steps=12,
+                                   segment_steps=4)
+    assert s["device_steps"] == {"standard": 16, "perturbed": 8}
+    assert s["iterations"] == {"standard": [5, 5], "perturbed": [5]}
+    assert all(v == 0 for run in s["launches"].values() for v in run.values())
+    tf = s["teacher_forced"]
+    assert tf["steps"] == 8 and tf["flipped_pairs"] == 0 and tf["steps_compared"] == 8
+    assert tf["twist_max_abs_err"] == 0.0 and tf["goal_desc_rel_err"] == 0.0
+    assert s["plain_episode"]["parts_at_step"] is None
+    # the counts phase 3d asserts on the card: ViT-S/14 has 12 blocks
+    assert chip_smoke.loop_launches(11, 2, 80) == {"attention": 12 * 83, "matcher_bf16": 88}
+    assert chip_smoke.loop_config(chip_smoke.reference_config()).max_iterations == \
+        chip_smoke.LOOP_MAX_ITERATIONS

@@ -10,8 +10,8 @@ Behaviour kept from the JAX package:
 * the step is branch-free: nothing waits for the device mid-step.
 
 Pair sampling takes (t,) ``scores``; when none are given they are drawn with
-``torch.rand`` from the caller's ``generator`` (JAX draws them with
-``jax.random.uniform``, which torch cannot reproduce).
+``torch.rand`` on the model's device from the caller's ``generator`` (JAX
+draws them with ``jax.random.uniform``, which torch cannot reproduce).
 
 The int8 W8A8 serving step (``ServoModel.quantized``) runs a ``QuantViT``
 (``models/quant.py``, made by :func:`quantized_vit`), quantizes the binned
@@ -179,13 +179,22 @@ def quantized_vit(net: ViT, model: ServoModel, calib_rgb=None,
 
 
 def _descriptors(net: ViT | QuantViT, model: ServoModel, rgb):
+    """One frame (H, W, 3) -> (t, d) (a ``QuantizedBinned`` on the
+    source-quantized int8 path), or float descriptors of a batch of frames
+    (A, H, W, 3) -> (A, t, d) from one forward."""
     _check_net(net, model)
-    x = preprocess(model, rgb)[None]
+    x = preprocess(model, rgb)
+    batched = x.ndim == 4
     src_q = model.source_quantized_bins
-    desc = extract_descriptors(net, x, layer=model.cfg.layer, facet=model.cfg.facet,
-                               bin=model.binned and not src_q, use_kernels=model.use_kernels,
-                               quantized=model.quantized)[0, 0]
-    return quantize_binned_int8(desc, model.grid()) if src_q else desc
+    if batched and src_q:
+        raise NotImplementedError("batched source-quantized descriptors are not ported "
+                                  "(ROADMAP.md queue 1, item 3)")
+    desc = extract_descriptors(net, x if batched else x[None], layer=model.cfg.layer,
+                               facet=model.cfg.facet, bin=model.binned and not src_q,
+                               use_kernels=model.use_kernels, quantized=model.quantized)[:, 0]
+    if batched:
+        return desc
+    return quantize_binned_int8(desc[0], model.grid()) if src_q else desc[0]
 
 
 @torch.inference_mode()
@@ -193,6 +202,13 @@ def goal_descriptors(net: ViT | QuantViT, model: ServoModel, goal_rgb):
     """Per-episode goal descriptor precompute -> (t, d), or a
     ``QuantizedBinned`` on the source-quantized int8 serving path."""
     return _descriptors(net, model, goal_rgb)
+
+
+@torch.inference_mode()
+def batch_descriptors(net: ViT, model: ServoModel, frames) -> torch.Tensor:
+    """Float descriptors (A, t, d) of A camera frames (A, H, W, 3), one
+    batched ViT forward (the rotation search's four views)."""
+    return _descriptors(net, model, frames)
 
 
 @torch.inference_mode()
@@ -212,14 +228,15 @@ def servo_step(
 
     frame_rgb: (H, W, 3) uint8 or float [0, 1]; frame_depth_m: (H, W)
     z-depth in meters (0 = no return); arrays or tensors.  scores: (t,)
-    pair-sampling scores, drawn from ``generator`` when None.
+    pair-sampling scores, drawn on the model's device from ``generator``
+    (a generator of that device) when None.
     """
     cfg = model.cfg
     k = num_pairs or cfg.num_pairs
     grid = model.grid()
     cur_desc = _descriptors(net, model, frame_rgb)
     if scores is None:
-        scores = torch.rand(grid[0] * grid[1], generator=generator)
+        scores = torch.rand(grid[0] * grid[1], generator=generator, device=model.device)
     # int8 serving matches with an int8 matmul, never a matcher kernel
     match = find_correspondences(goal_desc, cur_desc, grid, k, scores.to(model.device),
                                  distance_threshold=cfg.thresh_filter_keypoints,

@@ -9,7 +9,9 @@ exact or tanh GELU, softmax attention, and ``vit_features`` up to block
 
 Dtypes follow the JAX package: the embedding (patch kernel, cls, pos) stays
 f32 and sees the images rounded to the compute dtype; the blocks run in the
-compute dtype, which is the dtype of their parameters (``cast_blocks``).
+compute dtype, which is the dtype of their parameters (``cast_blocks``).  A
+ViT cast whole (``net.to(dtype)``, the benchmark's cast) computes its
+embedding in that dtype too.
 
 Attention goes through one dispatch point, :func:`attention_core`, routed by
 ``ViTConfig.attn_impl``: exact softmax ('xla', 'pallas', 'auto') or the
@@ -207,14 +209,16 @@ class ViT(nn.Module):
         return self
 
     def embed(self, images: torch.Tensor) -> torch.Tensor:
-        """images (B, H, W, 3) -> f32 tokens (B, 1+t, D) with pos embeddings.
+        """images (B, H, W, 3) -> tokens (B, 1+t, D) with pos embeddings, in
+        the embedding's dtype: f32 after ``cast_blocks``, the compute dtype
+        when the whole ViT was cast (the benchmark's cast, as the JAX
+        benchmark casts every parameter).
 
         The images are rounded to the compute dtype first, as the JAX
-        package casts them before its f32 patch matmul."""
+        package casts them before its patch matmul."""
         return embed_tokens(self.cfg, images.to(self.compute_dtype),
-                            self.patch_embed.proj.weight.float(),
-                            self.patch_embed.proj.bias.float(),
-                            self.cls_token.float(), self.pos_embed.float())
+                            self.patch_embed.proj.weight, self.patch_embed.proj.bias,
+                            self.cls_token, self.pos_embed)
 
 
 def _resample_pos_embed(pos: torch.Tensor, gh: int, gw: int) -> torch.Tensor:
