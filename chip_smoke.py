@@ -2,10 +2,17 @@
 """Smoke run of the PyTorch/CUDA port (vitvs_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py              # the smoke run below
-    python3 chip_smoke.py --profile [bf16|f32|F|N|loop] [--trace trace.json]
+    python3 chip_smoke.py --profile [bf16|f32|F|N|loop|loop518] [--trace trace.json]
                                        # only: device-time breakdown of servo steps
                                        # of the bf16 or f32 path or an int8 serving variant,
-                                       # or of closed-loop steps
+                                       # or of closed-loop steps (at 308, or on the trained
+                                       # ViT-S/14 @ 518)
+    python3 chip_smoke.py --replay A:B [--checkpoint F] [--budget-s S]
+                                       # only: episodes [A, B) of the 500-episode seed-41
+                                       # stream on the trained ViT-S/14 @ 518 (bf16), resumable: the
+                                       # checkpoint (.replay/replay_s518_A_B.ckpt) is left
+                                       # in chiprun_out/ too; copy it back into .replay/ and
+                                       # run again to go on; prints the converged count
 
 Phases, each announced with a flushed, timestamped start/done line:
 
@@ -25,8 +32,12 @@ Phases, each announced with a flushed, timestamped start/done line:
    rows whose logits are all about -30; fused int8 attention at (1, 1370,
    768) (column slices of a qkv output), at B = 2 with the exact kernel's T
    list, plus 58 padded columns;
-   the int8 kernel's Q and K quantization against _quant_th, bit for bit;
-   the exact attention at the rotation search's batch, (4, 485, 6, 64);
+   the int8 kernel's Q and K quantization and _quant_th on the card against
+   _quant_th on the CPU, bit for bit (the jitted reference's arithmetic);
+   the exact attention at the rotation search's batch, (4, 485, 6, 64); the
+   trained ViT-S/14 @ 518's shapes: exact attention at (1, 1370, 6, 64) and
+   (4, 1370, 6, 64), the bf16 matcher at (1369, 1369, 3456), no-max and
+   fused int8 attention at 6 heads (1, 1370, 6 x 64);
 3. the bf16 main path: goal_descriptors + 5 servo_steps of the DINO servo
    step at ViT-S/14 @ 308 (configs/config.yaml's settings, seeded weights,
    seeded 640x480 frames), once through the kernels and once through the
@@ -60,15 +71,30 @@ Phases, each announced with a flushed, timestamped start/done line:
    checked; then the closed-loop step's median ms beside the bare step's,
    timed in alternating rounds, and its device busy share (``--profile
    loop`` profiles it alone);
+3e. the trained weights: vitvs_tpu_torch/assets/ckpt_real518.npz (the
+   JAX package's artifacts/ckpt_real518, exported by
+   scripts/export_port_weights.py) loaded with numpy, no JAX; ViT-S/14 @ 518
+   at configs/real_s518.yaml's settings: goal_descriptors + 5 bf16
+   servo_steps on views the port renders of the poster scene near the goal,
+   through the kernels and plain, the plain step teacher-forced (twists held
+   within 1e-3 where no pair flips; flips counted); the int8 variants F and
+   N of the same ViT (static scales on 7 start views) on the same views,
+   logged kernels against plain and against the bf16 step; then
+   run_benchmark on episode 0 of the 500-episode seed-41 stream (runs Z and
+   AA's) at the full ladder (300 to 1500 iterations, rotation search on),
+   its first 40 steps teacher-forced through the plain step, which must
+   converge by the ladder's own test;
 4. times on the card (CUDA events / synchronized host clock) beside each
    kernel's bound and the PyTorch library call for the same function (the
    exact kernels at T = 485 and T = 1370; the int8 kernel from the bf16
-   slices, its quantization included), and the servo steps' medians.  The
+   slices, its quantization included), and the servo steps' medians; the
+   kernels phase 3e launches at its shapes (ViT-S/14 @ 518).  The
    f32 attention kernel is held to the tensor-core bound of f32-accurate
    work (three TF32 passes), its f32 FMA bound logged beside it.
 
-The last three lines of standard output are the kernel JSON line, the card
-line and {"ok": true, "device": {...}}.  Any failed check raises, so the
+The last three lines of standard output are the kernel JSON line (with the
+trained weights' file, size and config under "weights"), the card line and
+{"ok": true, "device": {...}}.  Any failed check raises, so the
 script exits non-zero and prints no result; it also exits non-zero without a
 CUDA device or outside a checkout of the repository.
 """
@@ -79,6 +105,8 @@ import argparse
 import copy
 import dataclasses
 import json
+import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -92,13 +120,16 @@ import torch
 
 from vitvs_tpu_torch.control.ibvs import EmaState
 from vitvs_tpu_torch.harness.benchmark import cast_for_benchmark, run_benchmark
+from vitvs_tpu_torch.harness.chunks import load_episodes
+from vitvs_tpu_torch.harness.evals import convergence_stats
 from vitvs_tpu_torch.harness.pipeline import (ServoModel, goal_descriptors, quantized_vit,
                                               servo_step)
 from vitvs_tpu_torch.harness.rollout import episode_init, goal_pose, rollout_segment
 from vitvs_tpu_torch.harness.samplers import generate_episode_starts
 from vitvs_tpu_torch.io_bridge.config import VSConfig
 from vitvs_tpu_torch.match.binned import QuantizedBinned
-from vitvs_tpu_torch.models.vit import init_vit
+from vitvs_tpu_torch.models.convert import TRAINED_S518, load_exported
+from vitvs_tpu_torch.models.vit import ViT, init_vit
 from vitvs_tpu_torch.ops import _build, attention, attn_int8, matcher
 from vitvs_tpu_torch.sim.env import observe
 from vitvs_tpu_torch.sim.scene import Scene, load_poster_scene
@@ -169,6 +200,20 @@ LOOP_SEGMENT = 20
 LOOP_MIN_ITERATIONS = 10
 LOOP_MAX_ITERATIONS = 30
 SEARCH_ATTN_SHAPE = (4, 485, 6, 64)   # the rotation search's 4-view forward
+# phase 3e, the trained ViT-S/14 @ 518 (vitvs_tpu_torch/assets/ckpt_real518.npz)
+TRAINED_ATTN_SHAPE = (1, 1370, 6, 64)          # one frame
+TRAINED_SEARCH_ATTN_SHAPE = (4, 1370, 6, 64)   # the rotation search's 4 views
+TRAINED_MATCH_SHAPE = (1369, 3456)
+# the step's 5 views approach the goal; the int8 calibration's 7 start views
+# (offsets of the camera from the goal pose, m)
+TRAINED_STEP_OFFSETS = [(0.03, -0.02, 0.04), (0.024, -0.016, 0.032), (0.018, -0.012, 0.024),
+                        (0.012, -0.008, 0.016), (0.006, -0.004, 0.008)]
+TRAINED_CALIB_OFFSETS = [(0.06, 0.02, 0.05), (-0.05, 0.04, 0.08), (0.04, -0.06, 0.1),
+                         (-0.03, -0.02, 0.06), (0.08, 0.05, 0.12), (-0.07, 0.01, 0.04),
+                         (0.02, 0.07, 0.09)]
+TRAINED_STREAM = 500          # the seed-41 stream of runs Z and AA (the benchmark's 500)
+TRAINED_LOOP_EPISODE = 0      # converged in the JAX package's runs L, Z and AA
+TRAINED_LOOP_FORCED = 40      # its first steps teacher-forced through the plain step
 TIMING_ROUNDS = 7                     # alternating rounds, closed-loop step and bare step
 # the reference's npz: its 22 arrays and the run time
 NPZ_KEYS = ("initial_positions", "initial_orientations", "final_positions",
@@ -190,6 +235,11 @@ def phase(name: str):
     log(f"phase {name} start")
     yield
     log(f"phase {name} done")
+
+
+def sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
 
 
 def card_line() -> str:
@@ -410,14 +460,12 @@ def check_int8_attention(device, shape=SERVE_ATTN_SHAPE, ts=ATTN_T, seed=5) -> f
 
 def check_quant_probe(device, shape=SERVE_ATTN_SHAPE, seed=7) -> dict:
     """The int8 kernel's own quantization (its Q path with the Q scale factor,
-    its K path) against _quant_th on CPU tensors, the reference's arithmetic
-    (a true division by 127, as in JAX): int8 values equal and scales equal
+    its K path), _quant_th run on the card's tensors and _quant_th on CPU
+    tensors, all three the jitted reference's arithmetic (a multiply by
+    f32(1/127), ROADMAP.md fault 3.5): int8 values equal and scales equal
     bit for bit, on column slices of a seeded qkv output whose first token
     is 0, second 1000x and third 1e-20x (amax below the 1e-12 floor).
-    Returns the number of rows compared and the number of scales in which
-    _quant_th run on the card's own tensors differs from the reference
-    (PyTorch's CUDA division by a Python number multiplies by its
-    reciprocal)."""
+    Returns the number of rows compared."""
     B, T, H, hd = shape
     D = H * hd
     qkv = _normal(device, (B, T, 3 * D), np.random.default_rng(seed), torch.bfloat16)
@@ -425,20 +473,21 @@ def check_quant_probe(device, shape=SERVE_ATTN_SHAPE, seed=7) -> dict:
     qkv[:, 1] *= 1000
     qkv[:, 2] *= 1e-20
     q, k = qkv[..., :D], qkv[..., D:2 * D]
-    card_diffs = 0
+    bits = lambda t: t.cpu().contiguous().view(torch.int32)
     for x, extra, k_path in ((q, attn_int8._q_extra_scale(q, H), False), (k, 1.0, True)):
-        what = "K" if k_path else "Q"
-        q8, sc = attn_int8.quant_th_probe(x, H, extra, k_path=k_path)
         ref8, ref_s = attn_int8._quant_th(x.cpu(), H, extra)
-        if not torch.equal(q8.cpu(), ref8):
-            raise AssertionError(f"int8 kernel's {what} quantization: "
-                                 f"{int((q8.cpu() != ref8).sum())} int8 values differ")
-        bits = lambda t: t.cpu().contiguous().view(torch.int32)
-        if not torch.equal(bits(sc), bits(ref_s)):
-            raise AssertionError(f"int8 kernel's {what} quantization: "
-                                 f"{int((bits(sc) != bits(ref_s)).sum())} scales differ")
-        card_diffs += int((bits(attn_int8._quant_th(x, H, extra)[1]) != bits(ref_s)).sum())
-    return {"rows": 2 * B * T * H, "card_quant_th_scale_diffs": card_diffs}
+        for who, (q8, sc) in (("the int8 kernel's", attn_int8.quant_th_probe(x, H, extra,
+                                                                              k_path=k_path)),
+                              ("_quant_th on the card's tensors,",
+                               attn_int8._quant_th(x, H, extra))):
+            what = f"{who} {'K' if k_path else 'Q'} quantization"
+            if not torch.equal(q8.cpu(), ref8):
+                raise AssertionError(f"{what}: {int((q8.cpu() != ref8).sum())} int8 values "
+                                     f"differ from _quant_th on CPU tensors")
+            if not torch.equal(bits(sc), bits(ref_s)):
+                raise AssertionError(f"{what}: {int((bits(sc) != bits(ref_s)).sum())} scales "
+                                     f"differ from _quant_th on CPU tensors")
+    return {"rows": 2 * B * T * H}
 
 
 # ---------------------------------------------------------------------------
@@ -486,15 +535,17 @@ def make_frames(cfg: VSConfig, seed=0, shifts=SHIFTS):
 def drive(net, model: ServoModel, goal, frames, depth, scores, states=None):
     """goal_descriptors, then one servo_step per frame, carrying the EMA and
     the previous command, or taking them from ``states`` (one (ema, prev) per
-    step).  Returns (goal descriptors, step results)."""
+    step).  ``depth``: one depth map, or a list of one per frame.  Returns
+    (goal descriptors, step results)."""
     goal_desc = goal_descriptors(net, model, goal)
     ema = EmaState.init(device=model.device)
     prev = torch.zeros(6, device=model.device)
+    depths = depth if isinstance(depth, list) else [depth] * len(frames)
     results = []
     for i, (frame, s) in enumerate(zip(frames, scores)):
         if states is not None:
             ema, prev = states[i]
-        r = servo_step(net, model, goal_desc, frame, depth, ema, prev, scores=s)
+        r = servo_step(net, model, goal_desc, frame, depths[i], ema, prev, scores=s)
         ema, prev = r.ema, r.v_c
         results.append(r)
     if model.device != "cpu":
@@ -526,6 +577,13 @@ def check_outputs(model: ServoModel, goal_desc, results) -> None:
                 raise AssertionError(f"step {i}: {name} is not finite")
 
 
+def same_pairs(r, k) -> torch.Tensor:
+    """(pairs,) bool: the two steps' pair is the same (goal pixels equal,
+    current pixels within 1 px, validity equal)."""
+    return ((r.s_uv_star == k.s_uv_star).all(-1) & ((r.s_uv - k.s_uv).abs() <= 1.0).all(-1)
+            & (r.valid == k.valid))
+
+
 def compare_runs(ref, ker, every_step: bool = False,
                  tol=(DESC_REL_TOL, DESC_COS_MIN, TWIST_TOL)) -> dict:
     """Hold the kernel run against the plain run.  Pairs are the same when
@@ -550,9 +608,7 @@ def compare_runs(ref, ker, every_step: bool = False,
         raise AssertionError(f"goal descriptors: a row's cosine {row_cos} < {desc_cos_min}")
     differing, twist_err, compared = [], 0.0, 0
     for r, k in zip(ref_steps, ker_steps):
-        same = ((r.s_uv_star == k.s_uv_star).all(-1) & ((r.s_uv - k.s_uv).abs() <= 1.0).all(-1)
-                & (r.valid == k.valid))
-        differing.append(int((~same).sum()))
+        differing.append(int((~same_pairs(r, k)).sum()))
         if differing[-1] if every_step else any(differing):
             continue
         compared += 1
@@ -591,13 +647,15 @@ def _counters():
 
 
 def run_main_path(net, cfg: VSConfig, model_kernels: ServoModel, seed=0, frames=None,
-                  every_step: bool = False, tol=(DESC_REL_TOL, DESC_COS_MIN, TWIST_TOL)) -> dict:
+                  every_step: bool = False, tol=(DESC_REL_TOL, DESC_COS_MIN, TWIST_TOL),
+                  keep_steps: bool = False) -> dict:
     """Both runs of the main path and their checks; the launch counters are
     zeroed just before the kernel run and read just after it.  ``frames``:
-    (goal, current frames, depth), by default :func:`make_frames`'.
+    (goal, current frames, depth or depths), by default :func:`make_frames`'.
     ``every_step``: the plain run takes the kernel run's EMA and command at
     each step, and twists are compared at every step whose pairs agree.
-    ``tol``: :func:`compare_runs`'."""
+    ``tol``: :func:`compare_runs`'.  ``keep_steps``: the kernel run's step
+    results under "steps" (not JSON)."""
     goal, frames, depth = frames or make_frames(cfg, seed)
     scores = pair_scores(model_kernels, len(frames), seed)
     model_plain = dataclasses.replace(model_kernels, use_kernels=False)
@@ -619,6 +677,8 @@ def run_main_path(net, cfg: VSConfig, model_kernels: ServoModel, seed=0, frames=
     summary["num_valid"] = [int(r.num_valid) for r in ker[1]]
     summary["body_twists"] = [r.body_twist.tolist() for r in ker[1]]
     summary["body_twist_last"] = summary["body_twists"][-1]
+    if keep_steps:
+        summary["steps"] = ker[1]
     return summary
 
 
@@ -644,19 +704,27 @@ def serving_model(cfg: VSConfig, variant: str, device, vit=None) -> ServoModel:
                       cfg=cfg, device=device, quantized=True)
 
 
-def run_serving_path(fnet, cfg: VSConfig, variant: str, device, seed=0, vit=None):
-    """Calibrate the int8 ViT of ``fnet`` (static scales, goal + 7 shifted
-    frames), then both runs of the serving step as :func:`run_main_path`.
-    Returns (summary, the quantized ViT, the model)."""
+def run_serving_path(fnet, cfg: VSConfig, variant: str, device, seed=0, vit=None,
+                     frames=None, keep_steps: bool = False,
+                     tol=(DESC_REL_TOL, DESC_COS_MIN, TWIST_TOL)):
+    """Calibrate the int8 ViT of ``fnet`` (static scales, goal + 7 start
+    views), then both runs of the serving step as :func:`run_main_path`.
+    ``frames``: (goal, step frames, calibration frames, depth or depths),
+    by default the goal and 5 + 7 shifted frames of :func:`make_frames`.
+    ``tol``: :func:`compare_runs`'.  Returns (summary, the quantized ViT,
+    the model)."""
     model = serving_model(cfg, variant, device, vit)
-    goal, frames, depth = make_frames(cfg, seed, shifts=SHIFTS + CALIB_SHIFTS)
+    if frames is None:
+        goal, shifted, depth = make_frames(cfg, seed, shifts=SHIFTS + CALIB_SHIFTS)
+        frames = (goal, shifted[:N_STEPS], shifted[N_STEPS:], depth)
+    goal, steps, calib, depth = frames
     t0 = time.perf_counter()
-    qnet = quantized_vit(fnet, model, [goal, *frames[N_STEPS:]])
+    qnet = quantized_vit(fnet, model, [goal, *calib])
     if model.device != "cpu":
         torch.cuda.synchronize()
     calib_s = time.perf_counter() - t0
-    summary = run_main_path(qnet, cfg, model, seed, frames=(goal, frames[:N_STEPS], depth),
-                            every_step=True)
+    summary = run_main_path(qnet, cfg, model, seed, frames=(goal, steps, depth),
+                            every_step=True, keep_steps=keep_steps, tol=tol)
     summary["calibration_s"] = calib_s
     return summary, qnet, model
 
@@ -798,6 +866,154 @@ def time_run(run, iters=20) -> float:
         if i >= 3:
             times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
+
+
+# ---------------------------------------------------------------------------
+# phase 3e: the trained ViT-S/14 @ 518
+# ---------------------------------------------------------------------------
+
+
+def trained_config() -> VSConfig:
+    """configs/real_s518.yaml's settings, built in code: ViT-S/14 at 518
+    (37 x 37 patches, T = 1370), the dls solve, the ladder's 300 to 1500
+    iterations; but the 500-episode stream (TRAINED_STREAM) where the file
+    says 64, since the start poses depend on the stream's length and runs Z
+    and AA replayed the 500-episode one."""
+    return VSConfig(pinv_mode="dls", dino_input_size=518, num_samples=TRAINED_STREAM)
+
+
+def load_trained(model: ServoModel, path: Path = TRAINED_S518):
+    """The exported trained weights (numpy, no JAX) as an f32 ViT of
+    ``model``'s configuration (the blocks hold the file's bf16 values: a
+    cast to bf16 gives them back exactly), on its device, and what to log of
+    the file.  A missing or unreadable file, or weights of another
+    architecture than the model's, raise."""
+    sd, vcfg = load_exported(path)
+    run_fields = {k: getattr(model.vit, k) for k in ("gelu_approx", "attn_impl", "quant_attn")}
+    if dataclasses.replace(vcfg, **run_fields) != model.vit:
+        raise ValueError(f"{path} holds a {vcfg}, the model runs a {model.vit}")
+    net = ViT(model.vit)
+    net.load_state_dict(sd)
+    info = {"file": str(Path(path).resolve().relative_to(Path(__file__).resolve().parent)),
+            "bytes": Path(path).stat().st_size, "parameters": sum(v.numel() for v in sd.values()),
+            "config": {k: getattr(vcfg, k) for k in ("model_name", "patch_size", "stride",
+                                                     "embed_dim", "depth", "num_heads",
+                                                     "pos_grid", "use_layerscale")}}
+    return net.to(model.device).eval(), info
+
+
+def render_views(model: ServoModel, scene: Scene, offsets):
+    """The goal view and the views from the goal pose moved by each offset
+    (m), rendered on the model's device: (goal rgb, [rgb], [depth])."""
+    p0, q0 = goal_pose(model.device)
+    goal, _ = observe(scene, model.camera, p0, q0)
+    views = [observe(scene, model.camera, p0 + torch.tensor(o, device=model.device), q0)
+             for o in offsets]
+    return goal, [v[0] for v in views], [v[1] for v in views]
+
+
+def run_trained_step(net, cfg: VSConfig, model: ServoModel, scene: Scene,
+                     offsets=TRAINED_STEP_OFFSETS) -> dict:
+    """goal_descriptors + one bf16 servo_step per view of ``offsets``
+    through the kernels and through the plain versions, the plain step
+    teacher-forced (the kernel run's EMA and command), as
+    :func:`run_main_path`; the kernel run's steps under "steps"."""
+    goal, rgbs, depths = render_views(model, scene, offsets)
+    return run_main_path(net, cfg, model, frames=(goal, rgbs, depths), every_step=True,
+                         keep_steps=True)
+
+
+def run_trained_int8(fnet, cfg: VSConfig, device, scene: Scene, bf16_steps, vit=None,
+                     offsets=TRAINED_STEP_OFFSETS, calib_offsets=TRAINED_CALIB_OFFSETS) -> dict:
+    """The int8 serving variants F and N of the trained ViT (static scales
+    calibrated on the goal view and the views of ``calib_offsets``, as
+    phase 3b) on phase 3e's views, kernels against plain, and beside the
+    bf16 step's kernel run: pairs that agree and the largest twist
+    difference.  All of it is logged, not held (the trained int8 ViT
+    amplifies the kernels' bf16 ulps through its static activation scales;
+    phase 2 holds the kernels themselves at these shapes); the launch
+    counts are held by the caller."""
+    out = {}
+    for variant in VARIANTS:
+        model = serving_model(cfg, variant, device, vit)
+        goal, rgbs, depths = render_views(model, scene, offsets)
+        _, calib, _ = render_views(model, scene, calib_offsets)
+        summary, _, _ = run_serving_path(fnet, cfg, variant, device, vit=vit,
+                                         frames=(goal, rgbs, calib, depths), keep_steps=True,
+                                         tol=(math.inf, -math.inf, math.inf))
+        steps = summary.pop("steps")
+        agree = [int(same_pairs(a, b).sum()) for a, b in zip(bf16_steps, steps)]
+        gap = max((a.body_twist - b.body_twist).abs().max().item()
+                  for a, b in zip(bf16_steps, steps))
+        out[variant] = {"summary": summary, "pairs_agreeing_with_bf16": agree,
+                        "pairs": int(steps[0].valid.numel()), "twist_gap_to_bf16": gap}
+    return out
+
+
+def run_trained_loop(net, cfg: VSConfig, model: ServoModel, scene: Scene, out_dir: str,
+                     episode: int = TRAINED_LOOP_EPISODE, forced: int = TRAINED_LOOP_FORCED,
+                     num_steps: int | None = None, segment_steps: int | None = 250) -> dict:
+    """run_benchmark through the kernels on one episode of the seed-41
+    stream at ``cfg``'s full ladder (rotation search on), the launch
+    counters zeroed before and read after; its first ``forced`` steps are
+    teacher-forced through the plain step (their frame, EMA, command and
+    scores; the plain goal descriptors).  The episode must converge by the
+    ladder's own test: if it does not, the episode runs again plain, and
+    the error names its final errors and where the two runs part."""
+    model_plain = dataclasses.replace(model, use_kernels=False)
+    common = dict(rotation_search=True, num_steps=num_steps, segment_steps=segment_steps,
+                  verbose=False, device=model.device, episode_indices=[episode])
+    record = []
+
+    def on_step(abs_idx, inputs, result):
+        if len(record) < forced:
+            record.append((inputs, result))
+
+    for fn in _counters().values():
+        fn.launches = 0
+    sync(model.device)
+    t0 = time.perf_counter()
+    run = run_benchmark(cfg, net=net, model=model, scene=scene, out_dir=out_dir,
+                        config_name="trained", on_step=on_step, **common)
+    sync(model.device)
+    wall_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in _counters().items()}
+    check_npz(run.path, 1)
+
+    cast = cast_for_benchmark(net, model.compute_dtype)
+    goal_rgb, _ = observe(scene, model.camera, *goal_pose(model.device))
+    goal_ker = goal_descriptors(cast, model, goal_rgb)
+    goal_plain = goal_descriptors(cast, model_plain, goal_rgb)
+    ref_steps = [servo_step(cast, model_plain, goal_plain, x.rgb, x.depth, x.ema, x.prev_v_c,
+                            scores=x.scores) for x, _ in record]
+    forced_cmp = compare_runs((goal_plain, ref_steps), (goal_ker, [r for _, r in record]),
+                              every_step=True)
+    sm = run.summaries
+    out = {"episode": episode, "device_steps": run.device_steps, "wall_s": wall_s,
+           "launches": launches, "iterations": int(sm["all_iteration_histories"][0]),
+           "converged": bool(sm["convergence_flags"][0]),
+           "final_pos_err_cm": float(sm["position_errors"][0]),
+           "final_rot_err_deg": float(sm["orientation_errors"][0]),
+           "lowest_pos_err_cm": float(sm["lowest_position_errors"][0]),
+           "lowest_rot_err_deg": float(sm["lowest_orientation_errors"][0]),
+           "teacher_forced": {"steps": len(record),
+                              "steps_with_flips": sum(1 for f in forced_cmp["differing_pairs"] if f),
+                              "flipped_pairs": sum(forced_cmp["differing_pairs"]),
+                              "twist_max_abs_err": forced_cmp["twist_max_abs_err"],
+                              "steps_compared": forced_cmp["steps_compared"],
+                              "goal_desc_rel_err": forced_cmp["desc_rel_err"]}}
+    if not out["converged"]:
+        plain = run_benchmark(cfg, net=net, model=model_plain, scene=scene, save=False, **common)
+        pk = np.asarray(sm["all_position_histories"][0], np.float64)
+        pp = np.asarray(plain.summaries["all_position_histories"][0], np.float64)
+        m = min(len(pk), len(pp))
+        apart = np.nonzero(np.abs(pk[:m] - pp[:m]).max(-1) > 1e-4)[0]
+        raise AssertionError(
+            f"trained episode {episode} did not converge: {json.dumps(out)}; the plain run "
+            f"converged={bool(plain.summaries['convergence_flags'][0])} at final error "
+            f"{float(plain.summaries['position_errors'][0]):.3f} cm, the runs part at step "
+            f"{int(apart[0]) if len(apart) else None}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -952,6 +1168,57 @@ def time_kernels(device) -> dict:
     }
 
 
+def time_trained_kernels(device) -> dict:
+    """The kernels phase 3e launches, at its shapes (ViT-S/14 @ 518): each
+    kernel alone, its plain version and the library call, with the bound."""
+    rs = np.random.default_rng(9)
+    bf16 = lambda shape: _normal(device, shape, rs, torch.bfloat16)
+    heads_first = lambda *xs: [x.transpose(1, 2).contiguous() for x in xs]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {}
+    for name, shape in (("attention", TRAINED_ATTN_SHAPE),
+                        ("attention_search", TRAINED_SEARCH_ATTN_SHAPE)):
+        q, k, v = (bf16(shape) for _ in range(3))
+        qh, kh, vh = heads_first(q, k, v)
+        out[name] = {"shape": shape, "ms": cuda_ms(lambda: attention.mha_attention(q, k, v)),
+                     "plain_ms": cuda_ms(lambda: attention.mha_attention_plain(q, k, v), iters=50),
+                     "library_ms": cuda_ms(lambda: sdpa(qh, kh, vh)),
+                     **dict(zip(("bound_ms", "bound_by"), attention_bound_ms(shape)))}
+    t, d = TRAINED_MATCH_SHAPE
+    a, b = bf16((t, d)), bf16((t, d))
+    ua, ub = matcher.bf16_unit_rows(a), matcher.bf16_unit_rows(b)
+
+    def library_match_bf16():
+        sim = ua @ ub.T
+        return sim.max(1), sim.max(0)
+
+    out["matcher_bf16"] = {"shape": (t, t, d), "ms": cuda_ms(lambda: matcher._launch_bf16(ua, ub)),
+                           "plain_ms": cuda_ms(lambda: matcher.dual_argmax_cosine_bf16_plain(a, b),
+                                               iters=50),
+                           "library_ms": cuda_ms(library_match_bf16),
+                           **dict(zip(("bound_ms", "bound_by"),
+                                      matcher_bound_ms(TRAINED_MATCH_SHAPE, bf16=True)))}
+    B, T, H, hd = TRAINED_ATTN_SHAPE
+    fq, fk, fv = (bf16(TRAINED_ATTN_SHAPE) for _ in range(3))
+    fqs = attention._fast_scaled_q(fq)
+    fqh, fkh, fvh = heads_first(fq, fk, fv)
+    out["attention_fast"] = {
+        "shape": TRAINED_ATTN_SHAPE,
+        "ms": cuda_ms(lambda: attention._launch("vitvs_attention_fast_fwd", fqs, fk, fv)),
+        "plain_ms": cuda_ms(lambda: attention.mha_attention_fast_plain(fq, fk, fv), iters=50),
+        "library_ms": cuda_ms(lambda: sdpa(fqh, fkh, fvh)),
+        **dict(zip(("bound_ms", "bound_by"), attention_bound_ms(TRAINED_ATTN_SHAPE)))}
+    qkv = bf16((B, T, 3 * H * hd))
+    D = H * hd
+    iq, ik, iv = qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
+    out["attn_int8"] = {
+        "shape": (B, T, D), "ms": cuda_ms(lambda: attn_int8._launch(iq, ik, iv, H)),
+        "plain_ms": cuda_ms(lambda: attn_int8.fused_int8_attention_plain(iq, ik, iv, H), iters=50),
+        "library_ms": None,
+        **dict(zip(("bound_ms", "bound_by"), int8_attention_bound_ms(TRAINED_ATTN_SHAPE)))}
+    return out
+
+
 def step_runner(net, model: ServoModel):
     """One servo_step a call, from a host (numpy) frame and depth map of
     phase 3 to the twist on the card."""
@@ -1002,17 +1269,91 @@ def profile_run(run, steps=10, top=25, trace_path: Path | None = None) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# --replay A:B: a convergence rate on the trained weights
+# ---------------------------------------------------------------------------
+
+
+class BudgetSpent(Exception):
+    """The replay's time budget ran out inside an episode."""
+
+
+def run_replay(lo: int, hi: int, checkpoint: Path, budget_s: float, out_dir: Path,
+               device, path: Path = TRAINED_S518) -> dict:
+    """run_benchmark on episodes [lo, hi) of the 500-episode seed-41 stream
+    (runs Z and AA's) at configs/real_s518.yaml's other settings on the
+    trained ViT-S/14 @ 518 (cast whole to bf16, standard texture, rotation
+    search on), one episode a chunk, resuming from ``checkpoint``.  When ``budget_s`` seconds have
+    passed the episode in flight is dropped (it reruns, bit for bit, on
+    resume).  Returns the checkpoint's episodes summarized and this call's
+    times."""
+    cfg = trained_config()
+    model = ServoModel.create(cfg, device=device)
+    net, info = load_trained(model, path)
+    checkpoint.parent.mkdir(parents=True, exist_ok=True)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    before = len(load_episodes(str(checkpoint), "replay", verbose=False)[0])
+    steps = [0]
+    sync(device)
+    t0 = time.perf_counter()
+
+    def on_step(abs_idx, inputs, result):
+        steps[0] += 1
+        if time.perf_counter() - t0 > budget_s:
+            raise BudgetSpent
+
+    try:
+        run_benchmark(cfg, net=net, model=model, episode_indices=range(lo, hi),
+                      checkpoint_path=str(checkpoint), chunk=1, out_dir=str(out_dir),
+                      config_name=f"replay_s518_{lo}_{hi}", device=device, on_step=on_step)
+        finished = True
+    except BudgetSpent:
+        finished = False
+    sync(device)
+    wall_s = time.perf_counter() - t0
+    episodes = load_episodes(str(checkpoint), "replay", verbose=False)[0]
+    flags = [bool(e.converged) for e in episodes]
+    stats = convergence_stats({
+        "convergence_flags": np.asarray(flags),
+        "lowest_position_errors": np.asarray([float(e.lowest_position_error) for e in episodes]),
+        "lowest_orientation_errors": np.asarray([float(e.lowest_orientation_error)
+                                                 for e in episodes]),
+        "all_iteration_histories": np.asarray([int(e.iterations) for e in episodes]),
+        "total_execution_time": wall_s})
+    done_now = len(episodes) - before
+    return {"episodes": [lo, hi], "weights": info["file"], "finished": finished,
+            "episodes_done": len(episodes), "episodes_this_call": done_now,
+            "converged": int(sum(flags)), "not_converged": [lo + i for i, f in enumerate(flags)
+                                                             if not f],
+            "stats": dataclasses.asdict(stats),
+            "iterations": [int(e.iterations) for e in episodes],
+            "lowest_pos_err_cm": [float(e.lowest_position_error) for e in episodes],
+            "lowest_rot_err_deg": [float(e.lowest_orientation_error) for e in episodes],
+            "final_pos_err_cm": [float(e.position_error) for e in episodes],
+            "call_wall_s": wall_s, "call_steps": steps[0],
+            "ms_per_step": 1e3 * wall_s / max(steps[0], 1),
+            "card_s_per_episode": wall_s / done_now if done_now else None}
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", nargs="?", const="bf16",
-                    choices=["bf16", "f32", *VARIANTS, "loop"],
+                    choices=["bf16", "f32", *VARIANTS, "loop", "loop518"],
                     help="build, then only profile servo steps of the bf16 path (default), "
-                         "the f32 path or an int8 serving variant, or closed-loop steps "
-                         "(no checks, no result line)")
+                         "the f32 path or an int8 serving variant, or closed-loop steps at "
+                         "308 (seeded) or 518 (trained) (no checks, no result line)")
     ap.add_argument("--trace", type=Path, default=None,
                     help="with --profile: write the profiler's chrome trace here")
+    ap.add_argument("--replay", default=None, metavar="A:B",
+                    help="build, then only run episodes [A, B) of the seed-41 benchmark on the "
+                         "trained ViT-S/14 @ 518 (bf16), resuming from --checkpoint")
+    ap.add_argument("--checkpoint", type=Path, default=None,
+                    help="with --replay: the resume file (default .replay/replay_s518_A_B.ckpt; "
+                         "a copy is left in chiprun_out/)")
+    ap.add_argument("--budget-s", type=float, default=480.0,
+                    help="with --replay: stop after this many seconds of episodes")
     args = ap.parse_args()
     import vitvs_tpu_torch
 
@@ -1069,9 +1410,40 @@ def main() -> int:
             f"{errs['attn_int8']:.3e} (tol {ATTN_TOL}); B = 2 at T = {ATTN_T} and padded "
             f"columns ok")
         probe = check_quant_probe(device)
-        log(f"int8 kernel's Q/K quantization equals _quant_th bit for bit on "
-            f"{probe['rows']} rows; _quant_th on the card's tensors differs from it in "
-            f"{probe['card_quant_th_scale_diffs']} scales")
+        log(f"int8 kernel's Q/K quantization, _quant_th on the card and _quant_th on "
+            f"the CPU equal bit for bit on {probe['rows']} rows")
+        # the trained ViT-S/14 @ 518's shapes (phase 3e)
+        for shape, seed in ((TRAINED_ATTN_SHAPE, 15), (TRAINED_SEARCH_ATTN_SHAPE, 16)):
+            err = check_attention(device, shape=shape, ts=(), seed=seed)
+            log(f"attention {shape} bf16 (ViT-S/14 @ 518): max abs err {err:.3e} "
+                f"(tol {ATTN_TOL}), two launches bit for bit")
+        t, d = TRAINED_MATCH_SHAPE
+        err = check_matcher_bf16(device, shapes=[(t, t, d)], seed=17)
+        log(f"bf16 matcher {(t, t, d)} (ViT-S/14 @ 518): max abs err {err:.3e} "
+            f"(tol {MATCH_VAL_TOL}), argmax ok, first-index ties ok")
+        err = check_attention_fast(device, shape=TRAINED_ATTN_SHAPE, seed=18)
+        log(f"no-max attention {TRAINED_ATTN_SHAPE} bf16 (6 heads): max abs err {err:.3e} "
+            f"(tol {ATTN_TOL}); B = 2 at T = {FAST_ATTN_T} ok")
+        err = check_int8_attention(device, shape=TRAINED_ATTN_SHAPE, ts=(), seed=19)
+        log(f"int8 attention {TRAINED_ATTN_SHAPE} (D = 384): max abs err {err:.3e} "
+            f"(tol {ATTN_TOL}), padded columns ok")
+
+    if args.replay:
+        lo, hi = (int(x) for x in args.replay.split(":"))
+        ckpt = args.checkpoint or here / ".replay" / f"replay_s518_{lo}_{hi}.ckpt"
+        with phase(f"replay {lo}:{hi}"):
+            rep_out = run_replay(lo, hi, ckpt, args.budget_s, here / "chiprun_out", device)
+            shutil.copy(ckpt, here / "chiprun_out" / ckpt.name)
+        log(f"[{card}] replay: {rep_out['converged']} of {rep_out['episodes_done']} converged "
+            f"({rep_out['episodes_this_call']} this call, finished={rep_out['finished']}), "
+            f"{rep_out['ms_per_step']:.3f} ms a step, {rep_out['card_s_per_episode']} card-s "
+            f"an episode")
+        print(json.dumps({"replay": rep_out}), flush=True)
+        print(card, flush=True)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                 "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}), flush=True)
+        return 0
 
     cfg = reference_config()
     model = ServoModel.create(cfg, use_kernels=True, device=device)
@@ -1083,9 +1455,14 @@ def main() -> int:
     net32, model32 = f32_step(cfg, device)
     if args.profile:
         with phase("profile"):
-            if args.profile == "loop":
-                profile_run(loop_runner(net, model, load_poster_scene(device=device),
-                                        *loop_start(cfg), torch.Generator(device).manual_seed(0)),
+            if args.profile in ("loop", "loop518"):
+                lnet, lmodel = net, model
+                if args.profile == "loop518":
+                    lmodel = ServoModel.create(trained_config(), device=device)
+                    lnet = load_trained(lmodel)[0]
+                profile_run(loop_runner(lnet, lmodel, load_poster_scene(device=device),
+                                        *loop_start(lmodel.cfg),
+                                        torch.Generator(device).manual_seed(0)),
                             trace_path=args.trace)
             elif args.profile == "bf16":
                 profile_run(step_runner(net, model), trace_path=args.trace)
@@ -1167,11 +1544,61 @@ def main() -> int:
             f"{prof['wall_ms_per_step']:.3f} ms/step, device busy "
             f"{prof['device_ms_per_step']:.3f} ms/step = {100 * prof['busy_share']:.1f}%")
 
+    with phase("3e trained-weights"):
+        tcfg = trained_config()
+        tmodel = ServoModel.create(tcfg, device=device)
+        tnet32, tinfo = load_trained(tmodel)
+        log(f"trained weights: {json.dumps(tinfo)}")
+        tnet = copy.deepcopy(tnet32).cast_blocks(tmodel.compute_dtype)
+        scene = load_poster_scene(device=device)
+        tsum = run_trained_step(tnet, tcfg, tmodel, scene)
+        tsteps = tsum.pop("steps")
+        log(f"trained bf16 step, ViT-S/14 @ 518: {json.dumps(tsum)}")
+        log(f"trained bf16 step: {sum(1 for f in tsum['differing_pairs'] if f)} of {N_STEPS} "
+            f"steps with pair flips ({sum(tsum['differing_pairs'])} pairs); twists within "
+            f"{tsum['twist_max_abs_err']:.3e} on the {tsum['steps_compared']} others "
+            f"(tol {TWIST_TOL})")
+        want = {name: 0 for name in _counters()}
+        want.update(attention=(tcfg.layer + 1) * (1 + N_STEPS), matcher_bf16=N_STEPS)
+        if tsum["launches"] != want:
+            raise AssertionError(f"trained step: launch counts {tsum['launches']} != {want}")
+        for k in ("attention", "matcher_bf16"):
+            launches[k] += want[k]
+        gap = run_trained_int8(tnet32, tcfg, device, scene, tsteps)
+        for variant, g in gap.items():
+            log(f"trained int8 {variant} (logged, not held): {json.dumps(g['summary'])}")
+            log(f"trained int8 {variant} vs bf16 step: pairs agreeing "
+                f"{g['pairs_agreeing_with_bf16']} of {g['pairs']}, max |twist diff| "
+                f"{g['twist_gap_to_bf16']:.4e}")
+            kernel = VARIANTS[variant][2]
+            want = {name: 0 for name in _counters()}
+            want[kernel] = (tcfg.layer + 1) * (1 + N_STEPS)
+            if g["summary"]["launches"] != want:
+                raise AssertionError(f"trained int8 {variant}: launch counts "
+                                     f"{g['summary']['launches']} != {want}")
+            launches[kernel] += want[kernel]
+        with tempfile.TemporaryDirectory() as out:
+            tloop = run_trained_loop(tnet, tcfg, tmodel, scene, out)
+        log(f"trained closed loop, episode {tloop['episode']} of the {tcfg.num_samples}-episode "
+            f"stream at the full ladder "
+            f"({tcfg.min_iterations} to {tcfg.max_iterations}): {json.dumps(tloop)}")
+        want = {k: 0 for k in _counters()}
+        want.update(loop_launches(tcfg.layer, 1, tloop["device_steps"]))
+        if tloop["launches"] != want:
+            raise AssertionError(f"trained closed loop: launch counts {tloop['launches']} != {want}")
+        for k in ("attention", "matcher_bf16"):
+            launches[k] += want[k]
+        log(f"[{card}] trained closed loop: {tloop['device_steps']} steps in "
+            f"{tloop['wall_s']:.2f} s with the goal and the search = "
+            f"{1e3 * tloop['wall_s'] / tloop['device_steps']:.3f} ms a step")
+
     with phase("4 times"):
         step_ms = time_run(step_runner(net, model))
         log(f"[{card}] servo_step median {step_ms:.3f} ms (ViT-S/14 @ 308, bf16, kernels)")
         ms = time_run(step_runner(net32, model32))
         log(f"[{card}] servo_step median {ms:.3f} ms (ViT-S/14 @ 308, f32, exact GELU, kernels)")
+        ms = time_run(step_runner(tnet, tmodel))
+        log(f"[{card}] servo_step median {ms:.3f} ms (ViT-S/14 @ 518, bf16, trained, kernels)")
         for variant, (qnet, smodel) in serving.items():
             ms = time_run(step_runner(qnet, smodel))
             log(f"[{card}] servo_step median {ms:.3f} ms (ViT-B/14 @ 518, int8 W8A8, "
@@ -1189,6 +1616,11 @@ def main() -> int:
             log(f"[{card}] {name}: kernel {tm['ms']:.4f} ms, plain {tm['plain_ms']:.4f} ms, "
                 f"library {lib_ms}, bound {bounds[name][0]:.5f} ms ({bounds[name][1]}) "
                 + " ".join(f"{k} {v:.4f} ms" for k, v in extra.items()))
+        for name, tm in time_trained_kernels(device).items():
+            lib_ms = "none" if tm["library_ms"] is None else f"{tm['library_ms']:.4f} ms"
+            log(f"[{card}] {name} at {tm['shape']} (ViT-S/14 @ 518): kernel {tm['ms']:.4f} ms, "
+                f"plain {tm['plain_ms']:.4f} ms, library {lib_ms}, bound "
+                f"{tm['bound_ms']:.5f} ms ({tm['bound_by']})")
         f32_bounds = [attention_bound_ms(shape, f32=True, tensor_cores=tc)[0]
                       for tc in (True, False) for shape in (ATTN_SHAPE, SERVE_ATTN_SHAPE)]
         log(f"[{card}] attention_f32 bounds at T = 485 and 1370: tensor cores "
@@ -1210,7 +1642,8 @@ def main() -> int:
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
          "library_ms": times[name]["library_ms"]}
         for name, (src, rep) in sources.items()]
-    print(json.dumps({"kernels": kernels}), flush=True)
+    # the trained weights phase 3e ran on: file, size, config
+    print(json.dumps({"kernels": kernels, "weights": tinfo}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

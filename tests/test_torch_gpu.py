@@ -480,3 +480,29 @@ def test_closed_loop_with_kernels_matches_plain(cuda, tmp_path):
         assert got == want, name
     assert s["teacher_forced"]["steps"] == 10
     assert s["teacher_forced"]["twist_max_abs_err"] <= chip_smoke.TWIST_TOL
+
+
+def test_trained_servo_step_with_kernels_matches_plain(cuda):
+    """Phase 3e's step on the card: the exported trained ViT-S/14 @ 518
+    (numpy, no JAX) at configs/real_s518.yaml's settings, goal + 5 bf16
+    steps on rendered views near the goal, kernels against plain with the
+    plain step teacher-forced: 12 exact-attention launches a forward at
+    (1, 1370, 6, 64), one bf16-matcher launch a step at (1369, 3456), and
+    the twists within 1e-3 wherever no pair differs (run_main_path raises
+    otherwise)."""
+    from vitvs_tpu_torch.harness.pipeline import ServoModel
+    from vitvs_tpu_torch.sim.scene import load_poster_scene
+
+    cfg = chip_smoke.trained_config()
+    model = ServoModel.create(cfg, device="cuda")
+    net32, info = chip_smoke.load_trained(model)
+    assert info["config"]["embed_dim"] == 384 and info["config"]["pos_grid"] == 37
+    net = net32.cast_blocks(model.compute_dtype)
+    s = chip_smoke.run_trained_step(net, cfg, model, load_poster_scene(device="cuda"))
+    steps = s.pop("steps")
+    assert len(steps) == chip_smoke.N_STEPS and steps[0].valid.numel() == cfg.num_pairs
+    want = dict.fromkeys(s["launches"], 0)
+    want.update(attention=(cfg.layer + 1) * (1 + chip_smoke.N_STEPS),
+                matcher_bf16=chip_smoke.N_STEPS)
+    assert s["launches"] == want
+    assert s["twist_max_abs_err"] <= chip_smoke.TWIST_TOL and s["steps_compared"] >= 1

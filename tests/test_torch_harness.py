@@ -110,6 +110,10 @@ def test_resume_refuses_a_foreign_checkpoint(tmp_path):
         _bench(pair, tmp_path, config_name="c", episode_indices=[1], **common)
     with pytest.raises(ValueError, match="different run"):
         _bench(pair, tmp_path, config_name="d", **dict(common, num_steps=5))
+    # the same episode index of a longer stream starts elsewhere
+    with pytest.raises(ValueError, match="different run.*starts"):
+        _bench(pair, tmp_path, config_name="e", num_samples=4, episode_indices=[0, 1],
+               **common)
 
 
 def test_episode_replay_equals_the_full_sweep(tmp_path):
@@ -166,3 +170,28 @@ def test_poster_asset_is_the_png():
     assert img.dtype == np.uint8 and img.shape == (1125, 1500, 3)
     np.testing.assert_array_equal(img, np.round(png * 255).astype(np.uint8))
     assert torch.from_numpy(img).float().max() == 255.0
+
+
+def test_build_model_is_bf16_whatever_the_config_says():
+    """Fault 3.7: the reference's build_model builds the benchmark model in
+    bf16 whatever ``cfg.compute_dtype`` says; so does the port's, on a
+    float32 config, and an explicit compute_dtype still wins."""
+    import jax.numpy as jnp
+
+    from vitvs_tpu.harness.benchmark import build_model as jbuild_model
+    from vitvs_tpu.io_bridge.config import VSConfig as JVSConfig
+    from vitvs_tpu_torch.harness.benchmark import build_model
+    from vitvs_tpu_torch.io_bridge.config import VSConfig
+    from vitvs_tpu_torch.models.vit import ViT, ViTConfig
+
+    _, jmodel = jbuild_model(JVSConfig(compute_dtype="float32"), params={})
+    assert jmodel.compute_dtype == jnp.bfloat16
+    cfg = VSConfig(compute_dtype="float32")
+    net = ViT(ViTConfig(embed_dim=64, depth=1, num_heads=1, pos_grid=2))
+    _, model = build_model(cfg, net, device="cpu")
+    assert model.compute_dtype == torch.bfloat16
+    _, model = build_model(cfg, net, compute_dtype=torch.float32, device="cpu")
+    assert model.compute_dtype == torch.float32
+    built, model = build_model(VSConfig(compute_dtype="float32", model_name="dino_vits16",
+                                        stride=16, dino_input_size=224), device="cpu")
+    assert model.compute_dtype == torch.bfloat16 and built.compute_dtype == torch.bfloat16

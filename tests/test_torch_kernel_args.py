@@ -35,7 +35,9 @@ def _qkv(B, T, heads, extra_cols=0, dtype=torch.bfloat16):
 
 def test_int8_kernel_reads_qkv_column_slices_in_place(no_library):
     """Column slices of the qkv output pass as they are: each read at its
-    own (batch, row) strides, with the Q scale factor hd^-0.5 log2(e)."""
+    own (batch, row) strides, with the factor of the Q scales,
+    f32(f32(1/127) hd^-0.5 log2(e)) (fault 3.5: the jitted reference's
+    constant)."""
     B, T, H = 2, 37, 3
     D = H * 64
     qkv = _qkv(B, T, H)
@@ -44,7 +46,7 @@ def test_int8_kernel_reads_qkv_column_slices_in_place(no_library):
     args = attn_int8._kernel_args(q, k, v, H)
     assert args[:3] == (B, T, H)
     assert args[3:9] == (T * 3 * D, 3 * D) * 3
-    assert args[9] == pytest.approx(np.log2(np.e) / 8, rel=1e-15)
+    assert args[9] == float(np.float32(1 / 127) * np.float32(np.log2(np.e) / 8))
     # separate contiguous tensors: their own strides
     qc, kc = q.contiguous(), k.contiguous()
     assert attn_int8._kernel_args(qc, kc, v, H)[3:9] == (T * D, D, T * D, D, T * 3 * D, 3 * D)
@@ -104,23 +106,26 @@ def _bf16_rn(x: np.ndarray) -> np.ndarray:
 
 def _kernel_quant_model(x: np.ndarray, heads: int, extra: float):
     """The kernel's quant_row in numpy, row by row: amax of the 64 values,
-    s = max(amax, 1e-12) / 127 (a true f32 division), inv = bf16(f32 1 / s),
-    q = clamp(rint(bf16(x * inv)), -127, 127); the scale times the f32
-    rounding of ``extra``."""
+    a = max(amax, 1e-12), s = a * f32(1/127), inv = bf16(f32 1 / s),
+    q = clamp(rint(bf16(x * inv)), -127, 127); the scale a times
+    f32(f32(1/127) * f32(extra)), the constant XLA folds the jitted
+    reference's (amax / 127) * extra into."""
     B, T, D = x.shape
     xh = x.reshape(B, T, heads, D // heads).astype(np.float32)
-    amax = np.abs(xh).max(-1)
-    s = (np.maximum(amax, np.float32(1e-12)) / np.float32(127)).astype(np.float32)
+    a = np.maximum(np.abs(xh).max(-1), np.float32(1e-12))
+    inv127 = np.float32(1 / 127)
+    s = (a * inv127).astype(np.float32)
     inv = _bf16_rn((np.float32(1) / s).astype(np.float32))
     y = np.rint(_bf16_rn(xh * inv[..., None]))
     q = np.clip(y, -127, 127).astype(np.int8).reshape(B, T, D)
-    return q, (s * np.float32(extra)).astype(np.float32)
+    return q, (a * (inv127 * np.float32(extra))).astype(np.float32)
 
 
 @pytest.mark.parametrize("extra", [1.0, float(np.log2(np.e) / 8)], ids=["K", "Q"])
 def test_quant_th_is_the_kernels_row_arithmetic(extra):
-    """_quant_th (the plain version's quantizer, on the CPU the reference's
-    arithmetic) equals the kernel's row arithmetic bit for bit: zero rows,
+    """_quant_th (the plain version's quantizer: the jitted reference's
+    arithmetic, on the CPU and on the card, tests/test_torch_quantizers.py)
+    equals the kernel's row arithmetic bit for bit: zero rows,
     rows of large values, rows below the 1e-12 floor and ties at .5 of the
     bf16 grid included."""
     B, T, H = 2, 50, 3

@@ -196,11 +196,12 @@ def test_fused_int8_attention_padded_columns_match_pallas_interpret():
 
 
 def test_quant_th_matches_jax():
-    """Per-(token, head) quantization: the same int8 values and scales."""
+    """Per-(token, head) quantization: the same int8 values and scales as
+    the reference under jax.jit, where it runs (fault 3.5)."""
     from vitvs_tpu.ops.attn_int8 import _quant_th as j_quant_th
 
     x = (3 * RNG.standard_normal((2, 33, 4 * 16))).astype(np.float32)
-    jq, js = j_quant_th(jnp.asarray(x), 4, extra_scale=0.18)
+    jq, js = jax.jit(lambda a: j_quant_th(a, 4, extra_scale=0.18))(jnp.asarray(x))
     tq, ts = tint8._quant_th(torch.from_numpy(x), 4, extra_scale=0.18)
     assert tq.dtype == torch.int8 and ts.shape == (2, 33, 4)
     np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
@@ -274,16 +275,24 @@ def test_dual_argmax_cosine_bf16_exact_ties_take_first_index():
     assert nn_1.tolist() == list(range(9)) * 2 and nn_2.tolist() == list(range(9)) * 2
 
 
-def test_bf16_unit_rows_pad_depth_with_zeros():
+@pytest.mark.parametrize("seed", range(6))
+def test_bf16_unit_rows_pad_depth_with_zeros(seed):
     """The bf16 kernel's operands: unit rows padded to a depth that is a
-    multiple of 8 with zero columns, which leave every similarity as it is."""
-    a = torch.from_numpy(RNG.standard_normal((12, 100)).astype(np.float32)).bfloat16()
-    b = torch.from_numpy(RNG.standard_normal((7, 100)).astype(np.float32)).bfloat16()
+    multiple of 8 with zero columns, which leave every similarity as it is:
+    the f32 product of the padded operands (what the kernel computes) equals
+    the unit rows' product bit for bit, and its quartet is the plain
+    version's.  (The padded rows are not fed to the plain version, which
+    would normalize them a second time: bf16 unit rows are not unit to bf16
+    precision.)  Each seed draws its own rows."""
+    rs = np.random.default_rng(seed)
+    a = torch.from_numpy(rs.standard_normal((12, 100)).astype(np.float32)).bfloat16()
+    b = torch.from_numpy(rs.standard_normal((7, 100)).astype(np.float32)).bfloat16()
     ua, ub = tmatch.bf16_unit_rows(a), tmatch.bf16_unit_rows(b)
     assert ua.shape == (12, 104) and ua.dtype == torch.bfloat16 and ua.is_contiguous()
-    assert not ua[:, 100:].any()
-    padded = tmatch.dual_argmax_cosine_bf16_plain(ua, ub)
-    for o, r in zip(padded, tmatch.dual_argmax_cosine_bf16_plain(a, b)):
+    assert not ua[:, 100:].any() and not ub[:, 100:].any()
+    sim = ua.float() @ ub.float().T
+    assert torch.equal(sim, tmatch.unit_rows(a).float() @ tmatch.unit_rows(b).float().T)
+    for o, r in zip(tmatch._quartet(sim), tmatch.dual_argmax_cosine_bf16_plain(a, b)):
         assert torch.equal(o, r)
 
 

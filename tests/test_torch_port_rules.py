@@ -65,8 +65,7 @@ def test_chip_smoke_kernel_phase_runs_on_cpu():
     assert chip_smoke.check_matcher_bf16("cpu", shapes=[(50, 50, 72), (1, 3, 10), (9, 33, 20)]) == 0.0
     assert chip_smoke.check_attention_fast("cpu", shape=(1, 37, 2, 64)) == 0.0
     assert chip_smoke.check_int8_attention("cpu", shape=(1, 37, 2, 64)) == 0.0
-    assert chip_smoke.check_quant_probe("cpu", shape=(1, 37, 2, 64)) == {
-        "rows": 148, "card_quant_th_scale_diffs": 0}
+    assert chip_smoke.check_quant_probe("cpu", shape=(1, 37, 2, 64)) == {"rows": 148}
 
 
 def test_chip_smoke_bounds_follow_the_shapes():
@@ -207,3 +206,83 @@ def test_chip_smoke_closed_loop_runs_tiny_on_cpu(tmp_path, one_intra_op_thread):
     assert chip_smoke.loop_launches(11, 2, 80) == {"attention": 12 * 83, "matcher_bf16": 88}
     assert chip_smoke.loop_config(chip_smoke.reference_config()).max_iterations == \
         chip_smoke.LOOP_MAX_ITERATIONS
+
+
+def test_chip_smoke_and_the_loaders_import_no_jax_at_run_time():
+    """Beside the static check above: importing chip_smoke.py and the weight
+    loaders, and loading the exported weights, brings in neither JAX nor
+    vitvs_tpu (the card's machine has neither)."""
+    import subprocess
+    import sys
+
+    code = ("import sys, chip_smoke; from vitvs_tpu_torch.models import convert; "
+            "convert.load_exported(convert.TRAINED_S518); "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'vitvs_tpu', 'orbax', 'flax', 'optax')]; assert not bad, bad")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert not (REPO / "vitvs_tpu_torch" / "export_port_weights.py").exists()
+    assert "import jax" in (REPO / "scripts" / "export_port_weights.py").read_text()
+
+
+def test_chip_smoke_trained_config_is_real_s518():
+    # the benchmark runs draw from the 500-episode stream, as runs Z and AA did
+    cfg = chip_smoke.trained_config()
+    assert cfg == load_config(REPO / "configs" / "real_s518.yaml").replace(num_samples=500)
+    assert (cfg.dino_input_size, cfg.min_iterations, cfg.max_iterations) == (518, 300, 1500)
+    model = ServoModel.create(cfg, device="cpu")
+    net, info = chip_smoke.load_trained(model)
+    assert info["file"] == "vitvs_tpu_torch/assets/ckpt_real518.npz"
+    assert info["parameters"] == 22055424 and info["config"]["num_heads"] == 6
+    assert net.compute_dtype == torch.float32 and net.cfg == model.vit and model.vit.gelu_approx
+    with pytest.raises(FileNotFoundError):
+        chip_smoke.load_trained(model, REPO / "vitvs_tpu_torch" / "assets" / "missing.npz")
+    with pytest.raises(ValueError, match="the model runs"):
+        chip_smoke.load_trained(ServoModel.create(chip_smoke.serving_config(), device="cpu"))
+
+
+def test_chip_smoke_trained_phase_runs_tiny_on_cpu(tmp_path, one_intra_op_thread):
+    """Phase 3e's functions with a tiny 2-block ViT on a synthetic poster on
+    the CPU: the bf16 step and the int8 variants through the plain versions
+    (no launch counted, kernel and plain runs equal), and the closed loop,
+    which a random tiny ViT does not converge in 12 steps: the phase then
+    raises, naming where the plain rerun parts."""
+    from vitvs_tpu_torch.sim.scene import Scene, make_synthetic_poster
+
+    cfg = VSConfig(u_max=96, v_max=72, f_x=75.0, f_y=75.0, dino_input_size=84, num_pairs=12,
+                   layer=1, model_name="tiny", pinv_mode="dls", min_iterations=2,
+                   max_iterations=5)
+    vcfg = tvit.ViTConfig(patch_size=14, embed_dim=128, depth=2, num_heads=2, pos_grid=5,
+                          gelu_approx=True, model_name="tiny")
+    model = ServoModel(vit=vcfg, cfg=cfg, compute_dtype=torch.bfloat16, device="cpu")
+    fnet = tvit.init_vit(vcfg, torch.Generator().manual_seed(0), device="cpu",
+                         layerscale=1.0).eval()
+    net = tvit.init_vit(vcfg, torch.Generator().manual_seed(0), device="cpu",
+                        layerscale=1.0).cast_blocks(torch.bfloat16).eval()
+    scene = Scene.create(make_synthetic_poster(128, seed=3), half_size=0.42, device="cpu")
+    s = chip_smoke.run_trained_step(net, cfg, model, scene)
+    steps = s.pop("steps")
+    assert len(steps) == chip_smoke.N_STEPS and s["differing_pairs"] == [0] * chip_smoke.N_STEPS
+    assert s["launches"] == dict.fromkeys(s["launches"], 0) and s["twist_max_abs_err"] == 0.0
+    gap = chip_smoke.run_trained_int8(fnet, cfg, "cpu", scene, steps, vit=vcfg)
+    for variant, g in gap.items():
+        assert g["summary"]["differing_pairs"] == [0] * chip_smoke.N_STEPS, variant
+        assert len(g["pairs_agreeing_with_bf16"]) == chip_smoke.N_STEPS and g["pairs"] == 12
+        assert np.isfinite(g["twist_gap_to_bf16"])
+    with pytest.raises(AssertionError, match="did not converge.*part at step"):
+        chip_smoke.run_trained_loop(net, cfg, model, scene, str(tmp_path), forced=4,
+                                    num_steps=12, segment_steps=4)
+
+
+def test_chip_smoke_replay_stops_at_its_budget_and_resumes(tmp_path):
+    """--replay on the CPU with no time budget: the rotation search of
+    episode 0 at ViT-S/14 @ 518 runs and is checkpointed, the episode in
+    flight is dropped at its first step, and a second call resumes from the
+    same checkpoint (the search is not run again)."""
+    ckpt = tmp_path / "replay.ckpt"
+    out = chip_smoke.run_replay(0, 1, ckpt, 0.0, tmp_path / "out", "cpu")
+    assert not out["finished"] and out["episodes_done"] == 0 and out["call_steps"] == 1
+    assert ckpt.exists() and out["weights"] == "vitvs_tpu_torch/assets/ckpt_real518.npz"
+    again = chip_smoke.run_replay(0, 1, ckpt, 0.0, tmp_path / "out", "cpu")
+    assert not again["finished"] and again["call_steps"] == 1 and again["episodes_this_call"] == 0

@@ -167,15 +167,19 @@ def _close(out, ref):
 
 
 def test_q_matmul_matches():
-    """The W8A8 matmul on identical inputs, dynamic and static scales: the
-    same int8 activations and exact int32 products, so the same f32 result."""
+    """The W8A8 matmul on identical inputs, dynamic and static scales,
+    against the reference as its step runs it, under ``jax.jit`` (the
+    dynamic scales multiply by f32(1/127): fault 3.5): the same int8
+    activations and exact int32 products, so the same f32 result."""
     x = (2 * RNG.standard_normal((2, 37, 64))).astype(np.float32)
     w = RNG.standard_normal((64, 96)).astype(np.float32)
     wq, ws = jq._quantize_weight(jnp.asarray(w))
     bias = RNG.standard_normal(96).astype(np.float32)
+    q_matmul = jax.jit(lambda x, wq, ws, b, a: jq._q_matmul(x, wq, ws, b, jnp.float32,
+                                                             act_scale=a))
     for act in (None, np.float32(0.05)):
-        ref = jq._q_matmul(jnp.asarray(x), wq, ws[0], jnp.asarray(bias), jnp.float32,
-                           act_scale=None if act is None else jnp.asarray(act))
+        ref = q_matmul(jnp.asarray(x), wq, ws[0], jnp.asarray(bias),
+                       None if act is None else jnp.asarray(act))
         out = tq._q_matmul(torch.from_numpy(x), torch.from_numpy(np.asarray(wq).T.copy()),
                            torch.tensor(np.asarray(ws[0])), torch.from_numpy(bias),
                            torch.float32, None if act is None else torch.tensor(act))

@@ -11,10 +11,12 @@
 //
 // Quantization is local to one row: the amax of a (token, head) runs over
 // the 64 values of one 128-byte row segment.  quant_row is _quant_th's
-// arithmetic bit for bit: s = max(amax, 1e-12) / 127 (f32, a true
-// division), inv = bf16(1 / s), q = clamp(rint(bf16(x * inv)), -127, 127);
-// the Q scales carry hd^-0.5 log2(e) (the wrapper's q_scale, multiplied in
-// f32).  A block quantizes its own Q rows once, in the registers that feed
+// arithmetic bit for bit: s = max(amax, 1e-12) * f32(1/127) (the jitted
+// reference's reciprocal multiply), inv = bf16(1 / s),
+// q = clamp(rint(bf16(x * inv)), -127, 127);
+// the returned scale is max(amax, 1e-12) times the wrapper's factor, which is
+// f32(1/127) for K and f32(f32(1/127) * hd^-0.5 log2(e)) for Q: XLA folds the
+// reference's (amax / 127) * c into amax * (f32(1/127) * c).  A block quantizes its own Q rows once, in the registers that feed
 // the products, and each K row as the row enters shared memory.
 // vitvs_quant_th_probe runs the same quant_row calls on a whole matrix so
 // that a test can hold them to _quant_th.
@@ -112,18 +114,22 @@ __device__ __forceinline__ uint32_t bf16x2_clamp127(uint32_t a) {
 // of MAGIC plus an integer i are the float MAGIC + i.  Both keep the
 // conversions (16 a clock an SM, the rate of ex2) out of the inner loops.
 constexpr float MAGIC = 12582912.f;
+// f32(1/127), bits 0x3C010204
+constexpr float INV127 = 0.007874015718698502f;
 constexpr uint32_t MAGIC_BITS = 0x4B400000u;
 
 // One (token, head) row of 64 bf16 values, spread over LANES consecutive
 // lanes (a power of 2) that hold N values each (x: N / 2 words of bf16
 // pairs), to int8 (four a word, the first in the low byte) in _quant_th's
-// arithmetic: amax in bf16; s = max(amax, 1e-12) / 127, a true f32
-// division; inv = bf16(1 / s); q = rint(clamp(bf16(x * inv), -127, 127)),
-// which is clamp(rint(.)) for integer bounds.  Returns s times ``extra``
-// (f32).  Every lane of the warp must call it.
+// arithmetic: amax in bf16; s = max(amax, 1e-12) * f32(1/127), as XLA
+// computes the reference's division by 127 under jit; inv = bf16(1 / s);
+// q = rint(clamp(bf16(x * inv), -127, 127)),
+// which is clamp(rint(.)) for integer bounds.  Returns max(amax, 1e-12)
+// times ``factor`` (f32; INV127 gives s itself).  Every lane of the warp must
+// call it.
 template <int N, int LANES>
 __device__ __forceinline__ float quant_row(const uint32_t (&x)[N / 2], uint32_t (&w)[N / 4],
-                                           float extra) {
+                                           float factor) {
     static_assert(N * LANES == HD && N % 4 == 0, "a row is 64 values");
     uint32_t m2 = 0;
 #pragma unroll
@@ -132,7 +138,8 @@ __device__ __forceinline__ float quant_row(const uint32_t (&x)[N / 2], uint32_t 
 #pragma unroll
     for (int off = 1; off < LANES; off *= 2)
         amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
-    const float s = __fdiv_rn(fmaxf(amax, 1e-12f), 127.f);
+    const float a = fmaxf(amax, 1e-12f);
+    const float s = __fmul_rn(a, INV127);
     const uint32_t inv = __bfloat16_as_ushort(__float2bfloat16_rn(__frcp_rn(s)));
     const uint32_t inv2 = inv | (inv << 16);
 #pragma unroll
@@ -148,7 +155,7 @@ __device__ __forceinline__ float quant_row(const uint32_t (&x)[N / 2], uint32_t 
         w[j] = __byte_perm(__byte_perm(b[0], b[1], 0x0040), __byte_perm(b[2], b[3], 0x0040),
                            0x5410);
     }
-    return __fmul_rn(s, extra);
+    return __fmul_rn(a, factor);
 }
 
 // an int32 product sum as f32, exact for |i| < 2^22 (|acc| <= 64 * 127^2)
@@ -268,7 +275,7 @@ __device__ __forceinline__ void quant_k_quarter_tile(const __nv_bfloat16* kst, i
     uint2 w0, w1;
     const float s = quant_k_quarter(w0, w1, *reinterpret_cast<const uint4*>(kst + r * HD + t * 8),
                                     *reinterpret_cast<const uint4*>(kst + r * HD + 32 + t * 8),
-                                    1.f);
+                                    INV127);
     // int8 columns 8 t and 32 + 8 t: 16-byte chunks t / 2 and 2 + t / 2
     *reinterpret_cast<uint2*>(k8 + sw64(r, t / 2) + (t % 2) * 8) = w0;
     *reinterpret_cast<uint2*>(k8 + sw64(r, 2 + t / 2) + (t % 2) * 8) = w1;
@@ -415,7 +422,7 @@ attn_int8_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
 }
 
 // quant_row on every row of x (rows, heads * 64) bf16 at row stride rs, the
-// scales times extra, four lanes a row: the attention kernel's Q path (the
+// scales the clamped amax times factor ``extra``, four lanes a row: the attention kernel's Q path (the
 // A-fragment columns) or, with k_path, its K path (quarter rows).  q8:
 // (rows, heads * 64) int8, s: (rows, heads) f32, both contiguous.  One warp
 // a (row block, head).
@@ -455,8 +462,8 @@ __global__ void quant_probe_kernel(const __nv_bfloat16* __restrict__ x, int8_t* 
 
 // q, k, v: bf16 rows of H * 64 at unit column stride, batch and row strides
 // (elements) q_bs, q_rs, ... (16-byte aligned); o: (B, T, H * 64) bf16,
-// contiguous; q_scale: hd^-0.5 log2(e), folded into the Q scales.  Returns
-// the first CUDA error.
+// contiguous; q_scale: f32(f32(1/127) * hd^-0.5 log2(e)), the factor of the
+// Q scales (the clamped amax times it).  Returns the first CUDA error.
 extern "C" int vitvs_attn_int8_fwd(const void* q, const void* k, const void* v, void* o,
                                    int B, int T, int H, long q_bs, long q_rs, long k_bs,
                                    long k_rs, long v_bs, long v_rs, float q_scale,
@@ -475,7 +482,7 @@ extern "C" int vitvs_attn_int8_fwd(const void* q, const void* k, const void* v, 
 // x: (rows, heads * 64) bf16 at row stride rs (elements, 16-byte aligned
 // rows); q8: (rows, heads * 64) int8, s: (rows, heads) f32, contiguous.
 // k_path = 0: the kernel's Q quantization, 1: its K quantization; both
-// multiply the scales by extra.  Returns the first CUDA error.
+// return the clamped amax times extra as the scales.  Returns the first CUDA error.
 extern "C" int vitvs_quant_th_probe(const void* x, void* q8, void* s, int rows, int heads,
                                     long rs, float extra, int k_path, void* stream) {
     const dim3 grid((rows + 7) / 8, heads);

@@ -19,6 +19,7 @@ depend on ``chunk``, on resuming, or on which ``episode_indices`` run.
 from __future__ import annotations
 
 import copy
+import hashlib
 import time
 from typing import Callable, NamedTuple
 
@@ -44,10 +45,13 @@ class BenchmarkRun(NamedTuple):
     device_steps: int                 # servo steps run on the device (all episodes)
 
 
-def build_model(cfg: VSConfig, net: ViT | None = None, compute_dtype=None, seed: int = 0,
-                device="cuda") -> tuple[ViT, ServoModel]:
+def build_model(cfg: VSConfig, net: ViT | None = None, compute_dtype=torch.bfloat16,
+                seed: int = 0, device="cuda") -> tuple[ViT, ServoModel]:
     """The servo model of ``cfg`` and a ViT for it: ``net``, or seeded
-    random weights (``seed``) with the blocks in the compute dtype."""
+    random weights (``seed``) with the blocks in the compute dtype.  The
+    compute dtype is bf16 whatever ``cfg.compute_dtype`` says, as the
+    reference's ``build_model`` builds it; an explicit ``compute_dtype``
+    wins."""
     model = ServoModel.create(cfg, compute_dtype=compute_dtype, device=device)
     if net is None:
         net = init_vit(model.vit, torch.Generator().manual_seed(seed), device=device)
@@ -186,14 +190,18 @@ def run_benchmark(
         return [scene.with_texture(tx) for tx in textures_for(abs_idx[lo:hi])]
 
     # the run's identity: a checkpoint written by another run refuses to resume
-    # (config_name only names the npz, so it is left out)
+    # (config_name only names the npz, so it is left out).  The start poses
+    # are fingerprinted too: they depend on the stream's length (num_samples,
+    # num_circles), which the episode indices do not show
     T = num_steps or cfg.max_iterations
+    starts = hashlib.sha256(np.ascontiguousarray(positions, np.float64).tobytes()
+                            + np.ascontiguousarray(quats, np.float64).tobytes()).hexdigest()
     ckpt_meta = dict(
         kind="dino", impl="vitvs_tpu_torch", model=cfg.model_name,
         size=int(cfg.dino_input_size), layer=int(cfg.layer),
         dtype=str(model.compute_dtype), abs_idx=tuple(int(i) for i in abs_idx),
-        seed=int(seed), perturbation=bool(perturbation), perturb_seed=int(perturb_seed),
-        rotation_search=bool(rotation_search), T=int(T))
+        starts=starts, seed=int(seed), perturbation=bool(perturbation),
+        perturb_seed=int(perturb_seed), rotation_search=bool(rotation_search), T=int(T))
     episodes, ckpt_extra = chunks.load_episodes(checkpoint_path, "bench", verbose,
                                                 meta=ckpt_meta)
 

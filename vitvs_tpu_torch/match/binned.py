@@ -20,6 +20,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from vitvs_tpu_torch.ops.attn_int8 import INV127
+
 
 class QuantizedBinned(NamedTuple):
     """int8 hierarchy-1 log-binned descriptors: ``q`` holds
@@ -77,8 +79,9 @@ def _shift_maps(grid: tuple[int, int]) -> np.ndarray:
 
 def quantize_rows_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-row symmetric int8 quantization on the amax/127 grid -> (int8
-    values, (rows, 1) f32 scales); the inverse scale in x's dtype."""
+    values, (rows, 1) f32 scales): amax times f32(1/127), as the jitted
+    reference computes it; the inverse scale in x's dtype."""
     amax = x.abs().amax(-1, keepdim=True).float()
-    scale = torch.clamp(amax, min=1e-12) / 127.0
+    scale = torch.clamp(amax, min=1e-12) * INV127
     q = torch.clamp(torch.round(x * (1.0 / scale).to(x.dtype)), -127, 127).to(torch.int8)
     return q, scale

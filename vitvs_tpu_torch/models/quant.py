@@ -35,7 +35,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from vitvs_tpu_torch.models.vit import ViT, ViTConfig, attention_core, embed_tokens
-from vitvs_tpu_torch.ops.attn_int8 import fused_int8_attention, fused_int8_attention_plain
+from vitvs_tpu_torch.ops.attn_int8 import (INV127, fused_int8_attention,
+                                           fused_int8_attention_plain)
 from vitvs_tpu_torch.ops.int_mm import int8_matmul_nt
 
 _QUANT_KERNELS = ("qkv_kernel", "proj_kernel", "fc1_kernel", "fc2_kernel")
@@ -50,9 +51,10 @@ def _quantize_weight(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def _dyn_quant_act(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """(B, T, D) -> int8 values + (B, T, 1) f32 per-token scales."""
+    """(B, T, D) -> int8 values + (B, T, 1) f32 per-token scales (amax times
+    f32(1/127), as the jitted reference computes them)."""
     amax = x.abs().amax(-1, keepdim=True).float()
-    scale = torch.clamp(amax, min=1e-12) / 127.0
+    scale = torch.clamp(amax, min=1e-12) * INV127
     inv = (1.0 / scale).to(x.dtype)
     return torch.clamp(torch.round(x * inv), -127, 127).to(torch.int8), scale
 
@@ -72,10 +74,12 @@ def _q_matmul(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
         x_q = torch.clamp(torch.round(x * inv), -127, 127).to(torch.int8)
     B, T, D = x.shape
     acc = int8_matmul_nt(x_q.reshape(B * T, D), w_q).reshape(B, T, -1)
-    out = acc.float() * x_scale * w_scale                       # (B,T,E)*(B,T,1)*(E,)
-    if bias is not None:
-        out = out + bias.float()
-    return out.to(out_dtype)
+    out = acc.float() * x_scale                                 # (B,T,E)*(B,T,1)
+    if bias is None:
+        return (out * w_scale).to(out_dtype)
+    # one rounding for "* w_scale + bias", as XLA contracts the reference's
+    # epilogue into an FMA under jit
+    return torch.addcmul(bias.float(), out, w_scale).to(out_dtype)
 
 
 class QuantLinear(nn.Module):

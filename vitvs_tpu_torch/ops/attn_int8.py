@@ -25,12 +25,16 @@ it can be held to :func:`_quant_th` bit for bit.
 from __future__ import annotations
 
 import math
+import struct
 
 import torch
 
 from vitvs_tpu_torch.ops import _build
 
 HEAD_DIM = 64  # the kernel's head dim
+# f32(1/127): the jitted reference's quantizers divide by 127.0, which XLA
+# rewrites as a multiply by this reciprocal (ROADMAP.md fault 3.5)
+INV127 = 0.007874015718698502
 
 
 def _q_extra_scale(q: torch.Tensor, heads: int) -> float:
@@ -38,19 +42,32 @@ def _q_extra_scale(q: torch.Tensor, heads: int) -> float:
     return math.log2(math.e) / math.sqrt(q.shape[-1] // heads)
 
 
+def _f32(x: float) -> float:
+    """``x`` rounded to the nearest f32."""
+    return struct.unpack("f", struct.pack("f", x))[0]
+
+
+def _scale_factor(extra_scale: float) -> float:
+    """f32(f32(1/127) * f32(extra_scale)): the factor of the clamped amax in
+    :func:`_quant_th`'s returned scales (INV127 when ``extra_scale`` is 1)."""
+    return _f32(INV127 * _f32(extra_scale))
+
+
 def _quant_th(x: torch.Tensor, heads: int, extra_scale: float = 1.0):
     """(B, T, H*hd) -> int8 values (B, T, H*hd) + f32 scales (B, T, H).
 
     Symmetric per-(token, head) quantization; ``extra_scale`` goes into the
-    returned scales, not the int8 values.  The rescale and round run in x's
-    dtype; round is half to even, as in JAX."""
+    returned scales, not the int8 values.  The arithmetic is the jitted
+    reference's, on the CPU and on the card alike: s = amax * f32(1/127),
+    and the returned scales amax * :func:`_scale_factor` (XLA folds the
+    reference's (amax / 127) * extra_scale into one constant).  The rescale
+    and round run in x's dtype; round is half to even, as in JAX."""
     B, T, D = x.shape
     xh = x.reshape(B, T, heads, D // heads)
-    amax = xh.abs().amax(-1).float()                           # (B, T, H)
-    s = torch.clamp(amax, min=1e-12) / 127.0
-    inv = (1.0 / s).to(x.dtype)
+    amax = torch.clamp(xh.abs().amax(-1).float(), min=1e-12)   # (B, T, H)
+    inv = (1.0 / (amax * INV127)).to(x.dtype)
     q = torch.clamp(torch.round(xh * inv[..., None]), -127, 127)
-    return q.to(torch.int8).reshape(B, T, D), s * extra_scale
+    return q.to(torch.int8).reshape(B, T, D), amax * _scale_factor(extra_scale)
 
 
 def _int8_attention_plain(q8, k8, v, qs, ks, heads: int, out_dtype) -> torch.Tensor:
@@ -106,10 +123,11 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int) -> Non
 def _kernel_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int) -> tuple:
     """The kernel's shape and stride arguments for inputs that passed
     :func:`_check_layout`: B, T, H, the (batch, row) strides of q, k and v
-    in elements, and the Q scale factor hd^-0.5 log2(e)."""
+    in elements, and the factor of the Q scales, f32(1/127) hd^-0.5 log2(e)
+    (:func:`_scale_factor`)."""
     B, T, _ = q.shape
     strides = [s for t in (q, k, v) for s in (t.stride(0), t.stride(1))]
-    return (B, T, heads, *strides, _q_extra_scale(q, heads))
+    return (B, T, heads, *strides, _scale_factor(_q_extra_scale(q, heads)))
 
 
 def fused_int8_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -158,7 +176,7 @@ def quant_th_probe(x: torch.Tensor, heads: int, extra_scale: float = 1.0,
     lib = _build.library()
     with torch.cuda.device(x.device):
         err = lib.vitvs_quant_th_probe(x.data_ptr(), q8.data_ptr(), s.data_ptr(), B * T, heads,
-                                       x.stride(1), extra_scale, int(k_path),
+                                       x.stride(1), _scale_factor(extra_scale), int(k_path),
                                        torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "quantization probe")
     return q8, s
