@@ -2,17 +2,19 @@
 """Smoke run of the PyTorch/CUDA port (vitvs_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py              # the smoke run below
-    python3 chip_smoke.py --profile [bf16|f32|F|N|loop|loop518] [--trace trace.json]
+    python3 chip_smoke.py --profile [bf16|f32|F|N|loop|loop518] [--trace trace.json] [--chunk B]
                                        # only: device-time breakdown of servo steps
                                        # of the bf16 or f32 path or an int8 serving variant,
                                        # or of closed-loop steps (at 308, or on the trained
-                                       # ViT-S/14 @ 518)
-    python3 chip_smoke.py --replay A:B [--checkpoint F] [--budget-s S]
+                                       # ViT-S/14 @ 518, a chunk of B episodes a step)
+    python3 chip_smoke.py --replay A:B [--chunk C] [--checkpoint F] [--budget-s S]
                                        # only: episodes [A, B) of the 500-episode seed-41
-                                       # stream on the trained ViT-S/14 @ 518 (bf16), resumable: the
-                                       # checkpoint (.replay/replay_s518_A_B.ckpt) is left
-                                       # in chiprun_out/ too; copy it back into .replay/ and
-                                       # run again to go on; prints the converged count
+                                       # stream on the trained ViT-S/14 @ 518 (bf16), C (8)
+                                       # a chunk, resumable: an unfinished run leaves its
+                                       # checkpoint (.replay/replay_s518_A_B.ckpt) in
+                                       # chiprun_out/ too; copy it back into .replay/ and
+                                       # run again to go on; prints the converged count and
+                                       # writes chiprun_out/replay_s518_A_B.json
 
 Phases, each announced with a flushed, timestamped start/done line:
 
@@ -37,7 +39,12 @@ Phases, each announced with a flushed, timestamped start/done line:
    the exact attention at the rotation search's batch, (4, 485, 6, 64); the
    trained ViT-S/14 @ 518's shapes: exact attention at (1, 1370, 6, 64) and
    (4, 1370, 6, 64), the bf16 matcher at (1369, 1369, 3456), no-max and
-   fused int8 attention at 6 heads (1, 1370, 6 x 64);
+   fused int8 attention at 6 heads (1, 1370, 6 x 64); the batched chunk's:
+   both matcher modes with a batch of B frames against one goal at (8,
+   1369, 1369, 3456) bf16 and at B in {1, 3, 32} at 518's and 308's
+   shapes, each item bit for bit a launch on it alone, two launches bit for
+   bit, the key scratch left zero; exact attention at the chunk's (8, 1370,
+   6, 64) and its search's (32, 1370, 6, 64);
 3. the bf16 main path: goal_descriptors + 5 servo_steps of the DINO servo
    step at ViT-S/14 @ 308 (configs/config.yaml's settings, seeded weights,
    seeded 640x480 frames), once through the kernels and once through the
@@ -59,12 +66,13 @@ Phases, each announced with a flushed, timestamped start/done line:
 3d. the closed loop: run_benchmark (harness/benchmark.py) at phase
    3's settings on the poster scene (the port's npz copy of the texture),
    ViT cast whole to bf16 as the benchmark casts it, cut to episodes 0 and 1
-   of the seed-41 stream (rotation search on) for 40 steps in segments of
-   20 with the ladder's minimum and maximum cut to 10 and 30, then episode
-   1 on its perturbed texture; the launch counters must rise by exactly what
-   the executed steps give (12 exact-attention launches for the goal, 12
-   for each episode's 4-view search, 12 a step; 4 bf16-matcher launches an
-   episode and 1 a step); every step of episode 0 is teacher-forced through
+   of the seed-41 stream (rotation search on), one episode a chunk, for 40
+   steps in segments of 20 with the ladder's minimum and maximum cut to 10
+   and 30, then episode 1 on its perturbed texture; the launch counters
+   must rise by exactly what the executed steps give (12 exact-attention
+   launches for the goal, 12 for each chunk's search, 12 a chunk-step; 1
+   bf16-matcher launch for each chunk's search and 1 a chunk-step); every
+   step of episode 0 is teacher-forced through
    the plain step (its frame, EMA, command and scores), twists held within
    1e-3 wherever no pair differs; episode 0 runs again plain and where the
    trajectories part is reported; the npz's 22 arrays and finite poses are
@@ -84,11 +92,25 @@ Phases, each announced with a flushed, timestamped start/done line:
    AA's) at the full ladder (300 to 1500 iterations, rotation search on),
    its first 40 steps teacher-forced through the plain step, which must
    converge by the ladder's own test;
+3f. the chunk on the trained weights: run_benchmark on episodes 0 to 7 of
+   the 500-episode stream as one chunk of 8 (rotation search on) for 60
+   steps in segments of 20: launches exactly 12 exact attention for the
+   goal, 12 for the chunk's search and 12 a chunk-step, 1 bf16 matcher for
+   the search and 1 a chunk-step; every chunk-step teacher-forced through
+   the plain batched step (twists within 1e-3 where no pair differs, flips
+   counted per episode); the same 8 episodes at chunk 1 for 20 steps
+   against the chunk (twists within 1e-3 up to each episode's first pair
+   flip: the card's GEMMs at M = 8 x 1370 may round otherwise than at
+   1370); finite poses and the npz's 22 arrays;
 4. times on the card (CUDA events / synchronized host clock) beside each
    kernel's bound and the PyTorch library call for the same function (the
    exact kernels at T = 485 and T = 1370; the int8 kernel from the bf16
    slices, its quantization included), and the servo steps' medians; the
-   kernels phase 3e launches at its shapes (ViT-S/14 @ 518).  The
+   kernels phase 3e launches at its shapes (ViT-S/14 @ 518); the batched
+   matcher at B = 8 against 8 single launches and cuBLAS bmm + max/argmax,
+   exact attention at B = 8 and 32 against SDPA, and the closed-loop chunk
+   step on the trained weights at B in {1, 8, 16} (ms a chunk-step,
+   episode-steps a second, card-seconds an episode at the 1500 cap).  The
    f32 attention kernel is held to the tensor-core bound of f32-accurate
    work (three TF32 passes), its f32 FMA bound logged beside it.
 
@@ -214,6 +236,18 @@ TRAINED_CALIB_OFFSETS = [(0.06, 0.02, 0.05), (-0.05, 0.04, 0.08), (0.04, -0.06, 
 TRAINED_STREAM = 500          # the seed-41 stream of runs Z and AA (the benchmark's 500)
 TRAINED_LOOP_EPISODE = 0      # converged in the JAX package's runs L, Z and AA
 TRAINED_LOOP_FORCED = 40      # its first steps teacher-forced through the plain step
+# the batched chunk (phase 3f): the benchmark's default chunk of 8, its search's
+# 4 x 8 views, and the ragged batches the matcher is held at
+CHUNK = 8
+CHUNK_ATTN_SHAPE = (CHUNK, 1370, 6, 64)
+CHUNK_SEARCH_ATTN_SHAPE = (4 * CHUNK, 1370, 6, 64)
+MATCH_BATCHES = [1, 3, 4 * CHUNK]
+CHUNK_EPISODES = list(range(CHUNK))   # episodes 0 to 7 of the 500-episode stream
+CHUNK_STEPS = 60
+CHUNK_SEGMENT = 20
+CHUNK_ALONE_STEPS = 20                # the same episodes at chunk 1, against the chunk
+LOOP_CHUNKS = [1, CHUNK, 2 * CHUNK]   # phase 4's closed-loop chunk steps
+EPISODE_CAP = 1500                    # the ladder's max_iterations: card-seconds an episode
 TIMING_ROUNDS = 7                     # alternating rounds, closed-loop step and bare step
 # the reference's npz: its 22 arrays and the run time
 NPZ_KEYS = ("initial_positions", "initial_orientations", "final_positions",
@@ -379,6 +413,41 @@ def check_matcher_exact(device, t=300, d=3456, seed=2) -> None:
     inv = np.argsort(perm)
     if not (np.array_equal(nn_1.cpu().numpy(), inv) and np.array_equal(nn_2.cpu().numpy(), perm)):
         raise AssertionError("matcher exact-index case: argmax differs from the permutation")
+
+
+def check_matcher_batched(device, t: int, d: int, batches, seed: int) -> dict:
+    """Both matcher modes on one goal's bf16 rows (t, d) against a batch of B
+    frames (B, t, d) for each B of ``batches``: each item bit for bit a
+    launch on it alone, two batched launches bit for bit, each item held to
+    the plain version (:func:`_hold_matcher`), and the key scratch left all
+    zero.  Returns the max abs error against plain at each B, per mode."""
+    rs = np.random.default_rng(seed)
+    bits = lambda x: x.view(torch.int32) if x.dtype == torch.float32 else x
+    same = lambda x, y: all(torch.equal(bits(u), bits(v)) for u, v in zip(x, y))
+    modes = {"bf16": (matcher.dual_argmax_cosine_bf16, matcher.dual_argmax_cosine_bf16_plain),
+             "f32": (matcher.dual_argmax_cosine, matcher.dual_argmax_cosine_plain)}
+    errs = {}
+    a = _normal(device, (t, d), rs, torch.bfloat16)
+    for nb in batches:
+        b = _normal(device, (nb, t, d), rs, torch.bfloat16)
+        for mode, (fn, plain) in modes.items():
+            what = f"{mode} matcher, a batch of {nb} at {(t, t, d)}"
+            got = fn(a, b)
+            if not same(got, fn(a, b)):
+                raise AssertionError(f"{what}: two launches on the same inputs differ")
+            alone = [fn(a, b[i]) for i in range(nb)]
+            if not all(same([x[i] for x in got], one) for i, one in enumerate(alone)):
+                raise AssertionError(f"{what}: an item differs from a launch on it alone")
+            ref = plain(a, b)
+            unit = (lambda x: matcher.unit_rows(x).float()) if mode == "bf16" else (
+                lambda x: x.float() * matcher.inverse_norms(x.float())[..., None])
+            errs[f"{mode}_b{nb}"] = max(
+                _hold_matcher([x[i] for x in got], [x[i] for x in ref],
+                              unit(a) @ unit(b[i]).T, f"{what}, item {i}") for i in range(nb))
+    torch.cuda.synchronize()
+    if any(int(buf.abs().sum()) for buf in matcher._keys_scratch.values()):
+        raise AssertionError("matcher: the key scratch is not zero after the batched launches")
+    return errs
 
 
 def underflow_qkv(shape, rows, c, seed, k_noise=0.05):
@@ -739,12 +808,12 @@ def loop_config(cfg: VSConfig) -> VSConfig:
     return cfg.replace(min_iterations=LOOP_MIN_ITERATIONS, max_iterations=LOOP_MAX_ITERATIONS)
 
 
-def loop_launches(layer: int, episodes: int, device_steps: int) -> dict:
-    """Launches of one benchmark run: the goal's forward, each episode's
-    4-view search (one forward at B = 4, 4 matches) and each step run on
-    the device (one forward, one match)."""
-    return {"attention": (layer + 1) * (1 + episodes + device_steps),
-            "matcher_bf16": 4 * episodes + device_steps}
+def loop_launches(layer: int, chunks: int, chunk_steps: int) -> dict:
+    """Launches of one benchmark run: the goal's forward, each chunk's
+    search (one forward over its 4 B views, one match) and each chunk-step
+    run on the device (one forward, one match)."""
+    return {"attention": (layer + 1) * (1 + chunks + chunk_steps),
+            "matcher_bf16": chunks + chunk_steps}
 
 
 def check_npz(path: str, n: int) -> None:
@@ -775,18 +844,19 @@ def run_closed_loop(net, cfg: VSConfig, model: ServoModel, scene: Scene, out_dir
                     episodes=LOOP_EPISODES, perturbed=LOOP_PERTURBED, num_steps=LOOP_STEPS,
                     segment_steps=LOOP_SEGMENT) -> dict:
     """run_benchmark through the kernels on ``episodes`` (rotation
-    search on), then on ``perturbed`` with perturbed textures, the launch
-    counters zeroed before and read after each run; then every step of the
-    first episode teacher-forced through the plain step (the kernel run's
-    frame, EMA, command and scores; the plain goal descriptors), and the
-    whole episode again plain, reporting where the trajectories part."""
+    search on), one episode a chunk, then on ``perturbed`` with perturbed
+    textures, the launch counters zeroed before and read after each run;
+    then every step of the first episode teacher-forced through the plain
+    step (the kernel run's frame, EMA, command and scores; the plain goal
+    descriptors), and the whole episode again plain, reporting where the
+    trajectories part."""
     model_plain = dataclasses.replace(model, use_kernels=False)
     common = dict(rotation_search=True, num_steps=num_steps, segment_steps=segment_steps,
-                  verbose=False, out_dir=out_dir, device=model.device)
+                  verbose=False, out_dir=out_dir, device=model.device, chunk=1)
     record = []
 
-    def on_step(abs_idx, inputs, result):
-        if abs_idx == episodes[0]:
+    def on_step(abs_ids, inputs, result):
+        if abs_ids[0] == episodes[0]:
             record.append((inputs, result))
 
     runs, launches = {}, {}
@@ -815,6 +885,7 @@ def run_closed_loop(net, cfg: VSConfig, model: ServoModel, scene: Scene, out_dir
     m = min(len(pk), len(pp))
     apart = np.nonzero(np.abs(pk[:m] - pp[:m]).max(-1) > 1e-4)[0]
     return {"device_steps": {k: r.device_steps for k, r in runs.items()},
+            "chunk_steps": {k: r.chunk_steps for k, r in runs.items()},
             "episodes": {"standard": len(episodes), "perturbed": len(perturbed)},
             "launches": launches,
             "iterations": {k: [int(i) for i in r.summaries["all_iteration_histories"]]
@@ -836,7 +907,9 @@ def run_closed_loop(net, cfg: VSConfig, model: ServoModel, scene: Scene, out_dir
 
 def loop_runner(net, model: ServoModel, scene: Scene, start_p, start_q, generator):
     """One closed-loop step a call (render, servo step, integrate, ladder)
-    from a start pose, on the benchmark's cast ViT, carrying its state."""
+    from a start pose, or a chunk-step from a chunk's (B, 3) / (B, 4)
+    starts with B generators, on the benchmark's cast ViT, carrying its
+    state."""
     cast = cast_for_benchmark(net, model.compute_dtype)
     desired = goal_pose(model.device)
     goal = goal_descriptors(cast, model, observe(scene, model.camera, *desired)[0])
@@ -848,10 +921,20 @@ def loop_runner(net, model: ServoModel, scene: Scene, start_p, start_q, generato
     return run
 
 
-def loop_start(cfg: VSConfig):
-    """Episode 0's start pose of the seed-41 stream."""
+def loop_start(cfg: VSConfig, chunk: int | None = None):
+    """Episode 0's start pose of the seed-41 stream, or with ``chunk`` the
+    start poses of its first ``chunk`` episodes."""
     positions, quats, _ = generate_episode_starts(cfg)
-    return positions[0], quats[0]
+    if chunk is None:
+        return positions[0], quats[0]
+    return positions[:chunk], quats[:chunk]
+
+
+def chunk_runner(net, model: ServoModel, scene: Scene, chunk: int):
+    """:func:`loop_runner` on the first ``chunk`` episodes of the stream of
+    ``model.cfg``, each drawing its scores from a generator of its own."""
+    return loop_runner(net, model, scene, *loop_start(model.cfg, chunk),
+                       [torch.Generator(model.device).manual_seed(i) for i in range(chunk)])
 
 
 def time_run(run, iters=20) -> float:
@@ -962,10 +1045,10 @@ def run_trained_loop(net, cfg: VSConfig, model: ServoModel, scene: Scene, out_di
     the error names its final errors and where the two runs part."""
     model_plain = dataclasses.replace(model, use_kernels=False)
     common = dict(rotation_search=True, num_steps=num_steps, segment_steps=segment_steps,
-                  verbose=False, device=model.device, episode_indices=[episode])
+                  verbose=False, device=model.device, episode_indices=[episode], chunk=1)
     record = []
 
-    def on_step(abs_idx, inputs, result):
+    def on_step(abs_ids, inputs, result):
         if len(record) < forced:
             record.append((inputs, result))
 
@@ -989,7 +1072,8 @@ def run_trained_loop(net, cfg: VSConfig, model: ServoModel, scene: Scene, out_di
     forced_cmp = compare_runs((goal_plain, ref_steps), (goal_ker, [r for _, r in record]),
                               every_step=True)
     sm = run.summaries
-    out = {"episode": episode, "device_steps": run.device_steps, "wall_s": wall_s,
+    out = {"episode": episode, "device_steps": run.device_steps,
+           "chunk_steps": run.chunk_steps, "wall_s": wall_s,
            "launches": launches, "iterations": int(sm["all_iteration_histories"][0]),
            "converged": bool(sm["convergence_flags"][0]),
            "final_pos_err_cm": float(sm["position_errors"][0]),
@@ -1014,6 +1098,94 @@ def run_trained_loop(net, cfg: VSConfig, model: ServoModel, scene: Scene, out_di
             f"{float(plain.summaries['position_errors'][0]):.3f} cm, the runs part at step "
             f"{int(apart[0]) if len(apart) else None}")
     return out
+
+
+def run_trained_chunk(net, cfg: VSConfig, model: ServoModel, scene: Scene, out_dir: str,
+                      episodes=CHUNK_EPISODES, num_steps: int = CHUNK_STEPS,
+                      segment_steps: int = CHUNK_SEGMENT,
+                      alone_steps: int = CHUNK_ALONE_STEPS) -> dict:
+    """run_benchmark through the kernels on ``episodes`` as one chunk
+    (rotation search on) for ``num_steps`` steps, the launch counters zeroed
+    before and read after; every chunk-step teacher-forced through the plain
+    batched step (its frames, EMA, commands and scores; the plain goal
+    descriptors), twists held within TWIST_TOL where an episode's pairs
+    agree, flips counted per episode.  Then the same episodes one a chunk
+    for ``alone_steps`` steps, each held against its item of the chunk up to
+    its first step whose pairs differ (the trajectories part there)."""
+    model_plain = dataclasses.replace(model, use_kernels=False)
+    cast = cast_for_benchmark(net, model.compute_dtype)
+    goal_plain = goal_descriptors(cast, model_plain,
+                                  observe(scene, model.camera, *goal_pose(model.device))[0])
+    nb = len(episodes)
+    common = dict(rotation_search=True, segment_steps=segment_steps, verbose=False,
+                  device=model.device, episode_indices=episodes)
+    forced = {"flips": [0] * nb, "steps_with_flips": [0] * nb, "twist_max_abs_err": 0.0,
+              "episode_steps_compared": 0}
+    kept = []
+
+    def on_step(abs_ids, inputs, result):
+        ref = servo_step(cast, model_plain, goal_plain, inputs.rgb, inputs.depth, inputs.ema,
+                         inputs.prev_v_c, scores=inputs.scores)
+        diff = (~same_pairs(ref, result)).sum(-1).tolist()
+        for j, f in enumerate(diff):
+            forced["flips"][j] += f
+            forced["steps_with_flips"][j] += int(f > 0)
+        agree = torch.tensor([f == 0 for f in diff], device=result.body_twist.device)
+        if bool(agree.any()):
+            err = (ref.body_twist - result.body_twist).abs().amax(-1)[agree].max().item()
+            forced["twist_max_abs_err"] = max(forced["twist_max_abs_err"], err)
+            forced["episode_steps_compared"] += int(agree.sum())
+        if len(kept) < alone_steps:
+            kept.append(result)
+
+    for fn in _counters().values():
+        fn.launches = 0
+    sync(model.device)
+    t0 = time.perf_counter()
+    run = run_benchmark(cfg, net=net, model=model, scene=scene, out_dir=out_dir,
+                        config_name="chunk", chunk=nb, num_steps=num_steps, on_step=on_step,
+                        **common)
+    sync(model.device)
+    wall_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in _counters().items()}
+    check_npz(run.path, nb)
+    if not forced["twist_max_abs_err"] <= TWIST_TOL:
+        raise AssertionError(f"chunk, teacher-forced: twists differ by "
+                             f"{forced['twist_max_abs_err']} > {TWIST_TOL}")
+
+    alone = {int(e): [] for e in episodes}
+
+    def on_alone(abs_ids, inputs, result):
+        alone[int(abs_ids[0])].append(result)
+
+    solo = run_benchmark(cfg, net=net, model=model, scene=scene, save=False, chunk=1,
+                         num_steps=alone_steps, on_step=on_alone, **common)
+    first_flip, flips, twist_err, compared = [], [], 0.0, 0
+    for j, ep in enumerate(episodes):
+        parted = None
+        flips.append(0)
+        for step, (c, a) in enumerate(zip(kept, alone[int(ep)])):
+            same = bool(((c.s_uv_star[j] == a.s_uv_star[0]).all(-1)
+                         & ((c.s_uv[j] - a.s_uv[0]).abs() <= 1.0).all(-1)
+                         & (c.valid[j] == a.valid[0])).all())
+            flips[-1] += int(not same)
+            parted = step if parted is None and not same else parted
+            if parted is None:
+                twist_err = max(twist_err, (c.body_twist[j] - a.body_twist[0]).abs().max().item())
+                compared += 1
+        first_flip.append(parted)
+    if not twist_err <= TWIST_TOL:
+        raise AssertionError(f"chunk against alone: twists differ by {twist_err} > {TWIST_TOL} "
+                             f"before the first pair flip")
+    quat_gap = max(float(np.abs(np.asarray(c[1], np.float64) - np.asarray(a[1], np.float64)).max())
+                   for c, a in zip(run.summaries["best_poses"], solo.summaries["best_poses"]))
+    return {"episodes": [int(e) for e in episodes], "device_steps": run.device_steps,
+            "chunk_steps": run.chunk_steps, "wall_s": wall_s, "launches": launches,
+            "teacher_forced": forced,
+            "alone": {"steps": alone_steps, "first_flip_step": first_flip,
+                      "steps_with_flips": flips, "twist_max_abs_err": twist_err,
+                      "episode_steps_compared": compared,
+                      "search_quat_max_abs_diff": quat_gap}}
 
 
 # ---------------------------------------------------------------------------
@@ -1044,12 +1216,13 @@ def int8_attention_bound_ms(shape=SERVE_ATTN_SHAPE) -> tuple[float, str]:
     return _bound(mm / PEAK_INT8_OPS + mm / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES)
 
 
-def matcher_bound_ms(shape=MATCH_SHAPE, bf16: bool = False) -> tuple[float, str]:
+def matcher_bound_ms(shape=MATCH_SHAPE, bf16: bool = False, nb: int = 1) -> tuple[float, str]:
     """f32 mode: f32 rows, products outside the tensor cores; bf16 mode: bf16
-    rows on the bf16 tensor cores."""
+    rows on the bf16 tensor cores; the goal's t rows against ``nb`` frames'."""
     t, d = shape
-    flops = 2.0 * t * t * d
-    nbytes = 2.0 * t * d * (2 if bf16 else 4) + 2.0 * t * 8   # rows read, quartet written
+    flops = 2.0 * nb * t * t * d
+    # the goal's and the frames' rows read, the quartets written
+    nbytes = (1 + nb) * t * d * (2 if bf16 else 4) + 2.0 * nb * t * 8
     return _bound(flops / (PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS), nbytes / PEAK_BYTES)
 
 
@@ -1143,11 +1316,11 @@ def time_kernels(device) -> dict:
             "plain_ms_t1370": cuda_ms(lambda: attention.mha_attention_plain(fq32, fk32, fv32),
                                       iters=20),
             "library_ms_t1370": cuda_ms(lambda: sdpa(fq32h, fk32h, fv32h))},
-        "matcher": {"ms": cuda_ms(lambda: matcher._launch_f32(a, b)),
+        "matcher": {"ms": cuda_ms(lambda: matcher._launch_f32(a, b[None])),
                     "plain_ms": cuda_ms(lambda: matcher.dual_argmax_cosine_plain(a, b), iters=50),
                     "library_ms": cuda_ms(library_match, iters=50)},
         "matcher_bf16": {
-            "ms": cuda_ms(lambda: matcher._launch_bf16(ua, ub)),
+            "ms": cuda_ms(lambda: matcher._launch_bf16(ua, ub[None])),
             "plain_ms": cuda_ms(lambda: matcher.dual_argmax_cosine_bf16_plain(a16, b16), iters=50),
             "library_ms": cuda_ms(library_match_bf16),
             "wrapper_ms": cuda_ms(lambda: matcher.dual_argmax_cosine_bf16(a16, b16))},
@@ -1192,7 +1365,8 @@ def time_trained_kernels(device) -> dict:
         sim = ua @ ub.T
         return sim.max(1), sim.max(0)
 
-    out["matcher_bf16"] = {"shape": (t, t, d), "ms": cuda_ms(lambda: matcher._launch_bf16(ua, ub)),
+    out["matcher_bf16"] = {"shape": (t, t, d),
+                           "ms": cuda_ms(lambda: matcher._launch_bf16(ua, ub[None])),
                            "plain_ms": cuda_ms(lambda: matcher.dual_argmax_cosine_bf16_plain(a, b),
                                                iters=50),
                            "library_ms": cuda_ms(library_match_bf16),
@@ -1216,6 +1390,42 @@ def time_trained_kernels(device) -> dict:
         "plain_ms": cuda_ms(lambda: attn_int8.fused_int8_attention_plain(iq, ik, iv, H), iters=50),
         "library_ms": None,
         **dict(zip(("bound_ms", "bound_by"), int8_attention_bound_ms(TRAINED_ATTN_SHAPE)))}
+    return out
+
+
+def time_chunk_kernels(device) -> dict:
+    """The kernels at the chunk's shapes: the bf16 matcher on one goal
+    against CHUNK frames (ViT-S/14 @ 518) beside CHUNK single launches,
+    its plain version and cuBLAS bmm + max/argmax; exact attention at the
+    chunk's and its search's batch beside SDPA; each with its bound."""
+    rs = np.random.default_rng(22)
+    bf16 = lambda shape: _normal(device, shape, rs, torch.bfloat16)
+    t, d = TRAINED_MATCH_SHAPE
+    a, b = bf16((t, d)), bf16((CHUNK, t, d))
+    ua, ub = matcher.bf16_unit_rows(a), matcher.bf16_unit_rows(b)
+
+    def library_match_bf16():     # cuBLAS bf16 bmm with a bf16 output, then max/argmax
+        sim = torch.matmul(ua, ub.mT)
+        return sim.max(-1), sim.max(-2)
+
+    out = {"matcher_bf16_batched": {
+        "shape": (CHUNK, t, t, d), "ms": cuda_ms(lambda: matcher._launch_bf16(ua, ub)),
+        "singles_ms": cuda_ms(lambda: [matcher._launch_bf16(ua, ub[i:i + 1])
+                                       for i in range(CHUNK)]),
+        "plain_ms": cuda_ms(lambda: matcher.dual_argmax_cosine_bf16_plain(a, b), iters=20),
+        "library_ms": cuda_ms(library_match_bf16),
+        **dict(zip(("bound_ms", "bound_by"),
+                   matcher_bound_ms(TRAINED_MATCH_SHAPE, bf16=True, nb=CHUNK)))}}
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for name, shape in (("attention_chunk", CHUNK_ATTN_SHAPE),
+                        ("attention_chunk_search", CHUNK_SEARCH_ATTN_SHAPE)):
+        q, k, v = (bf16(shape) for _ in range(3))
+        qh, kh, vh = [x.transpose(1, 2).contiguous() for x in (q, k, v)]
+        out[name] = {"shape": shape, "ms": cuda_ms(lambda: attention.mha_attention(q, k, v)),
+                     "plain_ms": cuda_ms(lambda: attention.mha_attention_plain(q, k, v),
+                                         iters=10),
+                     "library_ms": cuda_ms(lambda: sdpa(qh, kh, vh)),
+                     **dict(zip(("bound_ms", "bound_by"), attention_bound_ms(shape)))}
     return out
 
 
@@ -1278,32 +1488,33 @@ class BudgetSpent(Exception):
 
 
 def run_replay(lo: int, hi: int, checkpoint: Path, budget_s: float, out_dir: Path,
-               device, path: Path = TRAINED_S518) -> dict:
+               device, chunk: int = CHUNK, path: Path = TRAINED_S518) -> dict:
     """run_benchmark on episodes [lo, hi) of the 500-episode seed-41 stream
     (runs Z and AA's) at configs/real_s518.yaml's other settings on the
     trained ViT-S/14 @ 518 (cast whole to bf16, standard texture, rotation
-    search on), one episode a chunk, resuming from ``checkpoint``.  When ``budget_s`` seconds have
-    passed the episode in flight is dropped (it reruns, bit for bit, on
-    resume).  Returns the checkpoint's episodes summarized and this call's
-    times."""
+    search on), ``chunk`` episodes a chunk, resuming from ``checkpoint``
+    (whole chunks).  When ``budget_s`` seconds have passed the chunk in
+    flight is dropped (it reruns, bit for bit, on resume).  Returns the
+    checkpoint's episodes summarized and this call's times."""
     cfg = trained_config()
     model = ServoModel.create(cfg, device=device)
     net, info = load_trained(model, path)
     checkpoint.parent.mkdir(parents=True, exist_ok=True)
     out_dir.mkdir(parents=True, exist_ok=True)
     before = len(load_episodes(str(checkpoint), "replay", verbose=False)[0])
-    steps = [0]
+    steps = {"chunk": 0, "episode": 0}
     sync(device)
     t0 = time.perf_counter()
 
-    def on_step(abs_idx, inputs, result):
-        steps[0] += 1
+    def on_step(abs_ids, inputs, result):
+        steps["chunk"] += 1
+        steps["episode"] += len(set(int(i) for i in abs_ids))   # the padding repeats the last
         if time.perf_counter() - t0 > budget_s:
             raise BudgetSpent
 
     try:
         run_benchmark(cfg, net=net, model=model, episode_indices=range(lo, hi),
-                      checkpoint_path=str(checkpoint), chunk=1, out_dir=str(out_dir),
+                      checkpoint_path=str(checkpoint), chunk=chunk, out_dir=str(out_dir),
                       config_name=f"replay_s518_{lo}_{hi}", device=device, on_step=on_step)
         finished = True
     except BudgetSpent:
@@ -1320,7 +1531,7 @@ def run_replay(lo: int, hi: int, checkpoint: Path, budget_s: float, out_dir: Pat
         "all_iteration_histories": np.asarray([int(e.iterations) for e in episodes]),
         "total_execution_time": wall_s})
     done_now = len(episodes) - before
-    return {"episodes": [lo, hi], "weights": info["file"], "finished": finished,
+    return {"episodes": [lo, hi], "weights": info["file"], "chunk": chunk, "finished": finished,
             "episodes_done": len(episodes), "episodes_this_call": done_now,
             "converged": int(sum(flags)), "not_converged": [lo + i for i, f in enumerate(flags)
                                                              if not f],
@@ -1329,8 +1540,10 @@ def run_replay(lo: int, hi: int, checkpoint: Path, budget_s: float, out_dir: Pat
             "lowest_pos_err_cm": [float(e.lowest_position_error) for e in episodes],
             "lowest_rot_err_deg": [float(e.lowest_orientation_error) for e in episodes],
             "final_pos_err_cm": [float(e.position_error) for e in episodes],
-            "call_wall_s": wall_s, "call_steps": steps[0],
-            "ms_per_step": 1e3 * wall_s / max(steps[0], 1),
+            "call_wall_s": wall_s, "call_chunk_steps": steps["chunk"],
+            "call_steps": steps["episode"],
+            "ms_per_chunk_step": 1e3 * wall_s / max(steps["chunk"], 1),
+            "ms_per_step": 1e3 * wall_s / max(steps["episode"], 1),
             "card_s_per_episode": wall_s / done_now if done_now else None}
 
 
@@ -1354,6 +1567,9 @@ def main() -> int:
                          "a copy is left in chiprun_out/)")
     ap.add_argument("--budget-s", type=float, default=480.0,
                     help="with --replay: stop after this many seconds of episodes")
+    ap.add_argument("--chunk", type=int, default=None,
+                    help=f"with --replay: episodes a chunk (default {CHUNK}); with --profile "
+                         f"loop or loop518: profile chunk-steps of this many episodes")
     args = ap.parse_args()
     import vitvs_tpu_torch
 
@@ -1427,18 +1643,52 @@ def main() -> int:
         err = check_int8_attention(device, shape=TRAINED_ATTN_SHAPE, ts=(), seed=19)
         log(f"int8 attention {TRAINED_ATTN_SHAPE} (D = 384): max abs err {err:.3e} "
             f"(tol {ATTN_TOL}), padded columns ok")
+        # the batched chunk's shapes (phase 3f): the matcher with a batch axis,
+        # the exact attention at the chunk's and its search's batch
+        t, d = TRAINED_MATCH_SHAPE
+        berrs = check_matcher_batched(device, t, d, [CHUNK, *MATCH_BATCHES], seed=23)
+        berrs.update(check_matcher_batched(device, MATCH_SHAPE[0], MATCH_SHAPE[1],
+                                           MATCH_BATCHES, seed=24))
+        errs["matcher_bf16_batched"] = berrs[f"bf16_b{CHUNK}"]
+        log(f"batched matcher, both modes, a goal against B frames at {(t, t, d)} for B in "
+            f"{[CHUNK, *MATCH_BATCHES]} and at {(MATCH_SHAPE[0],) + MATCH_SHAPE} for B in "
+            f"{MATCH_BATCHES}: each item bit for bit a launch on it alone, two launches bit "
+            f"for bit, the scratch left zero; max abs err against plain "
+            f"{json.dumps({k: float(f'{v:.3e}') for k, v in berrs.items()})} "
+            f"(tol {MATCH_VAL_TOL})")
+        for shape, seed in ((CHUNK_ATTN_SHAPE, 25), (CHUNK_SEARCH_ATTN_SHAPE, 26)):
+            err = check_attention(device, shape=shape, ts=(), seed=seed)
+            log(f"attention {shape} bf16 (the chunk's batch): max abs err {err:.3e} "
+                f"(tol {ATTN_TOL}), two launches bit for bit")
 
     if args.replay:
         lo, hi = (int(x) for x in args.replay.split(":"))
         ckpt = args.checkpoint or here / ".replay" / f"replay_s518_{lo}_{hi}.ckpt"
+        out_dir = here / "chiprun_out"
         with phase(f"replay {lo}:{hi}"):
-            rep_out = run_replay(lo, hi, ckpt, args.budget_s, here / "chiprun_out", device)
-            shutil.copy(ckpt, here / "chiprun_out" / ckpt.name)
+            # the npz and the checkpoint of hundreds of episodes' histories stay
+            # beside the checkpoint (chiprun_out/ is kept to 64 MiB at most);
+            # an unfinished run's checkpoint is copied out to be resumed
+            rep_out = run_replay(lo, hi, ckpt, args.budget_s, ckpt.parent, device,
+                                 chunk=args.chunk or CHUNK)
+            out_dir.mkdir(parents=True, exist_ok=True)
+            if not rep_out["finished"]:
+                shutil.copy(ckpt, out_dir / ckpt.name)
+            (out_dir / f"replay_s518_{lo}_{hi}.json").write_text(json.dumps(rep_out))
         log(f"[{card}] replay: {rep_out['converged']} of {rep_out['episodes_done']} converged "
             f"({rep_out['episodes_this_call']} this call, finished={rep_out['finished']}), "
-            f"{rep_out['ms_per_step']:.3f} ms a step, {rep_out['card_s_per_episode']} card-s "
-            f"an episode")
-        print(json.dumps({"replay": rep_out}), flush=True)
+            f"not converged: {rep_out['not_converged']}; lowest errors "
+            f"{rep_out['stats']['mean_lowest_position_error']:.4f} +- "
+            f"{rep_out['stats']['std_lowest_position_error']:.4f} cm, "
+            f"{rep_out['stats']['mean_lowest_orientation_error']:.4f} +- "
+            f"{rep_out['stats']['std_lowest_orientation_error']:.4f} deg; mean iterations "
+            f"{rep_out['stats']['mean_iterations']:.1f}; chunk {rep_out['chunk']}: "
+            f"{rep_out['ms_per_chunk_step']:.3f} ms a chunk-step, "
+            f"{rep_out['ms_per_step']:.3f} ms an episode-step, "
+            f"{rep_out['card_s_per_episode']} card-s an episode")
+        print(json.dumps({"replay": {k: v for k, v in rep_out.items()
+                                     if not isinstance(v, list) or k == "not_converged"}}),
+              flush=True)
         print(card, flush=True)
         print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                                  "kind": torch.cuda.get_device_name(0),
@@ -1460,10 +1710,13 @@ def main() -> int:
                 if args.profile == "loop518":
                     lmodel = ServoModel.create(trained_config(), device=device)
                     lnet = load_trained(lmodel)[0]
-                profile_run(loop_runner(lnet, lmodel, load_poster_scene(device=device),
-                                        *loop_start(lmodel.cfg),
-                                        torch.Generator(device).manual_seed(0)),
-                            trace_path=args.trace)
+                lscene = load_poster_scene(device=device)
+                run = (loop_runner(lnet, lmodel, lscene, *loop_start(lmodel.cfg),
+                                   torch.Generator(device).manual_seed(0))
+                       if args.chunk is None else chunk_runner(lnet, lmodel, lscene, args.chunk))
+                log(f"profile: closed-loop {args.profile}, a chunk of {args.chunk or 1} "
+                    f"episodes a step")
+                profile_run(run, trace_path=args.trace)
             elif args.profile == "bf16":
                 profile_run(step_runner(net, model), trace_path=args.trace)
             elif args.profile == "f32":
@@ -1523,7 +1776,7 @@ def main() -> int:
         for name, got in lsum["launches"].items():
             want = {k: 0 for k in _counters()}
             want.update(loop_launches(cfg.layer, lsum["episodes"][name],
-                                      lsum["device_steps"][name]))
+                                      lsum["chunk_steps"][name]))
             if got != want:
                 raise AssertionError(f"closed loop ({name}): launch counts {got} != {want}")
             for k in ("attention", "matcher_bf16"):
@@ -1583,7 +1836,7 @@ def main() -> int:
             f"stream at the full ladder "
             f"({tcfg.min_iterations} to {tcfg.max_iterations}): {json.dumps(tloop)}")
         want = {k: 0 for k in _counters()}
-        want.update(loop_launches(tcfg.layer, 1, tloop["device_steps"]))
+        want.update(loop_launches(tcfg.layer, 1, tloop["chunk_steps"]))
         if tloop["launches"] != want:
             raise AssertionError(f"trained closed loop: launch counts {tloop['launches']} != {want}")
         for k in ("attention", "matcher_bf16"):
@@ -1591,6 +1844,31 @@ def main() -> int:
         log(f"[{card}] trained closed loop: {tloop['device_steps']} steps in "
             f"{tloop['wall_s']:.2f} s with the goal and the search = "
             f"{1e3 * tloop['wall_s'] / tloop['device_steps']:.3f} ms a step")
+
+    with phase("3f trained-chunk"):
+        with tempfile.TemporaryDirectory() as out:
+            csum = run_trained_chunk(tnet, tcfg, tmodel, scene, out)
+        log(f"trained chunk of {CHUNK}, episodes {csum['episodes']} of the "
+            f"{tcfg.num_samples}-episode stream, {CHUNK_STEPS} steps in segments of "
+            f"{CHUNK_SEGMENT}: {json.dumps(csum)}")
+        if csum["chunk_steps"] != CHUNK_STEPS or csum["device_steps"] != CHUNK * CHUNK_STEPS:
+            raise AssertionError(f"trained chunk: {csum['chunk_steps']} chunk-steps, "
+                                 f"{csum['device_steps']} episode-steps")
+        want = {k: 0 for k in _counters()}
+        want.update(loop_launches(tcfg.layer, 1, csum["chunk_steps"]))
+        if csum["launches"] != want:
+            raise AssertionError(f"trained chunk: launch counts {csum['launches']} != {want}")
+        for k in ("attention", "matcher_bf16"):
+            launches[k] += want[k]
+        launches["matcher_bf16_batched"] = want["matcher_bf16"]
+        tf = csum["teacher_forced"]
+        log(f"[{card}] trained chunk: {csum['chunk_steps']} chunk-steps of {CHUNK} in "
+            f"{csum['wall_s']:.2f} s with the goal, the search and the teacher-forced plain "
+            f"steps; flips per episode (teacher-forced) {tf['steps_with_flips']} of "
+            f"{CHUNK_STEPS} steps, twists within {tf['twist_max_abs_err']:.3e} on the "
+            f"{tf['episode_steps_compared']} others; against chunk 1: first flip at "
+            f"{csum['alone']['first_flip_step']}, twists within "
+            f"{csum['alone']['twist_max_abs_err']:.3e} before it (tol {TWIST_TOL})")
 
     with phase("4 times"):
         step_ms = time_run(step_runner(net, model))
@@ -1621,6 +1899,27 @@ def main() -> int:
             log(f"[{card}] {name} at {tm['shape']} (ViT-S/14 @ 518): kernel {tm['ms']:.4f} ms, "
                 f"plain {tm['plain_ms']:.4f} ms, library {lib_ms}, bound "
                 f"{tm['bound_ms']:.5f} ms ({tm['bound_by']})")
+        chunk_times = time_chunk_kernels(device)
+        for name, tm in chunk_times.items():
+            extra = {k: v for k, v in tm.items() if k.endswith("_ms") and k not in
+                     ("ms", "plain_ms", "library_ms", "bound_ms")}
+            log(f"[{card}] {name} at {tm['shape']}: kernel {tm['ms']:.4f} ms, plain "
+                f"{tm['plain_ms']:.4f} ms, library {tm['library_ms']:.4f} ms, bound "
+                f"{tm['bound_ms']:.5f} ms ({tm['bound_by']}) "
+                + " ".join(f"{k} {v:.4f} ms" for k, v in extra.items()))
+        times["matcher_bf16_batched"] = chunk_times["matcher_bf16_batched"]
+        bounds["matcher_bf16_batched"] = matcher_bound_ms(TRAINED_MATCH_SHAPE, bf16=True,
+                                                          nb=CHUNK)
+        # the closed-loop chunk step on the trained weights, in alternating rounds
+        runners = {b: chunk_runner(tnet, tmodel, scene, b) for b in LOOP_CHUNKS}
+        rounds = [{b: time_run(run) for b, run in runners.items()} for _ in range(3)]
+        for b in LOOP_CHUNKS:
+            ms = statistics.median(r[b] for r in rounds)
+            log(f"[{card}] closed-loop chunk step, B = {b} (ViT-S/14 @ 518, bf16, trained, "
+                f"kernels): median {ms:.3f} ms a chunk-step (rounds "
+                f"{[round(r[b], 3) for r in rounds]}), {1e3 * b / ms:.1f} episode-steps a "
+                f"second, {ms * EPISODE_CAP / b / 1e3:.3f} card-s an episode at "
+                f"{EPISODE_CAP} steps")
         f32_bounds = [attention_bound_ms(shape, f32=True, tensor_cores=tc)[0]
                       for tc in (True, False) for shape in (ATTN_SHAPE, SERVE_ATTN_SHAPE)]
         log(f"[{card}] attention_f32 bounds at T = 485 and 1370: tensor cores "
@@ -1634,7 +1933,10 @@ def main() -> int:
                "matcher_bf16": ("vitvs_tpu_torch/csrc/matcher.cu", "vitvs_tpu/ops/matcher.py:39"),
                "attention_fast": ("vitvs_tpu_torch/csrc/attention_fast.cu",
                                   "vitvs_tpu/ops/attention.py:65"),
-               "attn_int8": ("vitvs_tpu_torch/csrc/attn_int8.cu", "vitvs_tpu/ops/attn_int8.py:80")}
+               "attn_int8": ("vitvs_tpu_torch/csrc/attn_int8.cu", "vitvs_tpu/ops/attn_int8.py:80"),
+               # the bf16 matcher with its batch axis, at the chunk's (8, 1369, 1369, 3456)
+               "matcher_bf16_batched": ("vitvs_tpu_torch/csrc/matcher.cu",
+                                        "vitvs_tpu/ops/matcher.py:39")}
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": errs[name],

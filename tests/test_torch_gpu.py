@@ -459,8 +459,9 @@ def test_attention_kernel_matches_plain_at_the_search_batch(cuda):
 
 def test_closed_loop_with_kernels_matches_plain(cuda, tmp_path):
     """run_benchmark on the card at ViT-S/14 @ 308 bf16 on the poster
-    scene: episodes 0 and 1 (rotation search on) and 1 perturbed, 10 steps
-    in segments of 5; launches as the executed steps give, every step of
+    scene: episodes 0 and 1 (rotation search on) and 1 perturbed, one
+    episode a chunk, 10 steps in segments of 5; launches as the executed
+    chunk-steps give (one search match a chunk), every step of
     episode 0 teacher-forced through the plain step with its twist within
     1e-3 wherever no pair differs (compare_runs raises otherwise)."""
     from vitvs_tpu_torch.harness.pipeline import ServoModel
@@ -476,7 +477,7 @@ def test_closed_loop_with_kernels_matches_plain(cuda, tmp_path):
     for name, got in s["launches"].items():
         want = dict.fromkeys(got, 0)
         want.update(chip_smoke.loop_launches(cfg.layer, s["episodes"][name],
-                                             s["device_steps"][name]))
+                                             s["chunk_steps"][name]))
         assert got == want, name
     assert s["teacher_forced"]["steps"] == 10
     assert s["teacher_forced"]["twist_max_abs_err"] <= chip_smoke.TWIST_TOL
@@ -506,3 +507,76 @@ def test_trained_servo_step_with_kernels_matches_plain(cuda):
                 matcher_bf16=chip_smoke.N_STEPS)
     assert s["launches"] == want
     assert s["twist_max_abs_err"] <= chip_smoke.TWIST_TOL and s["steps_compared"] >= 1
+
+
+@pytest.mark.parametrize("mode", ["bf16", "f32"])
+@pytest.mark.parametrize("nb,t1,t2,d", [(1, 1369, 1369, 3456), (3, 484, 484, 3456),
+                                        (8, 65, 130, 100), (32, 33, 97, 3456)])
+def test_batched_matcher_equals_single_launches(cuda, mode, nb, t1, t2, d):
+    """One goal (t1, d) against a batch of nb frames (nb, t2, d) in one
+    launch: each item's quartet bit for bit that of a launch on it alone,
+    within 1e-4 of the plain version, and the key scratch left zero."""
+    fn, plain = ((matcher.dual_argmax_cosine_bf16, matcher.dual_argmax_cosine_bf16_plain)
+                 if mode == "bf16" else
+                 (matcher.dual_argmax_cosine, matcher.dual_argmax_cosine_plain))
+    rs = np.random.default_rng(nb + t1 + d)
+    a = torch.from_numpy(rs.standard_normal((t1, d)).astype(np.float32)).cuda().bfloat16()
+    b = torch.from_numpy(rs.standard_normal((nb, t2, d)).astype(np.float32)).cuda().bfloat16()
+    before = fn.launches
+    got = fn(a, b)
+    assert fn.launches == before + 1
+    assert got[0].shape == (nb, t1) and got[3].shape == (nb, t2)
+    bits = lambda x: x.view(torch.int32) if x.dtype == torch.float32 else x
+    for i in range(nb):
+        for x, y in zip(got, fn(a, b[i])):
+            assert torch.equal(bits(x[i]), bits(y))
+    ref = plain(a, b)
+    assert (got[0] - ref[0]).abs().max().item() <= 1e-4
+    assert (got[2] - ref[2]).abs().max().item() <= 1e-4
+    torch.cuda.synchronize()
+    assert all(int(buf.abs().sum()) == 0 for buf in matcher._keys_scratch.values())
+
+
+def test_batched_matcher_refuses_what_it_does_not_take(cuda):
+    a = torch.zeros(4, 8, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):          # depths differ
+        matcher.dual_argmax_cosine_bf16(a, torch.zeros(2, 4, 9, device=cuda, dtype=torch.bfloat16))
+    with pytest.raises(ValueError):          # the frames on another device
+        matcher.dual_argmax_cosine_bf16(a, torch.zeros(2, 4, 8, dtype=torch.bfloat16))
+    with pytest.raises(ValueError):          # an empty batch
+        matcher.dual_argmax_cosine(a.float(), torch.zeros(0, 4, 8, device=cuda))
+    with pytest.raises(ValueError):          # the goal batched
+        matcher.dual_argmax_cosine(torch.zeros(2, 4, 8, device=cuda),
+                                   torch.zeros(2, 4, 8, device=cuda))
+
+
+def test_chunk_servo_step_with_kernels_matches_plain(cuda):
+    """A chunk of 3 episodes' frames through the bf16 step at ViT-S/14 @ 308
+    (seeded weights): one ViT forward, one matcher launch, and each
+    episode's twist within 1e-3 of the plain step wherever its pairs agree;
+    each episode's pairs as the single-frame step's."""
+    from vitvs_tpu_torch.control.ibvs import EmaState
+    from vitvs_tpu_torch.harness.pipeline import ServoModel, goal_descriptors, servo_step
+    from vitvs_tpu_torch.models.vit import init_vit
+
+    cfg = chip_smoke.reference_config()
+    model = ServoModel.create(cfg, device="cuda")
+    plain = ServoModel.create(cfg, device="cuda", use_kernels=False)
+    net = init_vit(model.vit, torch.Generator().manual_seed(0), device="cuda",
+                   layerscale=1.0).cast_blocks(model.compute_dtype).eval()
+    goal, frames, depth = chip_smoke.make_frames(cfg, seed=0)
+    rgb = torch.from_numpy(np.stack(frames[:3])).cuda()
+    depths = torch.from_numpy(np.stack([depth] * 3)).cuda()
+    scores = torch.stack(chip_smoke.pair_scores(model, 3)).cuda()
+    ema, prev = EmaState.init("cuda", (3,)), torch.zeros(3, 6, device="cuda")
+    before = (attention.mha_attention.launches, matcher.dual_argmax_cosine_bf16.launches)
+    ker = servo_step(net, model, goal_descriptors(net, model, goal), rgb, depths, ema, prev,
+                     scores=scores)
+    assert (attention.mha_attention.launches - before[0],
+            matcher.dual_argmax_cosine_bf16.launches - before[1]) == (2 * 12, 1)
+    ref = servo_step(net, plain, goal_descriptors(net, plain, goal), rgb, depths, ema, prev,
+                     scores=scores)
+    agree = chip_smoke.same_pairs(ref, ker).all(-1)
+    assert bool(agree.any())
+    assert (ref.body_twist - ker.body_twist).abs().amax(-1)[agree].max().item() <= 1e-3
+    assert ker.body_twist.shape == (3, 6) and torch.isfinite(ker.body_twist).all()

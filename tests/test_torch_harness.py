@@ -1,8 +1,9 @@
 """The port's run_benchmark on a tiny model on the CPU: the reference's
 22-array npz (against vitvs_tpu's writer and evaluator), resume refusing a
-foreign checkpoint, replays and chunk sizes that leave results unchanged,
-the frozen fast-forward against running the device to the end, the flags
-that are not ported, and the port's copy of the poster texture."""
+foreign checkpoint, replays and chunk sizes that leave results unchanged
+(bit for bit), the frozen fast-forward against running the device to the
+end and waiting for a chunk's slowest episode, the flags that are not
+ported, and the port's copy of the poster texture."""
 
 import os
 import pickle
@@ -131,10 +132,40 @@ def test_episode_replay_equals_the_full_sweep(tmp_path):
 
 
 def test_results_do_not_depend_on_chunk(tmp_path):
+    """5 episodes on perturbed textures with the rotation search, at chunk 1,
+    2 and 3 (the last chunk padded with its last episode): the same results
+    bit for bit, one forward a chunk-step."""
     pair = make_pair(pixel_identity=True, max_iterations=4)
-    common = dict(num_samples=3, perturbation=True, num_steps=4, save=False)
-    _same(_bench(pair, tmp_path, chunk=1, **common).summaries,
-          _bench(pair, tmp_path, chunk=3, **common).summaries)
+    common = dict(num_samples=5, perturbation=True, rotation_search=True, num_steps=4,
+                  save=False)
+    runs = {c: _bench(pair, tmp_path, chunk=c, **common) for c in (1, 2, 3)}
+    for c in (2, 3):
+        _same(runs[1].summaries, runs[c].summaries,
+              keys=("convergence_flags", "all_iteration_histories", "final_positions",
+                    "final_quaternions", "all_position_histories", "all_applied_velocity_x",
+                    "lowest_position_errors", "best_poses"))
+    assert [r.device_steps for r in runs.values()] == [5 * 4] * 3
+    assert [r.chunk_steps for r in runs.values()] == [5 * 4, 3 * 4, 2 * 4]
+
+
+def test_chunk_fast_forward_waits_for_its_slowest_episode(tmp_path):
+    """Episodes 0 to 4 stop at iterations 13, 20, 20, 20 and 9 (min 3, max
+    20) of 30 steps in segments of 3: one chunk of 5 runs 21 chunk-steps on
+    the device, until every episode is frozen, then fills the frozen tail;
+    alone they run 15 + 3 x 21 + 9 steps.  The results are the same bit for
+    bit."""
+    pair = make_pair(pixel_identity=True, max_iterations=20, min_iterations=3)
+    common = dict(num_samples=5, num_steps=30, segment_steps=3, save=False)
+    alone = _bench(pair, tmp_path, chunk=1, **common)
+    chunk = _bench(pair, tmp_path, chunk=5, **common)
+    assert [int(i) for i in chunk.summaries["all_iteration_histories"]] == [13, 20, 20, 20, 9]
+    assert (alone.device_steps, alone.chunk_steps) == (15 + 3 * 21 + 9, 15 + 3 * 21 + 9)
+    assert (chunk.device_steps, chunk.chunk_steps) == (5 * 21, 21)
+    _same(alone.summaries, chunk.summaries,
+          keys=("convergence_flags", "all_iteration_histories", "final_positions",
+                "final_quaternions", "position_errors", "lowest_position_errors",
+                "all_position_histories", "all_orientation_histories",
+                "all_applied_velocity_x", "all_velocity_mean_10"))
 
 
 def test_frozen_fast_forward_equals_running_the_device(tmp_path):

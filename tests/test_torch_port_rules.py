@@ -202,10 +202,44 @@ def test_chip_smoke_closed_loop_runs_tiny_on_cpu(tmp_path, one_intra_op_thread):
     assert tf["steps"] == 8 and tf["flipped_pairs"] == 0 and tf["steps_compared"] == 8
     assert tf["twist_max_abs_err"] == 0.0 and tf["goal_desc_rel_err"] == 0.0
     assert s["plain_episode"]["parts_at_step"] is None
-    # the counts phase 3d asserts on the card: ViT-S/14 has 12 blocks
-    assert chip_smoke.loop_launches(11, 2, 80) == {"attention": 12 * 83, "matcher_bf16": 88}
+    assert s["chunk_steps"] == {"standard": 16, "perturbed": 8}     # one episode a chunk
+    # the counts phase 3d asserts on the card: ViT-S/14 has 12 blocks; each
+    # chunk's search is one forward and one match
+    assert chip_smoke.loop_launches(11, 2, 80) == {"attention": 12 * 83, "matcher_bf16": 82}
     assert chip_smoke.loop_config(chip_smoke.reference_config()).max_iterations == \
         chip_smoke.LOOP_MAX_ITERATIONS
+
+
+def test_chip_smoke_trained_chunk_runs_tiny_on_cpu(tmp_path, one_intra_op_thread):
+    """Phase 3f with a tiny 2-block ViT on a synthetic poster on the CPU:
+    episodes 0 to 2 as one chunk for 6 steps in segments of 4, each
+    chunk-step teacher-forced through the plain step, then the same
+    episodes one a chunk for 3 steps; through the plain versions, so no
+    kernel counts a launch, every episode's pairs agree at every step and
+    the twists exactly; the chunk runner of phase 4 takes a step."""
+    from vitvs_tpu_torch.sim.scene import Scene, make_synthetic_poster
+
+    cfg = VSConfig(u_max=96, v_max=72, f_x=75.0, f_y=75.0, dino_input_size=84, num_pairs=12,
+                   layer=1, model_name="tiny", pinv_mode="dls", lambda_=0.5,
+                   min_iterations=20, max_iterations=40, num_samples=5, num_circles=1)
+    vcfg = tvit.ViTConfig(patch_size=14, embed_dim=96, depth=2, num_heads=3, pos_grid=5,
+                          gelu_approx=True, model_name="tiny")
+    model = ServoModel(vit=vcfg, cfg=cfg, compute_dtype=torch.bfloat16, device="cpu")
+    net = tvit.init_vit(vcfg, torch.Generator().manual_seed(0), device="cpu",
+                        layerscale=1.0).cast_blocks(torch.bfloat16).eval()
+    scene = Scene.create(make_synthetic_poster(128, seed=3), half_size=0.42, device="cpu")
+    s = chip_smoke.run_trained_chunk(net, cfg, model, scene, str(tmp_path), episodes=[0, 1, 2],
+                                     num_steps=6, segment_steps=4, alone_steps=3)
+    assert s["device_steps"] == 18 and s["chunk_steps"] == 6
+    assert all(v == 0 for v in s["launches"].values())
+    tf = s["teacher_forced"]
+    assert tf["flips"] == [0, 0, 0] and tf["episode_steps_compared"] == 18
+    assert tf["twist_max_abs_err"] == 0.0
+    alone = s["alone"]
+    assert alone["first_flip_step"] == [None] * 3 and alone["episode_steps_compared"] == 9
+    assert alone["twist_max_abs_err"] == 0.0 and alone["search_quat_max_abs_diff"] == 0.0
+    run = chip_smoke.chunk_runner(net, model, scene, 2)
+    run()
 
 
 def test_chip_smoke_and_the_loaders_import_no_jax_at_run_time():

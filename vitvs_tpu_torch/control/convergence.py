@@ -14,6 +14,8 @@
 
 Once done the state freezes.  Every value is a tensor on the episode's
 device and every decision a select, so a step never waits for the device.
+A chunk of B episodes carries a leading B on every field, each episode its
+own ring position.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from typing import NamedTuple
 
 import torch
 
+from vitvs_tpu_torch.core.batch import select
 from vitvs_tpu_torch.io_bridge.config import VSConfig
 
 WINDOW = 200  # two 100-sample windows (the reference's literal)
@@ -40,14 +43,16 @@ class ConvergenceState(NamedTuple):
 
 def convergence_init(initial_err_trans_cm: torch.Tensor,
                      initial_err_rot_deg: torch.Tensor) -> ConvergenceState:
+    """The ladder's state at initial errors () or, for a chunk, (B,)."""
     dev = initial_err_trans_cm.device
-    zero_i = torch.zeros((), dtype=torch.int32, device=dev)
-    false = torch.zeros((), dtype=torch.bool, device=dev)
+    batch = initial_err_trans_cm.shape
+    zero_i = torch.zeros(batch, dtype=torch.int32, device=dev)
+    false = torch.zeros(batch, dtype=torch.bool, device=dev)
     return ConvergenceState(
         iteration=zero_i,
         initial_err_trans=initial_err_trans_cm.to(torch.float32),
         initial_err_rot=initial_err_rot_deg.to(torch.float32),
-        vel_buffer=torch.zeros((WINDOW, 6), dtype=torch.float32, device=dev),
+        vel_buffer=torch.zeros((*batch, WINDOW, 6), dtype=torch.float32, device=dev),
         vel_count=zero_i,
         done=false,
         converged=false,
@@ -56,28 +61,30 @@ def convergence_init(initial_err_trans_cm: torch.Tensor,
 
 def _window_means(buffer: torch.Tensor, count: torch.Tensor):
     """Means of ||v_trans|| (mm/s) and ||v_rot|| (deg/s) over the two
-    chronological 100-sample halves of the ring (oldest sample first)."""
+    chronological 100-sample halves of each ring (oldest sample first)."""
     start = count % WINDOW      # the next write position holds the oldest sample
-    chron = buffer[(torch.arange(WINDOW, device=buffer.device) + start) % WINDOW]
+    order = (torch.arange(WINDOW, device=buffer.device) + start[..., None]) % WINDOW
+    chron = torch.take_along_dim(buffer, order[..., None].long(), dim=-2)
 
     def stats(win):
-        trans = torch.linalg.vector_norm(win[:, :3] * 1000.0, dim=1)
-        rot = torch.linalg.vector_norm(win[:, 3:] * (180.0 / math.pi), dim=1)
-        return trans.mean(), rot.mean()
+        trans = torch.linalg.vector_norm(win[..., :3] * 1000.0, dim=-1)
+        rot = torch.linalg.vector_norm(win[..., 3:] * (180.0 / math.pi), dim=-1)
+        return trans.mean(-1), rot.mean(-1)
 
-    return stats(chron[: WINDOW // 2]), stats(chron[WINDOW // 2:])
+    return stats(chron[..., : WINDOW // 2, :]), stats(chron[..., WINDOW // 2:, :])
 
 
 def convergence_step(state: ConvergenceState, v_c: torch.Tensor, err_trans_cm: torch.Tensor,
                      err_rot_deg: torch.Tensor, cfg: VSConfig,
                      update_velocity: torch.Tensor | bool = True) -> ConvergenceState:
     """One servo iteration's bookkeeping and stop decision, called after the
-    smoothed command and the current ground-truth errors.
-    ``update_velocity=False`` is a feature-failure iteration: the command is
-    not appended to the history, the iteration still counts."""
+    smoothed command and the current ground-truth errors (a chunk's: (B, 6)
+    and (B,)).  ``update_velocity=False`` is a feature-failure iteration:
+    the command is not appended to the history, the iteration still counts."""
     update = torch.as_tensor(update_velocity, device=v_c.device)
-    slot = torch.arange(WINDOW, device=v_c.device)[:, None] == (state.vel_count % WINDOW)
-    vel_buffer = torch.where(slot & update, v_c.to(torch.float32), state.vel_buffer)
+    slot = (torch.arange(WINDOW, device=v_c.device) == (state.vel_count % WINDOW)[..., None])
+    vel_buffer = torch.where((slot & update[..., None])[..., None],
+                             v_c.to(torch.float32)[..., None, :], state.vel_buffer)
     vel_count = state.vel_count + update.to(torch.int32)
     iteration = state.iteration + 1
     e0t, e0r = state.initial_err_trans, state.initial_err_rot
@@ -96,4 +103,4 @@ def convergence_step(state: ConvergenceState, v_c: torch.Tensor, err_trans_cm: t
     done = past_min & (diverged | trend_stop | max_iter)
     converged = past_min & ~diverged & (trend_stop | max_iter) & error_reduced_90
     new = ConvergenceState(iteration, e0t, e0r, vel_buffer, vel_count, done, converged)
-    return ConvergenceState(*(torch.where(state.done, old, nw) for old, nw in zip(state, new)))
+    return select(state.done, state, new)

@@ -178,26 +178,30 @@ def preprocess_frame(
 
 
 def pack_quad(img: torch.Tensor) -> torch.Tensor:
-    """(H, W, C) image -> (H * W, 4C): each pixel's 2x2 bilinear neighbourhood
-    (edge-padded) packed into channels [v00, v01, v10, v11], so that one
-    gather per sample fetches all four corners.  Built once per texture."""
-    h, w, c = img.shape
-    tp = torch.cat([img, img[-1:]], dim=0)
-    tp = torch.cat([tp, tp[:, -1:]], dim=1)
-    quad = torch.cat([tp[:-1, :-1], tp[:-1, 1:], tp[1:, :-1], tp[1:, 1:]], dim=-1)
-    return quad.reshape(h * w, 4 * c)
+    """(..., H, W, C) images -> (..., H * W, 4C): each pixel's 2x2 bilinear
+    neighbourhood (edge-padded) packed into channels [v00, v01, v10, v11],
+    so that one gather per sample fetches all four corners.  Built once per
+    texture."""
+    h, w, c = img.shape[-3:]
+    tp = torch.cat([img, img[..., -1:, :, :]], dim=-3)
+    tp = torch.cat([tp, tp[..., :, -1:, :]], dim=-2)
+    quad = torch.cat([tp[..., :-1, :-1, :], tp[..., :-1, 1:, :], tp[..., 1:, :-1, :],
+                      tp[..., 1:, 1:, :]], dim=-1)
+    return quad.reshape(*img.shape[:-3], h * w, 4 * c)
 
 
 def bilinear_packed(quad: torch.Tensor, hw: tuple[int, int], ys: torch.Tensor,
-                    xs: torch.Tensor) -> torch.Tensor:
+                    xs: torch.Tensor, offset: torch.Tensor | int = 0) -> torch.Tensor:
     """Sample a :func:`pack_quad` image at continuous coords -> (..., C),
     the corner indices clamped to the image:
-    ((v00 (1 - fx) + v01 fx) (1 - fy) + (v10 (1 - fx) + v11 fx) fy)."""
+    ((v00 (1 - fx) + v01 fx) (1 - fy) + (v10 (1 - fx) + v11 fx) fy).
+    ``offset`` is added to each flat texel index: ``b * H * W`` picks image
+    b of a stack of packed images flattened to (B * H * W, 4C)."""
     h, w = hw
     y0, x0 = torch.floor(ys), torch.floor(xs)
     fy, fx = (ys - y0)[..., None], (xs - x0)[..., None]
     y0 = y0.to(torch.int32).clamp(0, h - 1)
     x0 = x0.to(torch.int32).clamp(0, w - 1)
-    q = quad[(y0 * w + x0).long()]
+    q = quad[(y0 * w + x0).long() + offset]
     v00, v01, v10, v11 = q.chunk(4, dim=-1)
     return (v00 * (1 - fx) + v01 * fx) * (1 - fy) + (v10 * (1 - fx) + v11 * fx) * fy

@@ -148,7 +148,9 @@ def look_at_quaternion(camera_position: torch.Tensor, focal_point: torch.Tensor)
 
 
 def rotate_about_body_x(quat: torch.Tensor, angle_rad: torch.Tensor) -> torch.Tensor:
-    """Post-rotate about the body x (optical) axis: q * R_x(angle)."""
+    """Post-rotate about the body x (optical) axis: q * R_x(angle); quats
+    (..., 4) and angles broadcast (quats (B, 1, 4) and angles (A,) give
+    (B, A, 4))."""
     angle_rad = torch.as_tensor(angle_rad, dtype=quat.dtype, device=quat.device)
     axis = torch.tensor([1.0, 0.0, 0.0], dtype=quat.dtype, device=quat.device)
     return quat_multiply(quat, quat_from_axis_angle(axis.expand(angle_rad.shape + (3,)),

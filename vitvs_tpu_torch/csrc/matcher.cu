@@ -12,7 +12,12 @@
 // ties go to the first index, as jnp.argmax and torch.argmax do; the last
 // block to finish decodes the keys into the outputs and zeroes them again,
 // so the wrapper's scratch needs no clearing before the next launch.  One
-// launch each.
+// launch each, for the goal's rows against one frame or a chunk of B frames:
+// the reference vmaps its pallas_call over the chunk (a batch axis in its
+// grid), and here item z of the batch is the grid's z, with its own rows of
+// b, its own outputs, its own packed keys and its own finished-block count,
+// so its last block decodes it alone, and its arithmetic is that of a launch
+// on it alone (bit for bit).
 //
 // bf16 mode (the servo step's default, the reference's default arithmetic):
 // the rows arrive as bf16 unit rows (normalized by the wrapper), and the
@@ -92,10 +97,10 @@ __device__ __forceinline__ void take_better(float& v, int& i, float ov, int oi) 
     if (ov > v || (ov == v && oi < i)) { v = ov; i = oi; }
 }
 
-// work: (t1 + t2) packed keys, then the count of finished blocks, zero at
-// launch.  Called by every thread of every block after the block's atomics:
-// the last block to finish decodes the keys into the outputs and leaves
-// work zero again.
+// work: this batch item's (t1 + t2) packed keys, then the count of its
+// finished blocks, zero at launch.  Called by every thread of every block
+// after the block's atomics: the item's last block to finish decodes its
+// keys into its outputs and leaves its work zero again.
 template <int NTHREAD>
 __device__ __forceinline__ void finish_grid(unsigned long long* __restrict__ work,
                                             float* __restrict__ rmax, int* __restrict__ rarg,
@@ -172,7 +177,7 @@ __device__ __forceinline__ void load_f32_stage(float* st, const float* __restric
         const int r = i / (FDK / W), c = (i % (FDK / W)) * W, gk = k0 + c;
         const bool in_a = r < FT;
         const int grow = in_a ? r0 + r : c0 + r - FT;
-        const float* src = in_a ? a : b;
+        const float* src = in_a ? a : b + (long)blockIdx.z * t2 * d;   // this item's frame
         const bool ok = grow < (in_a ? t1 : t2) && gk < d;
         const float* from = ok ? src + (long)grow * d + gk : src;
         if constexpr (VEC) cp_async16(st + r * FLD + c, from, ok ? 16 : 0);
@@ -180,9 +185,10 @@ __device__ __forceinline__ void load_f32_stage(float* st, const float* __restric
     }
 }
 
-// work: as finish_grid; zero at launch.  Grid: (FCL x column tiles, row
-// tiles), clusters of FCL along x; CTA r of a cluster multiplies depth
-// [r d_slice, (r + 1) d_slice), d_slice a multiple of FDK.
+// work: (t1 + t2 + 1) entries a batch item, as finish_grid; zero at
+// launch.  Grid: (FCL x column tiles, row tiles, batch items), clusters of
+// FCL along x; CTA r of a cluster multiplies depth [r d_slice, (r + 1)
+// d_slice), d_slice a multiple of FDK.
 template <bool VEC>
 __global__ void __launch_bounds__(FNT)
 sim_f32_kernel(const float* __restrict__ a, const float* __restrict__ b,
@@ -290,6 +296,10 @@ sim_f32_kernel(const float* __restrict__ a, const float* __restrict__ b,
     // columns, then shuffles); column max/argmax over this CTA's rows; strict
     // '>' in increasing order and take_better keep the first index
     const int nrows = min(FQ, t1 - r0 - q0), ncols = min(FT, t2 - c0);
+    // this batch item's keys and outputs, offset here and not at the start,
+    // where the pointers would hold registers through the main loop
+    const long z = blockIdx.z;
+    unsigned long long* const wk = work + z * (t1 + t2 + 1);
     {
         const int rr = tid / FRL, cb = (tid % FRL) * (FT / FRL);
         float best = -INFINITY;
@@ -300,16 +310,16 @@ sim_f32_kernel(const float* __restrict__ a, const float* __restrict__ b,
         for (int m = 1; m < FRL; m <<= 1)
             take_better(best, arg, __shfl_xor_sync(0xffffffffu, best, m),
                         __shfl_xor_sync(0xffffffffu, arg, m));
-        if (tid % FRL == 0 && rr < nrows) atomicMax(work + r0 + q0 + rr, pack_key(best, arg));
+        if (tid % FRL == 0 && rr < nrows) atomicMax(wk + r0 + q0 + rr, pack_key(best, arg));
     }
     if (tid < ncols && nrows > 0) {
         float best = -INFINITY;
         int arg = r0 + q0;
         for (int rr = 0; rr < nrows; ++rr)
             if (fin[rr * FLDR + tid] > best) { best = fin[rr * FLDR + tid]; arg = r0 + q0 + rr; }
-        atomicMax(work + t1 + c0 + tid, pack_key(best, arg));
+        atomicMax(wk + t1 + c0 + tid, pack_key(best, arg));
     }
-    finish_grid<FNT>(work, rmax, rarg, cmax, carg, t1, t2);
+    finish_grid<FNT>(wk, rmax + z * t1, rarg + z * t1, cmax + z * t2, carg + z * t2, t1, t2);
 }
 
 // ---- bf16 mode -------------------------------------------------------------
@@ -333,13 +343,14 @@ __device__ __forceinline__ void load_stage(__nv_bfloat16* st, const __nv_bfloat1
         const int r = i / (BKD / 8), c8 = (i % (BKD / 8)) * 8, gk = k0 + c8;
         const bool in_a = r < BR;
         const int grow = in_a ? r0 + r : c0 + r - BR;
-        const __nv_bfloat16* src = in_a ? a : b;
+        const __nv_bfloat16* src = in_a ? a : b + (long)blockIdx.z * t2 * d;   // this item's frame
         const bool ok = grow < (in_a ? t1 : t2) && gk < d;
         cp_async16(st + r * LDB + c8, ok ? src + (long)grow * d + gk : src, ok ? 16 : 0);
     }
 }
 
-// work: as finish_grid; zero at launch
+// work: (t1 + t2 + 1) entries a batch item, as finish_grid; zero at
+// launch.  Grid: (column tiles, row tiles, batch items).
 __global__ void __launch_bounds__(NTB)
 sim_bf16_kernel(const __nv_bfloat16* __restrict__ a, const __nv_bfloat16* __restrict__ b,
                 unsigned long long* __restrict__ work, float* __restrict__ rmax,
@@ -430,31 +441,34 @@ sim_bf16_kernel(const __nv_bfloat16* __restrict__ a, const __nv_bfloat16* __rest
         }
     __syncthreads();
 
-    // combine the two halves, then the blocks
+    // combine the two halves, then the blocks; this batch item's keys and
+    // outputs, offset here and not at the start (registers through the loop)
+    const long z = blockIdx.z;
+    unsigned long long* const wk = work + z * (t1 + t2 + 1);
     if (tid < BR) {
         float v = rv_s[0][tid];
         int i = ri_s[0][tid];
         take_better(v, i, rv_s[1][tid], ri_s[1][tid]);
-        if (r0 + tid < t1 && i != 0x7fffffff) atomicMax(work + r0 + tid, pack_key(v, i));
+        if (r0 + tid < t1 && i != 0x7fffffff) atomicMax(wk + r0 + tid, pack_key(v, i));
     } else if (tid < BR + BC) {
         const int c = tid - BR;
         float v = cv_s[0][c];
         int i = ci_s[0][c];
         take_better(v, i, cv_s[1][c], ci_s[1][c]);
-        if (c0 + c < t2 && i != 0x7fffffff) atomicMax(work + t1 + c0 + c, pack_key(v, i));
+        if (c0 + c < t2 && i != 0x7fffffff) atomicMax(wk + t1 + c0 + c, pack_key(v, i));
     }
-    finish_grid<NTB>(work, rmax, rarg, cmax, carg, t1, t2);
+    finish_grid<NTB>(wk, rmax + z * t1, rarg + z * t1, cmax + z * t2, carg + z * t2, t1, t2);
 }
 
 template <bool VEC>
 cudaError_t launch_f32(const void* a, const void* b, void* work, void* rmax, void* rarg,
-                       void* cmax, void* carg, int t1, int t2, int d, int grid_x, int grid_y,
-                       int d_slice, cudaStream_t s) {
+                       void* cmax, void* carg, int nb, int t1, int t2, int d, int grid_x,
+                       int grid_y, int d_slice, cudaStream_t s) {
     cudaError_t err = cudaFuncSetAttribute(sim_f32_kernel<VEC>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_F32);
     if (err != cudaSuccess) return err;
     cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(grid_x, grid_y);
+    cfg.gridDim = dim3(grid_x, grid_y, nb);
     cfg.blockDim = dim3(FNT);
     cfg.dynamicSmemBytes = SMEM_F32;
     cfg.stream = s;
@@ -475,16 +489,18 @@ cudaError_t launch_f32(const void* a, const void* b, void* work, void* rmax, voi
 
 }  // namespace
 
-// f32 mode.  a: (t1, d), b: (t2, d) f32, contiguous; work: (t1 + t2 + 1) x 8
-// bytes of scratch, zero at launch and left zero.  grid_x = 8 x column tiles, grid_y = row
-// tiles (64 x 64 tiles), d_slice = the depth each CTA of a cluster takes, a
-// multiple of 32 with 8 d_slice >= d (ops/matcher.py:f32_launch); other
-// values are refused (cudaErrorInvalidValue).  Outputs rmax/rarg (t1,),
-// cmax/carg (t2,).  Returns the first CUDA error.
+// f32 mode.  a: (t1, d), b: (nb, t2, d) f32, contiguous; work: nb (t1 + t2
+// + 1) x 8 bytes of scratch, zero at launch and left zero.  grid_x = 8 x
+// column tiles, grid_y = row tiles (64 x 64 tiles), d_slice = the depth each
+// CTA of a cluster takes, a multiple of 32 with 8 d_slice >= d
+// (ops/matcher.py:f32_launch); other values are refused
+// (cudaErrorInvalidValue).  Outputs rmax/rarg (nb, t1), cmax/carg (nb, t2).
+// Returns the first CUDA error.
 extern "C" int vitvs_dual_argmax_cosine(const void* a, const void* b, void* work, void* rmax,
-                                        void* rarg, void* cmax, void* carg, int t1, int t2, int d,
-                                        int grid_x, int grid_y, int d_slice, void* stream) {
-    if (t1 < 1 || t2 < 1 || d < 1 || grid_x != FCL * ((t2 + FT - 1) / FT)
+                                        void* rarg, void* cmax, void* carg, int nb, int t1,
+                                        int t2, int d, int grid_x, int grid_y, int d_slice,
+                                        void* stream) {
+    if (nb < 1 || nb > 65535 || t1 < 1 || t2 < 1 || d < 1 || grid_x != FCL * ((t2 + FT - 1) / FT)
         || grid_y != (t1 + FT - 1) / FT || d_slice < FDK || d_slice % FDK != 0
         || (long)FCL * d_slice < d)
         return static_cast<int>(cudaErrorInvalidValue);
@@ -493,23 +509,27 @@ extern "C" int vitvs_dual_argmax_cosine(const void* a, const void* b, void* work
     const bool vec = d % 4 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0
                      && reinterpret_cast<uintptr_t>(b) % 16 == 0;
     const cudaError_t err = vec
-        ? launch_f32<true>(a, b, work, rmax, rarg, cmax, carg, t1, t2, d, grid_x, grid_y, d_slice, s)
-        : launch_f32<false>(a, b, work, rmax, rarg, cmax, carg, t1, t2, d, grid_x, grid_y, d_slice, s);
+        ? launch_f32<true>(a, b, work, rmax, rarg, cmax, carg, nb, t1, t2, d, grid_x, grid_y,
+                           d_slice, s)
+        : launch_f32<false>(a, b, work, rmax, rarg, cmax, carg, nb, t1, t2, d, grid_x, grid_y,
+                            d_slice, s);
     return static_cast<int>(err);
 }
 
-// bf16 mode.  a: (t1, d), b: (t2, d) bf16 unit rows, contiguous, d a
-// multiple of 8; work: (t1 + t2 + 1) x 8 bytes of scratch, zero at launch
-// and left zero.
-// Outputs rmax/rarg (t1,), cmax/carg (t2,).  Returns the first CUDA error.
+// bf16 mode.  a: (t1, d), b: (nb, t2, d) bf16 unit rows, contiguous, d a
+// multiple of 8; work: nb (t1 + t2 + 1) x 8 bytes of scratch, zero at
+// launch and left zero.  Outputs rmax/rarg (nb, t1), cmax/carg (nb, t2).
+// Returns the first CUDA error.
 extern "C" int vitvs_dual_argmax_bf16(const void* a, const void* b, void* work, void* rmax,
-                                      void* rarg, void* cmax, void* carg, int t1, int t2,
-                                      int d, void* stream) {
+                                      void* rarg, void* cmax, void* carg, int nb, int t1,
+                                      int t2, int d, void* stream) {
+    if (nb < 1 || nb > 65535 || t1 < 1 || t2 < 1 || d < 8 || d % 8 != 0)
+        return static_cast<int>(cudaErrorInvalidValue);
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     cudaError_t err = cudaFuncSetAttribute(sim_bf16_kernel,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BF16);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid((t2 + BC - 1) / BC, (t1 + BR - 1) / BR);
+    const dim3 grid((t2 + BC - 1) / BC, (t1 + BR - 1) / BR, nb);
     sim_bf16_kernel<<<grid, NTB, SMEM_BF16, s>>>(
         static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(b),
         static_cast<unsigned long long*>(work), static_cast<float*>(rmax),

@@ -4,16 +4,21 @@ reference's ``main()`` and its Gazebo orchestration, on one device.
   1. start poses from the legacy seed-41 stream (identical poses);
   2. the goal view rendered at the goal pose, then its descriptors;
   3. optionally, per-episode perturbed textures (seed 489);
-  4. the rotation-compensation search of each episode (a batched 4-view
-     forward);
-  5. rollouts in segments, to convergence, abort or ``num_steps``;
+  4. the rotation-compensation search, a chunk of episodes at a time (its
+     4 x chunk views in one forward and one matcher launch);
+  5. rollouts of a chunk at a time in segments, to convergence, abort or
+     ``num_steps``;
   6. the reference's 22-array npz and the convergence statistics.
 
-Episodes run one at a time (B = 1 a step).  Each random stream is a
-``torch.Generator`` of the model's device seeded from the ABSOLUTE episode
-index, as the JAX benchmark derives its keys (the search ``1000 + i``, the
-rollout ``i``, the texture ``(perturb_seed << 32) + i``): results do not
-depend on ``chunk``, on resuming, or on which ``episode_indices`` run.
+``chunk`` episodes run together, as the reference's vmapped chunk: each
+step of a chunk is one render, one ViT forward, one matcher launch and one
+batched solve; the last chunk is padded by repeating its last episode.
+Each random stream is a ``torch.Generator`` of the model's device seeded
+from the ABSOLUTE episode index, as the JAX benchmark derives its keys (the
+search ``1000 + i``, the rollout ``i``, the texture ``(perturb_seed << 32)
++ i``), and each episode draws its own: results do not depend on
+``chunk`` (bit for bit on the CPU; on the card GEMMs of another batch may
+round otherwise), on resuming, or on which ``episode_indices`` run.
 """
 
 from __future__ import annotations
@@ -42,7 +47,8 @@ class BenchmarkRun(NamedTuple):
     stats: evals.ConvergenceStats
     path: str | None                  # the npz written, or None
     summaries: dict                   # the npz's arrays
-    device_steps: int                 # servo steps run on the device (all episodes)
+    device_steps: int                 # episode-steps of the real episodes run on the device
+    chunk_steps: int                  # chunk-steps run on the device (one forward each)
 
 
 def build_model(cfg: VSConfig, net: ViT | None = None, compute_dtype=torch.bfloat16,
@@ -85,26 +91,28 @@ def _generator(device, seed: int) -> torch.Generator:
     return gen
 
 
-def _run_episode(net, model: ServoModel, scene: Scene, goal_desc, start_p, start_q,
-                 generator: torch.Generator, T: int, seg: int, on_step=None):
-    """One episode in segments of ``seg`` steps (the last one clamped).  At a
-    segment's end one host sync asks whether the episode is frozen; if so,
-    the rest of its histories are the frozen tail.  Returns (the result as
-    numpy arrays, the steps run on the device)."""
+def _run_chunk(net, model: ServoModel, scene: Scene, goal_desc, start_p, start_q,
+               generators: list, T: int, seg: int, on_step=None):
+    """A chunk of episodes from starts (B, 3) / (B, 4) in segments of
+    ``seg`` steps (the last one clamped).  At a segment's end one host sync
+    asks whether every episode of the chunk is frozen (done or aborted); if
+    so, the rest of their histories are the frozen tail.  Returns (the
+    chunk's result as numpy arrays with a leading B, the chunk-steps run on
+    the device)."""
     desired_p, desired_q = goal_pose(model.device)
     carry = episode_init(start_p, start_q, desired_p, desired_q)
     parts, done, steps = [], 0, 0
     while done < T:
         nsteps = min(seg, T - done)
         carry, ys = rollout_segment(net, model, scene, goal_desc, carry, nsteps, desired_p,
-                                    desired_q, generator=generator, on_step=on_step)
+                                    desired_q, generator=generators, on_step=on_step)
         parts.append(ys)
         done += nsteps
         steps += nsteps
-        if done < T and bool(carry.conv.done | carry.aborted):
+        if done < T and bool((carry.conv.done | carry.aborted).all()):
             parts.append(chunks.frozen_tail(ys, T - done))
             done = T
-    full = {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
+    full = {k: torch.cat([p[k] for p in parts], dim=1) for k in parts[0]}
     res = finalize_episode(carry, full, desired_p, desired_q)
     return EpisodeResult(*(a.cpu().numpy() for a in res)), steps
 
@@ -136,13 +144,16 @@ def run_benchmark(
     """The benchmark of ``cfg`` on ``net`` (seeded random weights when None)
     and ``scene`` (the poster scene when None).
 
-    ``checkpoint_path``: after every ``chunk`` episodes the completed
-    results are pickled there, and a run with the same path and the same
-    run identity continues from the first missing episode (the rotation
-    search's results are kept too).  ``episode_indices`` replays episodes
-    by their ABSOLUTE index in the seed-41 stream, identical to the same
-    episodes of the full sweep.  ``on_step(abs_idx, inputs, result)`` sees
-    every rollout step (``rollout.StepInputs``, ``StepResult``).
+    ``chunk``: episodes run together (at most the number of episodes).
+    ``checkpoint_path``: after every chunk the completed results are
+    pickled there, and a run with the same path and the same run identity
+    continues from the first missing episode (the rotation search's results
+    are kept too; ``chunk`` is not part of the identity).
+    ``episode_indices`` replays episodes by their ABSOLUTE index in the
+    seed-41 stream, identical to the same episodes of the full sweep.
+    ``on_step(abs_ids, inputs, result)`` sees every step of a chunk: the
+    chunk's absolute episode indices (the padding repeating the last), its
+    ``rollout.StepInputs`` and ``StepResult``, each with a leading B.
 
     Not ported: ``quantized`` (the int8 closed loop runs
     ``quant_attn='nomax3'``), ``mesh`` and ``live_dir`` raise."""
@@ -184,11 +195,6 @@ def run_benchmark(
     textures_for = (chunks.make_textures_for(perturb_seed, scene.texture)
                     if perturbation else None)
 
-    def scenes(lo: int, hi: int):
-        if textures_for is None:
-            return [scene] * (hi - lo)
-        return [scene.with_texture(tx) for tx in textures_for(abs_idx[lo:hi])]
-
     # the run's identity: a checkpoint written by another run refuses to resume
     # (config_name only names the npz, so it is left out).  The start poses
     # are fingerprinted too: they depend on the stream's length (num_samples,
@@ -205,6 +211,16 @@ def run_benchmark(
     episodes, ckpt_extra = chunks.load_episodes(checkpoint_path, "bench", verbose,
                                                 meta=ckpt_meta)
 
+    chunk = max(1, min(chunk, n))
+
+    def chunk_of(a: np.ndarray, lo: int, hi: int) -> np.ndarray:
+        return chunks.pad_tail(np.asarray(a[lo:hi]), chunk - (hi - lo))
+
+    def chunk_scene(ids) -> Scene:
+        if textures_for is None:
+            return scene
+        return scene.with_texture(torch.stack(textures_for(ids)))
+
     best_quats = np.asarray(quats, np.float32)
     if rotation_search and "best_quats" in ckpt_extra:
         best_quats = np.asarray(ckpt_extra["best_quats"], np.float32)
@@ -212,26 +228,29 @@ def run_benchmark(
         found = []
         for lo in range(0, n, chunk):
             hi = min(lo + chunk, n)
-            for j, sc in enumerate(scenes(lo, hi)):
-                gen = _generator(dev, SEARCH_SEED_BASE + abs_idx[lo + j])
-                found.append(find_best_start_pose(net, model, sc, goal_desc, positions[lo + j],
-                                                  best_quats[lo + j], generator=gen)[1])
-        best_quats = torch.stack(found).cpu().numpy()
+            ids = chunk_of(abs_idx, lo, hi)
+            gens = [_generator(dev, SEARCH_SEED_BASE + i) for i in ids]
+            _, q = find_best_start_pose(net, model, chunk_scene(ids), goal_desc,
+                                        chunk_of(positions, lo, hi), chunk_of(best_quats, lo, hi),
+                                        generator=gens)
+            found.append(q[: hi - lo])
+        best_quats = torch.cat(found).cpu().numpy()
         chunks.save_episodes(checkpoint_path, episodes, meta=ckpt_meta,
                              extra={"best_quats": best_quats})
 
     seg = max(1, min(segment_steps or T, T))
-    device_steps = 0
+    device_steps = chunk_steps = 0
     for lo in range(len(episodes), n, chunk):
         hi = min(lo + chunk, n)
-        for j, sc in enumerate(scenes(lo, hi)):
-            i = lo + j
-            hook = None if on_step is None else (
-                lambda inputs, res, a=int(abs_idx[i]): on_step(a, inputs, res))
-            res, steps = _run_episode(net, model, sc, goal_desc, positions[i], best_quats[i],
-                                      _generator(dev, abs_idx[i]), T, seg, hook)
-            episodes.append(res)
-            device_steps += steps
+        ids = chunk_of(abs_idx, lo, hi)
+        hook = None if on_step is None else (
+            lambda inputs, res, ids=ids: on_step(ids, inputs, res))
+        res, steps = _run_chunk(net, model, chunk_scene(ids), goal_desc,
+                                chunk_of(positions, lo, hi), chunk_of(best_quats, lo, hi),
+                                [_generator(dev, i) for i in ids], T, seg, hook)
+        episodes.extend(EpisodeResult(*(np.array(a[j]) for a in res)) for j in range(hi - lo))
+        device_steps += (hi - lo) * steps
+        chunk_steps += steps
         chunks.save_episodes(checkpoint_path, episodes, meta=ckpt_meta,
                              extra={"best_quats": best_quats})
         if verbose:
@@ -252,4 +271,4 @@ def run_benchmark(
     if verbose:
         print(f"[bench] convergence {stats.convergence_rate:.1f}% "
               f"({stats.num_converged}/{stats.num_samples}) in {total_time:.1f}s")
-    return BenchmarkRun(stats, path, summaries, device_steps)
+    return BenchmarkRun(stats, path, summaries, device_steps, chunk_steps)

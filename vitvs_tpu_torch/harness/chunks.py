@@ -1,17 +1,27 @@
 """Chunk and checkpoint machinery of the benchmark
-(``vitvs_tpu/harness/chunks.py``): per-chunk perturbed textures from
-generators seeded by the ABSOLUTE episode index, the fingerprinted atomic
-episode checkpoint after every chunk, and the frozen tail that stands in for
-the steps of an episode that is already done."""
+(``vitvs_tpu/harness/chunks.py``): the last chunk padded to the chunk's
+width, per-chunk perturbed textures from generators seeded by the ABSOLUTE
+episode index, the fingerprinted atomic episode checkpoint after every
+chunk, and the frozen tail that stands in for the steps of a chunk whose
+episodes are all done."""
 
 from __future__ import annotations
 
 import os
 import pickle
 
+import numpy as np
 import torch
 
 from vitvs_tpu_torch.sim.perturb import perturb_texture
+
+
+def pad_tail(a: np.ndarray, pad: int) -> np.ndarray:
+    """Pad a chunk to its width by repeating its last row (the last episode,
+    whose generators are then seeded alike: the padding repeats it)."""
+    if pad:
+        a = np.concatenate([a, np.repeat(a[-1:], pad, 0)])
+    return a
 
 
 def make_textures_for(perturb_seed: int, texture: torch.Tensor):
@@ -71,12 +81,15 @@ def save_episodes(checkpoint_path: str | None, episodes: list, meta: dict | None
 
 
 def frozen_tail(ys: dict, rest: int) -> dict:
-    """The histories of ``rest`` more steps of an episode that is frozen
-    (done or aborted) at the end of ``ys``: the rollout would re-record the
-    frozen pose and errors with zero commands, so they are built here
-    instead of run on the device; bit-identical."""
-    tile = lambda x: x[-1].expand((rest,) + x.shape[1:])  # noqa: E731
-    zeros = torch.zeros((rest, 6), dtype=ys["v_c"].dtype, device=ys["v_c"].device)
+    """The histories (B, rest, ...) of ``rest`` more steps of a chunk whose
+    episodes are all frozen (done or aborted) at the end of ``ys`` (B, n,
+    ...): the rollout would re-record the frozen poses and errors with zero
+    commands, so they are built here instead of run on the device;
+    bit-identical."""
+    tile = lambda x: x[:, -1:].expand((x.shape[0], rest) + x.shape[2:])  # noqa: E731
+    v_c = ys["v_c"]
+    zeros = torch.zeros((v_c.shape[0], rest, 6), dtype=v_c.dtype, device=v_c.device)
     return {"position": tile(ys["position"]), "quat": tile(ys["quat"]), "v_c": zeros,
             "twist": zeros, "err": tile(ys["err"]),
-            "active": torch.zeros(rest, dtype=torch.bool, device=ys["active"].device)}
+            "active": torch.zeros((v_c.shape[0], rest), dtype=torch.bool,
+                                  device=ys["active"].device)}

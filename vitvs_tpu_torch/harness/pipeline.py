@@ -13,6 +13,11 @@ Pair sampling takes (t,) ``scores``; when none are given they are drawn with
 ``torch.rand`` on the model's device from the caller's ``generator`` (JAX
 draws them with ``jax.random.uniform``, which torch cannot reproduce).
 
+``servo_step`` also takes a chunk of B episodes' frames (B, H, W, 3), the
+reference's vmapped step written out as a batch dimension: one ViT forward
+over the B frames, one matcher launch against the shared goal, one batched
+solve, every reduction per episode.  One frame is the chunk of one.
+
 The int8 W8A8 serving step (``ServoModel.quantized``) runs a ``QuantViT``
 (``models/quant.py``, made by :func:`quantized_vit`), quantizes the binned
 descriptors at the source (``fused_bin_quant``, ``match/binned.py``) and
@@ -31,6 +36,7 @@ import torch
 from vitvs_tpu_torch.control.ibvs import (EmaState, body_twist_from_optical,
                                           depth_at_points, ema_update, ibvs_velocity)
 from vitvs_tpu_torch.core import image as image_ops
+from vitvs_tpu_torch.core.batch import item
 from vitvs_tpu_torch.core.camera import CameraIntrinsics
 from vitvs_tpu_torch.io_bridge.config import VSConfig
 from vitvs_tpu_torch.match.binned import quantize_binned_int8
@@ -128,6 +134,8 @@ class ServoModel:
 
 
 class StepResult(NamedTuple):
+    """One step's result; a chunk's has a leading B on every field."""
+
     v_c: torch.Tensor          # (6,) smoothed optical-frame velocity
     body_twist: torch.Tensor   # (6,) clipped body-frame command
     ema: EmaState
@@ -224,26 +232,44 @@ def servo_step(
     generator: torch.Generator | None = None,
     num_pairs: int | None = None,
 ) -> StepResult:
-    """One servo iteration.
+    """One servo iteration, of one episode or of a chunk of B.
 
-    frame_rgb: (H, W, 3) uint8 or float [0, 1]; frame_depth_m: (H, W)
-    z-depth in meters (0 = no return); arrays or tensors.  scores: (t,)
-    pair-sampling scores, drawn on the model's device from ``generator``
-    (a generator of that device) when None.
+    frame_rgb: (H, W, 3), or (B, H, W, 3), uint8 or float [0, 1];
+    frame_depth_m: (H, W) or (B, H, W) z-depth in meters (0 = no return);
+    arrays or tensors.  ema, prev_v_c: one episode's, or with a leading B.
+    scores: (t,) or (B, t) pair-sampling scores, drawn on the model's
+    device from ``generator`` (a generator of that device) when None.  One
+    frame runs as the chunk of one and its result has no batch axis.  The
+    int8 serving step takes one frame.
     """
+    rgb = _on_device(model, frame_rgb)
+    single = rgb.dim() == 3
+    if single:
+        step = servo_step(net, model, goal_desc, rgb[None], _on_device(model, frame_depth_m)[None],
+                          item(ema, None), prev_v_c[None],
+                          None if scores is None else scores[None], generator, num_pairs)
+        return item(step, 0)
     cfg = model.cfg
     k = num_pairs or cfg.num_pairs
     grid = model.grid()
-    cur_desc = _descriptors(net, model, frame_rgb)
+    nb = rgb.shape[0]
+    one = model.quantized           # the int8 serving step matches one frame's descriptors
+    if one and nb != 1:
+        raise NotImplementedError("the int8 serving step takes one frame, not a chunk "
+                                  "(ROADMAP.md queue 1, item 3)")
+    cur_desc = _descriptors(net, model, rgb[0] if one else rgb)           # (B, t, d)
     if scores is None:
-        scores = torch.rand(grid[0] * grid[1], generator=generator, device=model.device)
+        scores = torch.rand((nb, grid[0] * grid[1]), generator=generator, device=model.device)
+    scores = scores.to(model.device)
     # int8 serving matches with an int8 matmul, never a matcher kernel
-    match = find_correspondences(goal_desc, cur_desc, grid, k, scores.to(model.device),
+    match = find_correspondences(goal_desc, cur_desc, grid, k, scores[0] if one else scores,
                                  distance_threshold=cfg.thresh_filter_keypoints,
                                  use_kernel=model.use_kernels and not model.quantized,
                                  int8=model.quantized, use_match_kernel=model.use_match_kernel)
     if cfg.subpixel_matching:
         match = refine_matches_subpixel(goal_desc, cur_desc, match, grid)
+    if one:
+        match = item(match, None)
 
     round_px = not cfg.subpixel_matching
     size_uv = (cfg.u_max, cfg.v_max)
@@ -252,10 +278,10 @@ def servo_step(
     s_uv = match_points_to_pixels(match.points2, grid[0], cfg.dino_input_size,
                                   size_uv, round_px=round_px)
 
-    feature_ok = match.num_valid >= 4
+    feature_ok = match.num_valid >= 4                                      # (B,)
     cam = model.camera
     if cfg.reference_pad_bug:
-        keep = match.valid[:, None]
+        keep = match.valid[..., None]
         s_uv_eff = torch.where(keep, s_uv, torch.zeros_like(s_uv))
         s_uv_star_eff = torch.where(keep, s_uv_star, torch.zeros_like(s_uv_star))
         valid_for_solve = None
@@ -264,6 +290,8 @@ def servo_step(
         valid_for_solve = match.valid
 
     depth = _on_device(model, frame_depth_m).float()
+    if depth.shape[0] != nb:
+        raise ValueError(f"{nb} frames take {nb} depth maps, got {tuple(depth.shape)}")
     v_raw = ibvs_velocity(cam.pixel_to_normalized(s_uv_eff),
                           cam.pixel_to_normalized(s_uv_star_eff),
                           depth_at_points(depth, s_uv_eff), cfg.lambda_,
@@ -271,12 +299,13 @@ def servo_step(
                           damping=cfg.pinv_damping)
 
     ema_new, v_smoothed = ema_update(ema, v_raw, cfg.ema_alpha)
-    v_c = torch.where(feature_ok, v_smoothed, prev_v_c)
+    ok = feature_ok[:, None]
+    v_c = torch.where(ok, v_smoothed, prev_v_c)
     ema_out = EmaState(
-        value=torch.where(feature_ok, ema_new.value, ema.value),
+        value=torch.where(ok, ema_new.value, ema.value),
         initialized=torch.where(feature_ok, ema_new.initialized, ema.initialized),
     )
-    sim_sum = torch.where(match.valid, match.sim, torch.zeros_like(match.sim)).sum()
+    sim_sum = torch.where(match.valid, match.sim, torch.zeros_like(match.sim)).sum(-1)
     mean_sim = sim_sum / torch.clamp(match.num_valid, min=1)
     return StepResult(
         v_c=v_c,

@@ -28,6 +28,7 @@ from typing import NamedTuple
 
 import torch
 
+from vitvs_tpu_torch.core.batch import item
 from vitvs_tpu_torch.match.binned import QuantizedBinned, quantize_rows_int8
 from vitvs_tpu_torch.ops.int_mm import int8_matmul_nt
 from vitvs_tpu_torch.ops.matcher import (dual_argmax_cosine, dual_argmax_cosine_bf16,
@@ -37,7 +38,8 @@ from vitvs_tpu_torch.ops.matcher import (dual_argmax_cosine, dual_argmax_cosine_
 
 class MatchResult(NamedTuple):
     """Fixed-size correspondence set; points are PATCH (row, col), f32, and
-    slots with valid == False are padding (index 0's coordinates)."""
+    slots with valid == False are padding (index 0's coordinates).  A chunk
+    of B frames matched against one goal gives every field a leading B."""
 
     points1: torch.Tensor    # (k, 2) patch (row, col) in image 1 (goal)
     points2: torch.Tensor    # (k, 2) patch (row, col) in image 2 (current)
@@ -93,21 +95,28 @@ def find_correspondences(
 ) -> MatchResult:
     """Mutual-NN correspondences via cyclical consistency.
 
-    desc1, desc2: (t, d) descriptors on the row-major grid ``num_patches``,
-    or :class:`QuantizedBinned` pairs.
-    scores: (t,) sampling scores; the ``num_pairs`` eligible tokens with the
-    largest scores are taken (ties to the lower index, as ``lax.top_k``).
+    desc1: (t, d) goal descriptors on the row-major grid ``num_patches``;
+    desc2: one frame's (t, d), or a chunk's (B, t, d) against the same goal
+    (one matcher launch), or :class:`QuantizedBinned` pairs of one frame.
+    scores: (t,) sampling scores, (B, t) for a chunk; the ``num_pairs``
+    eligible tokens with the largest scores are taken (ties to the lower
+    index, as ``lax.top_k``).
     use_kernel: float matching through the matcher kernel of the selected
     mode (else its plain version); it does not compose with int8 matching,
-    which is an int8 matmul (as in the JAX package).
+    which is an int8 matmul (as in the JAX package) of one frame.
     use_match_kernel: the reference's flag: match in the TPU kernel's f32
     arithmetic instead of its default (see the module docstring).
+    A frame is the chunk of one: every reduction is per frame.
     """
     gh, gw = num_patches
     quantized = isinstance(desc1, QuantizedBinned)
+    single = quantized or desc2.dim() == 2
     rows = desc1.q if quantized else desc1
     t = rows.shape[0]
-    if t != gh * gw or scores.shape != (t,):
+    nb = 1 if single else desc2.shape[0]
+    if single:
+        scores = scores[None]
+    if t != gh * gw or scores.shape != (nb, t):
         raise ValueError(f"{t} descriptors / scores {tuple(scores.shape)} "
                          f"do not fit the {gh}x{gw} grid")
     dev = rows.device
@@ -115,39 +124,45 @@ def find_correspondences(
         if use_kernel:
             raise ValueError("use_kernel does not compose with int8 matching: the "
                              "matcher kernels compute a float similarity")
+        if not single:
+            raise NotImplementedError("int8 matching of a chunk of frames is not ported "
+                                      "(ROADMAP.md queue 1, item 3)")
         sim = cosine_similarity_matrix(desc1, desc2, int8=int8)
-        sim_1, nn_1, nn_2 = sim.amax(1), sim.argmax(1), sim.argmax(0)
+        sim_1, nn_1, nn_2 = sim.amax(1)[None], sim.argmax(1)[None], sim.argmax(0)[None]
     else:
         if use_match_kernel or rows.dtype == torch.float32:
             match_fn = dual_argmax_cosine if use_kernel else dual_argmax_cosine_plain
         else:
             match_fn = dual_argmax_cosine_bf16 if use_kernel else dual_argmax_cosine_bf16_plain
-        sim_1, nn_1, _, nn_2 = match_fn(desc1, desc2)
-    nn_1, nn_2 = nn_1.long(), nn_2.long()
-    same_image = sim_1.mean() > same_image_thresh
+        sim_1, nn_1, _, nn_2 = match_fn(desc1, desc2[None] if single else desc2)
+    nn_1, nn_2 = nn_1.long(), nn_2.long()                   # (B, t)
+    same_image = sim_1.mean(-1) > same_image_thresh         # (B,)
 
-    cyc = nn_2[nn_1]
+    cyc = torch.gather(nn_2, 1, nn_1)
     ij = _to_cartesian(torch.arange(t, device=dev), gw).float()
     cyc_ij = _to_cartesian(cyc, gw).float()
     d = -torch.sqrt(torch.sum(torch.square(cyc_ij - ij), dim=-1))
-    dn = d - d.min()
-    dn = dn / (dn.max() + 1e-8)
+    dn = d - d.amin(-1, keepdim=True)
+    dn = dn / (dn.amax(-1, keepdim=True) + 1e-8)
     eligible = (dn >= distance_threshold) | (d == 0.0)
-    eligible = eligible | same_image
+    eligible = eligible | same_image[:, None]
 
     masked = torch.where(eligible, scores.to(device=dev, dtype=torch.float32),
                          torch.tensor(-torch.inf, device=dev))
     k_eff = min(num_pairs, t)
-    selected = torch.sort(masked, descending=True, stable=True).indices[:k_eff]
+    selected = torch.sort(masked, dim=-1, descending=True, stable=True).indices[:, :k_eff]
     if k_eff < num_pairs:
-        selected = torch.cat([selected, selected.new_zeros(num_pairs - k_eff)])
-    num_eligible = eligible.sum(dtype=torch.int32)
-    valid = torch.arange(num_pairs, device=dev) < torch.clamp(num_eligible, max=k_eff)
+        selected = torch.cat([selected, selected.new_zeros(nb, num_pairs - k_eff)], dim=-1)
+    num_eligible = eligible.sum(-1, dtype=torch.int32)
+    valid = (torch.arange(num_pairs, device=dev)
+             < torch.clamp(num_eligible, max=k_eff)[:, None])
     selected = torch.where(valid, selected, 0)
 
-    idx2 = torch.where(same_image, selected, nn_1[selected])
-    sim_sel = torch.where(same_image, torch.ones(num_pairs, device=dev), sim_1[selected])
-    return MatchResult(
+    same = same_image[:, None]
+    idx2 = torch.where(same, selected, torch.gather(nn_1, 1, selected))
+    sim_sel = torch.where(same, torch.ones(num_pairs, device=dev),
+                          torch.gather(sim_1, 1, selected))
+    match = MatchResult(
         points1=_to_cartesian(selected, gw).float(),
         points2=_to_cartesian(idx2, gw).float(),
         sim=sim_sel,
@@ -155,6 +170,7 @@ def find_correspondences(
         num_valid=torch.clamp(num_eligible, max=num_pairs),
         same_image=same_image,
     )
+    return item(match, 0) if single else match
 
 
 def refine_matches_subpixel(
@@ -167,27 +183,32 @@ def refine_matches_subpixel(
     parabola peak fit per axis of the cosine similarity between each goal
     token and the 3x3 neighbourhood of its match.  Offsets are clipped to
     +-0.5 patch and zeroed on grid borders, for invalid slots and under the
-    same-image shortcut; goal points stay at patch centres.
-    :class:`QuantizedBinned` inputs: the int8 rows are gathered (their
-    per-row scales cancel in the unit normalization)."""
+    same-image shortcut; goal points stay at patch centres.  ``desc2`` and
+    ``match``: one frame's, or a chunk's (B, t, d) and (B, k, ...).
+    :class:`QuantizedBinned` inputs (one frame): the int8 rows are gathered
+    (their per-row scales cancel in the unit normalization)."""
     gh, gw = num_patches
     if isinstance(desc1, QuantizedBinned):
         desc1, desc2 = desc1.q, desc2.q
+    single = desc2.dim() == 2
+    if single:
+        desc2, match = desc2[None], item(match, None)
 
     def unit_f32(x):
         x = x.float()
         return x / torch.clamp(torch.linalg.vector_norm(x, dim=-1, keepdim=True), min=1e-12)
 
-    r1, c1 = match.points1[:, 0].long(), match.points1[:, 1].long()
-    r2, c2 = match.points2[:, 0].long(), match.points2[:, 1].long()
+    r1, c1 = match.points1[..., 0].long(), match.points1[..., 1].long()   # (B, k)
+    r2, c2 = match.points2[..., 0].long(), match.points2[..., 1].long()
     dr = torch.tensor([-1, 0, 1], device=match.points2.device)
-    rr = (r2[:, None] + dr[None, :]).clamp(0, gh - 1)           # (k, 3)
-    cc = (c2[:, None] + dr[None, :]).clamp(0, gw - 1)
-    nidx = rr[:, :, None] * gw + cc[:, None, :]                # (k, 3, 3)
-    # gather first, normalize after: only k + 9k rows are needed
-    q = unit_f32(desc1[r1 * gw + c1])
-    nb = unit_f32(desc2[nidx.reshape(-1)]).reshape(*nidx.shape, -1)
-    s = torch.einsum("kd,krcd->krc", q, nb)
+    rr = (r2[..., None] + dr).clamp(0, gh - 1)                 # (B, k, 3)
+    cc = (c2[..., None] + dr).clamp(0, gw - 1)
+    nidx = rr[..., :, None] * gw + cc[..., None, :]            # (B, k, 3, 3)
+    # gather first, normalize after: only k + 9k rows a frame are needed
+    q = unit_f32(desc1[r1 * gw + c1])                          # (B, k, d)
+    frame = torch.arange(desc2.shape[0], device=desc2.device)[:, None]
+    nb = unit_f32(desc2[frame, nidx.flatten(1)]).reshape(*nidx.shape, -1)
+    s = torch.einsum("bkd,bkrcd->bkrc", q, nb)
 
     def axis_offset(s_m, s0, s_p, at_border):
         den = s_m + s_p - 2.0 * s0
@@ -195,12 +216,13 @@ def refine_matches_subpixel(
         off = off.clamp(-0.5, 0.5)
         return torch.where(at_border, torch.zeros_like(off), off)
 
-    off_r = axis_offset(s[:, 0, 1], s[:, 1, 1], s[:, 2, 1], (r2 == 0) | (r2 == gh - 1))
-    off_c = axis_offset(s[:, 1, 0], s[:, 1, 1], s[:, 1, 2], (c2 == 0) | (c2 == gw - 1))
+    off_r = axis_offset(s[..., 0, 1], s[..., 1, 1], s[..., 2, 1], (r2 == 0) | (r2 == gh - 1))
+    off_c = axis_offset(s[..., 1, 0], s[..., 1, 1], s[..., 1, 2], (c2 == 0) | (c2 == gw - 1))
     offs = torch.stack([off_r, off_c], dim=-1)
-    keep = match.valid & ~match.same_image
-    offs = torch.where(keep[:, None], offs, torch.zeros_like(offs))
-    return match._replace(points2=match.points2 + offs)
+    keep = match.valid & ~match.same_image[:, None]
+    offs = torch.where(keep[..., None], offs, torch.zeros_like(offs))
+    match = match._replace(points2=match.points2 + offs)
+    return item(match, 0) if single else match
 
 
 def match_points_to_pixels(
@@ -210,7 +232,7 @@ def match_points_to_pixels(
     image_size_uv: tuple[int, int],
     round_px: bool = True,
 ) -> torch.Tensor:
-    """Patch (row, col) -> camera pixel (u, v): patch -> DINO-input pixel
+    """Patch (row, col) (..., 2) -> camera pixel (u, v) (..., 2): patch -> DINO-input pixel
     ``p * scale + scale / 2``, flip to (u, v), rescale to the camera
     resolution, round unless ``round_px`` is off (sub-patch positions)."""
     u_max, v_max = image_size_uv

@@ -38,8 +38,8 @@ _SIGNATURES = {
     "vitvs_attn_int8_fwd": ([_P] * 4 + [_I] * 3 + [_L] * 6 + [_F, _P], _I),
     "vitvs_quant_th_probe": ([_P] * 3 + [_I, _I, _L, _F, _I, _P], _I),
     "vitvs_attention_f32_fwd": ([_P, _P, _P, _P, _I, _I, _I, _P], _I),
-    "vitvs_dual_argmax_cosine": ([_P] * 7 + [_I] * 6 + [_P], _I),
-    "vitvs_dual_argmax_bf16": ([_P] * 7 + [_I, _I, _I, _P], _I),
+    "vitvs_dual_argmax_cosine": ([_P] * 7 + [_I] * 7 + [_P], _I),
+    "vitvs_dual_argmax_bf16": ([_P] * 7 + [_I] * 4 + [_P], _I),
     "vitvs_error_string": ([_I], ctypes.c_char_p),
 }
 

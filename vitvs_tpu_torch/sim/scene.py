@@ -40,8 +40,12 @@ POSTER_PLANE_Z = 0.01
 
 
 class Scene(NamedTuple):
-    texture: torch.Tensor      # (Ht, Wt, 3) f32 in [0, 1]
-    quad: torch.Tensor         # (Ht * Wt, 12): pack_quad(texture)
+    """One textured poster, or a chunk's B textures of one geometry
+    (``texture`` (B, Ht, Wt, 3), ``quad`` (B, Ht * Wt, 12)): then render
+    draws episode b's views, poses (B, ...), on texture b."""
+
+    texture: torch.Tensor      # (Ht, Wt, 3) f32 in [0, 1], or (B, Ht, Wt, 3)
+    quad: torch.Tensor         # (Ht * Wt, 12): pack_quad(texture), or (B, Ht * Wt, 12)
     half_size: torch.Tensor    # (2,) half-extents in meters: (world-x = texture
     #                            rows / image-down, world-y = texture cols /
     #                            image-right at the goal view)
@@ -62,7 +66,8 @@ class Scene(NamedTuple):
                      torch.tensor(background, dtype=torch.float32, device=device))
 
     def with_texture(self, texture: torch.Tensor) -> "Scene":
-        """The same geometry with another texture of the same size."""
+        """The same geometry with another texture of the same size, or with
+        a stack of B of them (B, Ht, Wt, 3): a chunk's perturbed textures."""
         return self._replace(texture=texture, quad=pack_quad(texture))
 
 
@@ -104,7 +109,10 @@ def _rays(cam: CameraIntrinsics, device: torch.device) -> torch.Tensor:
 
 def render(scene: Scene, cam: CameraIntrinsics, position: torch.Tensor, quat: torch.Tensor,
            quantize_depth_mm: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
-    """(rgb (H, W, 3) f32 in [0, 1], depth (H, W) meters) from a camera pose.
+    """(rgb (..., H, W, 3) f32 in [0, 1], depth (..., H, W) meters) from
+    camera poses (position (..., 3), quat (..., 4)), one view per pose.  A
+    scene of B textures takes poses (B, ...): episode b's on texture b, all
+    in one gather.
 
     Depth is z-depth along the optical axis, rounded to millimeters by
     default (the uint16-mm depth images of the reference's sensor plugin);
@@ -112,21 +120,30 @@ def render(scene: Scene, cam: CameraIntrinsics, position: torch.Tensor, quat: to
     range, get depth 0 ("no return")."""
     d_c = _rays(cam, scene.texture.device)                   # (H, W, 3) optical frame
     r_wb = se3.matrix_from_quat(quat)
-    r_wc = r_wb @ se3.body_from_optical(r_wb)
-    d_w = d_c @ r_wc.T                                       # (H, W, 3) world
+    r_wc = r_wb @ se3.body_from_optical(r_wb)                # (..., 3, 3)
+    d_w = d_c @ r_wc.mT.unsqueeze(-3)                        # (..., H, W, 3) world
     denom = d_w[..., 2]
-    t = (scene.plane_z - position[2]) / torch.where(denom.abs() < 1e-9,
-                                                    torch.full_like(denom, 1e-9), denom)
+    t = ((scene.plane_z - position[..., 2, None, None])
+         / torch.where(denom.abs() < 1e-9, torch.full_like(denom, 1e-9), denom))
     hit = t > 1e-6                                           # plane in front of the camera
-    pt = position + t[..., None] * d_w                       # (H, W, 3) world points
+    pt = position[..., None, None, :] + t[..., None] * d_w   # (..., H, W, 3) world points
 
-    ht, wt, _ = scene.texture.shape
+    ht, wt = scene.texture.shape[-3:-1]
     hs_x, hs_y = scene.half_size[0], scene.half_size[1]
     # poster upright in the goal view: image-right = -y, image-down = -x
     cols = (hs_y - pt[..., 1]) / (2 * hs_y) * (wt - 1)
     rows = (hs_x - pt[..., 0]) / (2 * hs_x) * (ht - 1)
     on_poster = hit & (pt[..., 0].abs() <= hs_x) & (pt[..., 1].abs() <= hs_y)
-    rgb = bilinear_packed(scene.quad, (ht, wt), rows, cols)
+    quad, offset = scene.quad, 0
+    if quad.ndim == 3:                                       # texture b for episode b
+        nb = quad.shape[0]
+        if rows.shape[0] != nb:
+            raise ValueError(f"a scene of {nb} textures renders poses (B = {nb}, ...), "
+                             f"got {tuple(position.shape)}")
+        offset = (torch.arange(nb, device=quad.device) * (ht * wt)).reshape(
+            (nb,) + (1,) * (rows.ndim - 1))
+        quad = quad.reshape(-1, quad.shape[-1])
+    rgb = bilinear_packed(quad, (ht, wt), rows, cols, offset)
     rgb = torch.where(on_poster[..., None], rgb, scene.background)
 
     in_range = (t >= DEPTH_MIN_RANGE_M) & (t <= DEPTH_MAX_RANGE_M)
