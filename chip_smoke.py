@@ -2,19 +2,21 @@
 """Smoke run of the PyTorch/CUDA port (vitvs_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py              # the smoke run below
-    python3 chip_smoke.py --profile [bf16|f32|F|N|loop|loop518] [--trace trace.json] [--chunk B]
-                                       # only: device-time breakdown of servo steps
+    python3 chip_smoke.py --profile [bf16|f32|F|N|loop|loop518|int8loop] [--trace trace.json]
+                          [--chunk B]  # only: device-time breakdown of servo steps
                                        # of the bf16 or f32 path or an int8 serving variant,
                                        # or of closed-loop steps (at 308, or on the trained
-                                       # ViT-S/14 @ 518, a chunk of B episodes a step)
-    python3 chip_smoke.py --replay A:B [--chunk C] [--checkpoint F] [--budget-s S]
+                                       # ViT-S/14 @ 518 in bf16 or, int8loop, at run AD's
+                                       # int8 settings, a chunk of B episodes a step)
+    python3 chip_smoke.py --replay A:B [--int8] [--chunk C] [--checkpoint F] [--budget-s S]
                                        # only: episodes [A, B) of the 500-episode seed-41
-                                       # stream on the trained ViT-S/14 @ 518 (bf16), C (8)
-                                       # a chunk, resumable: an unfinished run leaves its
-                                       # checkpoint (.replay/replay_s518_A_B.ckpt) in
+                                       # stream on the trained ViT-S/14 @ 518 (bf16; --int8:
+                                       # run AD's int8 configuration), C (8) a chunk,
+                                       # resumable: an unfinished run leaves its checkpoint
+                                       # (.replay/replay_s518[_int8]_A_B.ckpt) in
                                        # chiprun_out/ too; copy it back into .replay/ and
                                        # run again to go on; prints the converged count and
-                                       # writes chiprun_out/replay_s518_A_B.json
+                                       # writes chiprun_out/replay_s518[_int8]_A_B.json
 
 Phases, each announced with a flushed, timestamped start/done line:
 
@@ -102,6 +104,20 @@ Phases, each announced with a flushed, timestamped start/done line:
    against the chunk (twists within 1e-3 up to each episode's first pair
    flip: the card's GEMMs at M = 8 x 1370 may round otherwise than at
    1370); finite poses and the npz's 22 arrays;
+3g. the int8 closed loop at run AD's settings (configs/real_s518_pool2mm.yaml
+   served by run_benchmark(quantized=True, int8_static=True): W8A8 from the
+   f32 trained weights, static scales on the goal view and the stream's
+   first 7 start views, 'nomax3' attention, 2 x 2 K/V pooling by the
+   matrix, the conv patch embedding, the 'default' preprocess as one TF32
+   pass, source-quantized bins): phase 3f's chunk of 8 for 60 steps; no hand
+   kernel may launch (the JAX package routes this path outside every Pallas
+   kernel); its first 10 chunk-steps teacher-forced through the same step
+   on CPU tensors (twists within 1e-3 where no pair differs, flips counted);
+   the same episodes at chunk 1 against the chunk up to each one's first
+   flip; finite poses and the npz's 22 arrays; then bench.py's graph (K/V
+   pooled before the projection, reshape embed) beside it on goal + 5 steps
+   near the goal, and the 'default' preprocess against 'highest' on one
+   frame, logged;
 4. times on the card (CUDA events / synchronized host clock) beside each
    kernel's bound and the PyTorch library call for the same function (the
    exact kernels at T = 485 and T = 1370; the int8 kernel from the bf16
@@ -109,8 +125,10 @@ Phases, each announced with a flushed, timestamped start/done line:
    kernels phase 3e launches at its shapes (ViT-S/14 @ 518); the batched
    matcher at B = 8 against 8 single launches and cuBLAS bmm + max/argmax,
    exact attention at B = 8 and 32 against SDPA, and the closed-loop chunk
-   step on the trained weights at B in {1, 8, 16} (ms a chunk-step,
-   episode-steps a second, card-seconds an episode at the 1500 cap).  The
+   step on the trained weights at B in {1, 8, 16}, bf16 and int8 at run
+   AD's settings (ms a chunk-step, episode-steps a second, card-seconds an
+   episode at the 1500 cap), and the int8 chunk's pooled 'nomax3'
+   attention at (8, 1370, 362 keys, 6 heads) beside SDPA.  The
    f32 attention kernel is held to the tensor-core bound of f32-accurate
    work (three TF32 passes), its f32 FMA bound logged beside it.
 
@@ -141,16 +159,19 @@ import numpy as np
 import torch
 
 from vitvs_tpu_torch.control.ibvs import EmaState
-from vitvs_tpu_torch.harness.benchmark import cast_for_benchmark, run_benchmark
+from vitvs_tpu_torch.core.batch import item
+from vitvs_tpu_torch.harness.benchmark import cast_for_benchmark, int8_serving, run_benchmark
 from vitvs_tpu_torch.harness.chunks import load_episodes
 from vitvs_tpu_torch.harness.evals import convergence_stats
-from vitvs_tpu_torch.harness.pipeline import (ServoModel, goal_descriptors, quantized_vit,
-                                              servo_step)
+from vitvs_tpu_torch.harness.pipeline import (ServoModel, goal_descriptors, preprocess,
+                                              quantized_vit, servo_step)
 from vitvs_tpu_torch.harness.rollout import episode_init, goal_pose, rollout_segment
-from vitvs_tpu_torch.harness.samplers import generate_episode_starts
+from vitvs_tpu_torch.harness.samplers import (DESIRED_ORIENTATION, DESIRED_POSITION,
+                                              generate_episode_starts)
 from vitvs_tpu_torch.io_bridge.config import VSConfig
 from vitvs_tpu_torch.match.binned import QuantizedBinned
 from vitvs_tpu_torch.models.convert import TRAINED_S518, load_exported
+from vitvs_tpu_torch.models.quant import _nomax_attention
 from vitvs_tpu_torch.models.vit import ViT, init_vit
 from vitvs_tpu_torch.ops import _build, attention, attn_int8, matcher
 from vitvs_tpu_torch.sim.env import observe
@@ -247,6 +268,11 @@ CHUNK_STEPS = 60
 CHUNK_SEGMENT = 20
 CHUNK_ALONE_STEPS = 20                # the same episodes at chunk 1, against the chunk
 LOOP_CHUNKS = [1, CHUNK, 2 * CHUNK]   # phase 4's closed-loop chunk steps
+# phase 3g, the int8 closed loop: phase 3f's chunk at run AD's settings, its first
+# chunk-steps teacher-forced through the same step on CPU tensors
+INT8_FORCED = 10
+POOLED_KEYS = 1 + 19 * 19             # 2 x 2 pooling of the 37 x 37 grid: CLS + 19 x 19
+POOLED_ATTN_SHAPE = (CHUNK, 1370, POOLED_KEYS, 6, 64)   # (B, T, keys, h, hd) of the int8 chunk
 EPISODE_CAP = 1500                    # the ladder's max_iterations: card-seconds an episode
 TIMING_ROUNDS = 7                     # alternating rounds, closed-loop step and bare step
 # the reference's npz: its 22 arrays and the run time
@@ -908,9 +934,9 @@ def run_closed_loop(net, cfg: VSConfig, model: ServoModel, scene: Scene, out_dir
 def loop_runner(net, model: ServoModel, scene: Scene, start_p, start_q, generator):
     """One closed-loop step a call (render, servo step, integrate, ladder)
     from a start pose, or a chunk-step from a chunk's (B, 3) / (B, 4)
-    starts with B generators, on the benchmark's cast ViT, carrying its
-    state."""
-    cast = cast_for_benchmark(net, model.compute_dtype)
+    starts with B generators, on the benchmark's cast ViT (an int8 one as
+    it is), carrying its state."""
+    cast = net if model.quantized else cast_for_benchmark(net, model.compute_dtype)
     desired = goal_pose(model.device)
     goal = goal_descriptors(cast, model, observe(scene, model.camera, *desired)[0])
     state = {"carry": episode_init(start_p, start_q, *desired)}
@@ -972,7 +998,9 @@ def load_trained(model: ServoModel, path: Path = TRAINED_S518):
     the file.  A missing or unreadable file, or weights of another
     architecture than the model's, raise."""
     sd, vcfg = load_exported(path)
-    run_fields = {k: getattr(model.vit, k) for k in ("gelu_approx", "attn_impl", "quant_attn")}
+    run_fields = {k: getattr(model.vit, k) for k in (
+        "gelu_approx", "attn_impl", "quant_attn", "nomax_clamp", "kv_pool", "kv_pool_impl",
+        "kv_pool_where", "patch_embed_impl")}
     if dataclasses.replace(vcfg, **run_fields) != model.vit:
         raise ValueError(f"{path} holds a {vcfg}, the model runs a {model.vit}")
     net = ViT(model.vit)
@@ -1186,6 +1214,185 @@ def run_trained_chunk(net, cfg: VSConfig, model: ServoModel, scene: Scene, out_d
                       "steps_with_flips": flips, "twist_max_abs_err": twist_err,
                       "episode_steps_compared": compared,
                       "search_quat_max_abs_diff": quat_gap}}
+
+
+# ---------------------------------------------------------------------------
+# phase 3g: the int8 closed loop at run AD's settings
+# ---------------------------------------------------------------------------
+
+
+def ad_config() -> VSConfig:
+    """configs/real_s518_pool2mm.yaml's settings, built in code (run AD's:
+    ViT-S/14 at 518 with 2 x 2 K/V pooling by the matrix after the
+    projection), on the 500-episode stream as trained_config."""
+    return trained_config().replace(kv_pool=2, kv_pool_impl="matmul")
+
+
+def int8_model(model: ServoModel, patch_embed_impl: str = "conv",
+               kv_pool_where: str | None = None) -> ServoModel:
+    """The int8 serving model of the float ``model`` as
+    run_benchmark(quantized=True) builds it ('nomax3', 'default' resize,
+    source-quantized bins), with the conv patch embedding or bench.py's
+    reshape, K/V pooled where ``kv_pool_where`` says (default: as
+    ``model``)."""
+    where = kv_pool_where or model.vit.kv_pool_where
+    return dataclasses.replace(
+        model, quantized=True, pp_precision="default", cfg=model.cfg.replace(kv_pool_where=where),
+        vit=dataclasses.replace(model.vit, quant_attn="nomax3", patch_embed_impl=patch_embed_impl,
+                                kv_pool_where=where))
+
+
+def int8_serving_of_stream(fnet, model: ServoModel, scene: Scene):
+    """The int8 ViT and model run_benchmark(quantized=True, int8_static=True)
+    serves on the seed-41 stream of ``model.cfg`` (static scales on the goal
+    view and the stream's first 7 start views)."""
+    positions, quats, _ = generate_episode_starts(model.cfg)
+    k = min(7, len(positions))
+    calib = (np.concatenate([[DESIRED_POSITION], positions[:k]]),
+             np.concatenate([[DESIRED_ORIENTATION], quats[:k]]))
+    return int8_serving(fnet, model, scene, calib)
+
+
+def _to_cpu(nest):
+    if isinstance(nest, tuple):
+        return type(nest)(*(_to_cpu(x) for x in nest))
+    return nest.cpu()
+
+
+def run_int8_chunk(fnet, cfg: VSConfig, model: ServoModel, scene: Scene, out_dir: str,
+                   episodes=CHUNK_EPISODES, num_steps: int = CHUNK_STEPS,
+                   segment_steps: int = CHUNK_SEGMENT, forced: int = INT8_FORCED,
+                   alone_steps: int = CHUNK_ALONE_STEPS) -> dict:
+    """run_benchmark(quantized=True, int8_static=True) on ``episodes`` as one
+    chunk (rotation search on) for ``num_steps`` steps, from the f32
+    ``fnet``, the launch counters zeroed before and read after (the int8
+    closed loop launches no hand kernel: the JAX package sends it through
+    no Pallas kernel); its first ``forced`` chunk-steps teacher-forced
+    through the same step on CPU tensors (the int8 ViT the run served,
+    copied to the CPU, its goal descriptors, the chunk-step's frames, EMA,
+    commands and scores; the arithmetic the CPU tests hold against JAX),
+    twists held within TWIST_TOL where an episode's pairs agree, flips
+    counted per episode.  Then the same episodes one a chunk for
+    ``alone_steps`` steps, each held against its item of the chunk up to
+    its first step whose pairs differ."""
+    nb = len(episodes)
+    common = dict(rotation_search=True, segment_steps=segment_steps, verbose=False,
+                  device=model.device, episode_indices=episodes, quantized=True,
+                  int8_static=True)
+    record, kept = [], []
+
+    def on_step(abs_ids, inputs, result):
+        if len(record) < forced:
+            record.append((_to_cpu(inputs), _to_cpu(result)))
+        if len(kept) < alone_steps:
+            kept.append(result)
+
+    for fn in _counters().values():
+        fn.launches = 0
+    sync(model.device)
+    t0 = time.perf_counter()
+    run = run_benchmark(cfg, net=fnet, model=model, scene=scene, out_dir=out_dir,
+                        config_name="int8_chunk", chunk=nb, num_steps=num_steps,
+                        on_step=on_step, **common)
+    sync(model.device)
+    wall_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in _counters().items()}
+    check_npz(run.path, nb)
+
+    t0 = time.perf_counter()
+    cpu_model = dataclasses.replace(run.model, device="cpu")
+    cpu_net = copy.deepcopy(run.net).to("cpu")
+    goal_rgb, _ = observe(scene, model.camera, *goal_pose(model.device))
+    cpu_goal = goal_descriptors(cpu_net, cpu_model, goal_rgb.cpu())
+    forced_out = {"steps": len(record), "flips": [0] * nb, "steps_with_flips": [0] * nb,
+                  "twist_max_abs_err": 0.0, "episode_steps_compared": 0}
+    for x, result in record:
+        ref = servo_step(cpu_net, cpu_model, cpu_goal, x.rgb, x.depth, x.ema, x.prev_v_c,
+                         scores=x.scores)
+        diff = (~same_pairs(ref, result)).sum(-1).tolist()
+        for j, f in enumerate(diff):
+            forced_out["flips"][j] += f
+            forced_out["steps_with_flips"][j] += int(f > 0)
+        agree = torch.tensor([f == 0 for f in diff])
+        if bool(agree.any()):
+            err = (ref.body_twist - result.body_twist).abs().amax(-1)[agree].max().item()
+            forced_out["twist_max_abs_err"] = max(forced_out["twist_max_abs_err"], err)
+            forced_out["episode_steps_compared"] += int(agree.sum())
+    forced_out["cpu_s"] = time.perf_counter() - t0
+    if not forced_out["twist_max_abs_err"] <= TWIST_TOL:
+        raise AssertionError(f"int8 chunk against the CPU step: twists differ by "
+                             f"{forced_out['twist_max_abs_err']} > {TWIST_TOL}")
+
+    alone = {int(e): [] for e in episodes}
+
+    def on_alone(abs_ids, inputs, result):
+        alone[int(abs_ids[0])].append(result)
+
+    solo = run_benchmark(cfg, net=fnet, model=model, scene=scene, save=False, chunk=1,
+                         num_steps=alone_steps, on_step=on_alone, **common)
+    first_flip, twist_err, compared = [], 0.0, 0
+    for j, ep in enumerate(episodes):
+        parted = None
+        for step, (c, a) in enumerate(zip(kept, alone[int(ep)])):
+            same = bool(same_pairs(item(a, 0), item(c, j)).all())
+            parted = step if parted is None and not same else parted
+            if parted is None:
+                twist_err = max(twist_err, (c.body_twist[j] - a.body_twist[0]).abs().max().item())
+                compared += 1
+        first_flip.append(parted)
+    if not twist_err <= TWIST_TOL:
+        raise AssertionError(f"int8 chunk against alone: twists differ by {twist_err} > "
+                             f"{TWIST_TOL} before the first pair flip")
+    sm = run.summaries
+    for k in ("final_positions", "final_quaternions"):
+        if not np.isfinite(np.stack([np.asarray(p, np.float64) for p in sm[k]])).all():
+            raise AssertionError(f"int8 chunk: {k} not finite")
+    return {"episodes": [int(e) for e in episodes], "device_steps": run.device_steps,
+            "chunk_steps": run.chunk_steps, "wall_s": wall_s, "launches": launches,
+            "quant_attn": run.model.vit.quant_attn, "kv_pool": run.model.vit.kv_pool,
+            "pp_precision": run.model.pp_precision,
+            "iterations": [int(i) for i in sm["all_iteration_histories"]],
+            "lowest_pos_err_cm": [float(e) for e in sm["lowest_position_errors"]],
+            "teacher_forced": forced_out,
+            "alone": {"steps": alone_steps, "first_flip_step": first_flip,
+                      "twist_max_abs_err": twist_err, "episode_steps_compared": compared},
+            "run": run}
+
+
+def compare_bench_graph(fnet, model: ServoModel, scene: Scene, offsets=TRAINED_STEP_OFFSETS,
+                        calib_offsets=TRAINED_CALIB_OFFSETS) -> dict:
+    """bench.py's graph (K/V pooled before the projection, the reshape patch
+    embedding) beside run AD's (pooled after, conv) of the float ``model``,
+    each calibrated on the goal view and the views of ``calib_offsets``:
+    goal + one step per view of ``offsets`` on the same frames and scores;
+    pairs agreeing and the largest twist gap, logged."""
+    steps = {}
+    for name, qmodel in (("pool2mm", int8_model(model, "conv")),
+                         ("pool2mmpre", int8_model(model, "reshape", "pre"))):
+        goal, rgbs, depths = render_views(qmodel, scene, offsets)
+        _, calib, _ = render_views(qmodel, scene, calib_offsets)
+        qnet = quantized_vit(fnet, qmodel, [goal, *calib])
+        goal_desc, steps[name] = drive(qnet, qmodel, goal, rgbs, depths,
+                                       pair_scores(qmodel, len(rgbs)))
+        check_outputs(qmodel, goal_desc, steps[name])
+    a, b = steps["pool2mm"], steps["pool2mmpre"]
+    return {"pairs_agreeing": [int(same_pairs(x, y).sum()) for x, y in zip(a, b)],
+            "pairs": int(a[0].valid.numel()),
+            "twist_gap": max((x.body_twist - y.body_twist).abs().max().item()
+                             for x, y in zip(a, b)),
+            "twist_max_abs": max(x.body_twist.abs().max().item() for x in a)}
+
+
+def preprocess_gap(model: ServoModel, scene: Scene) -> dict:
+    """The 'default' preprocess (one TF32 pass on the card) against
+    'highest' on the goal view: the largest gap; TF32 is off again after."""
+    rgb, _ = observe(scene, model.camera, *goal_pose(model.device))
+    fast = preprocess(dataclasses.replace(model, pp_precision="default"), rgb)
+    exact = preprocess(dataclasses.replace(model, pp_precision="highest"), rgb)
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("the 'default' preprocess left TF32 on")
+    return {"max_abs_gap": (fast - exact).abs().max().item(),
+            "share_apart": (fast != exact).float().mean().item()}
 
 
 # ---------------------------------------------------------------------------
@@ -1429,6 +1636,23 @@ def time_chunk_kernels(device) -> dict:
     return out
 
 
+def time_pooled_attention(device, vit) -> dict:
+    """The int8 chunk's pooled 'nomax3' attention (plain PyTorch) at
+    POOLED_ATTN_SHAPE in bf16, beside SDPA (exact softmax) on the same
+    shapes and the bound of its two products."""
+    B, T, Tk, H, hd = POOLED_ATTN_SHAPE
+    rs = np.random.default_rng(27)
+    q = _normal(device, (B, T, H, hd), rs, torch.bfloat16)
+    k, v = (_normal(device, (B, Tk, H, hd), rs, torch.bfloat16) for _ in range(2))
+    qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    flops = 4.0 * B * H * T * Tk * hd
+    nbytes = 2.0 * (2 * B * T + 2 * B * Tk) * H * hd        # bf16 q, k, v read, o written
+    bound, by = _bound(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES)
+    return {"ms": cuda_ms(lambda: _nomax_attention(q, k, v, vit), iters=50),
+            "sdpa_ms": cuda_ms(lambda: sdpa(qh, kh, vh)), "bound_ms": bound, "bound_by": by}
+
+
 def step_runner(net, model: ServoModel):
     """One servo_step a call, from a host (numpy) frame and depth map of
     phase 3 to the twist on the card."""
@@ -1487,16 +1711,25 @@ class BudgetSpent(Exception):
     """The replay's time budget ran out inside an episode."""
 
 
+def replay_name(lo: int, hi: int, int8: bool = False) -> str:
+    """The replay's file stem: its checkpoint, npz and JSON."""
+    return f"replay_s518{'_int8' if int8 else ''}_{lo}_{hi}"
+
+
 def run_replay(lo: int, hi: int, checkpoint: Path, budget_s: float, out_dir: Path,
-               device, chunk: int = CHUNK, path: Path = TRAINED_S518) -> dict:
+               device, chunk: int = CHUNK, path: Path = TRAINED_S518,
+               int8: bool = False) -> dict:
     """run_benchmark on episodes [lo, hi) of the 500-episode seed-41 stream
     (runs Z and AA's) at configs/real_s518.yaml's other settings on the
     trained ViT-S/14 @ 518 (cast whole to bf16, standard texture, rotation
     search on), ``chunk`` episodes a chunk, resuming from ``checkpoint``
-    (whole chunks).  When ``budget_s`` seconds have passed the chunk in
-    flight is dropped (it reruns, bit for bit, on resume).  Returns the
-    checkpoint's episodes summarized and this call's times."""
-    cfg = trained_config()
+    (whole chunks); with ``int8`` run AD's configuration instead
+    (configs/real_s518_pool2mm.yaml served by run_benchmark(quantized=True,
+    int8_static=True), whose checkpoint fingerprint differs from the bf16
+    run's).  When ``budget_s`` seconds have passed the chunk in flight is
+    dropped (it reruns, bit for bit, on resume).  Returns the checkpoint's
+    episodes summarized and this call's times."""
+    cfg = ad_config() if int8 else trained_config()
     model = ServoModel.create(cfg, device=device)
     net, info = load_trained(model, path)
     checkpoint.parent.mkdir(parents=True, exist_ok=True)
@@ -1515,7 +1748,8 @@ def run_replay(lo: int, hi: int, checkpoint: Path, budget_s: float, out_dir: Pat
     try:
         run_benchmark(cfg, net=net, model=model, episode_indices=range(lo, hi),
                       checkpoint_path=str(checkpoint), chunk=chunk, out_dir=str(out_dir),
-                      config_name=f"replay_s518_{lo}_{hi}", device=device, on_step=on_step)
+                      config_name=replay_name(lo, hi, int8), device=device, on_step=on_step,
+                      quantized=int8, int8_static=int8)
         finished = True
     except BudgetSpent:
         finished = False
@@ -1531,7 +1765,8 @@ def run_replay(lo: int, hi: int, checkpoint: Path, budget_s: float, out_dir: Pat
         "all_iteration_histories": np.asarray([int(e.iterations) for e in episodes]),
         "total_execution_time": wall_s})
     done_now = len(episodes) - before
-    return {"episodes": [lo, hi], "weights": info["file"], "chunk": chunk, "finished": finished,
+    return {"episodes": [lo, hi], "weights": info["file"], "int8": int8, "chunk": chunk,
+            "finished": finished,
             "episodes_done": len(episodes), "episodes_this_call": done_now,
             "converged": int(sum(flags)), "not_converged": [lo + i for i, f in enumerate(flags)
                                                              if not f],
@@ -1553,23 +1788,28 @@ def run_replay(lo: int, hi: int, checkpoint: Path, budget_s: float, out_dir: Pat
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", nargs="?", const="bf16",
-                    choices=["bf16", "f32", *VARIANTS, "loop", "loop518"],
+                    choices=["bf16", "f32", *VARIANTS, "loop", "loop518", "int8loop"],
                     help="build, then only profile servo steps of the bf16 path (default), "
                          "the f32 path or an int8 serving variant, or closed-loop steps at "
-                         "308 (seeded) or 518 (trained) (no checks, no result line)")
+                         "308 (seeded) or 518 (trained; int8loop: the int8 closed loop at "
+                         "run AD's settings) (no checks, no result line)")
     ap.add_argument("--trace", type=Path, default=None,
                     help="with --profile: write the profiler's chrome trace here")
     ap.add_argument("--replay", default=None, metavar="A:B",
                     help="build, then only run episodes [A, B) of the seed-41 benchmark on the "
                          "trained ViT-S/14 @ 518 (bf16), resuming from --checkpoint")
+    ap.add_argument("--int8", action="store_true",
+                    help="with --replay: run AD's int8 configuration (configs/"
+                         "real_s518_pool2mm.yaml, int8 static scales, nomax3)")
     ap.add_argument("--checkpoint", type=Path, default=None,
-                    help="with --replay: the resume file (default .replay/replay_s518_A_B.ckpt; "
-                         "a copy is left in chiprun_out/)")
+                    help="with --replay: the resume file (default .replay/replay_s518_A_B.ckpt, "
+                         ".replay/replay_s518_int8_A_B.ckpt with --int8; a copy is left in "
+                         "chiprun_out/ when the run is unfinished)")
     ap.add_argument("--budget-s", type=float, default=480.0,
                     help="with --replay: stop after this many seconds of episodes")
     ap.add_argument("--chunk", type=int, default=None,
                     help=f"with --replay: episodes a chunk (default {CHUNK}); with --profile "
-                         f"loop or loop518: profile chunk-steps of this many episodes")
+                         f"loop, loop518 or int8loop: profile chunk-steps of this many episodes")
     args = ap.parse_args()
     import vitvs_tpu_torch
 
@@ -1663,18 +1903,19 @@ def main() -> int:
 
     if args.replay:
         lo, hi = (int(x) for x in args.replay.split(":"))
-        ckpt = args.checkpoint or here / ".replay" / f"replay_s518_{lo}_{hi}.ckpt"
+        name = replay_name(lo, hi, args.int8)
+        ckpt = args.checkpoint or here / ".replay" / f"{name}.ckpt"
         out_dir = here / "chiprun_out"
-        with phase(f"replay {lo}:{hi}"):
+        with phase(f"replay {lo}:{hi}{' int8' if args.int8 else ''}"):
             # the npz and the checkpoint of hundreds of episodes' histories stay
             # beside the checkpoint (chiprun_out/ is kept to 64 MiB at most);
             # an unfinished run's checkpoint is copied out to be resumed
             rep_out = run_replay(lo, hi, ckpt, args.budget_s, ckpt.parent, device,
-                                 chunk=args.chunk or CHUNK)
+                                 chunk=args.chunk or CHUNK, int8=args.int8)
             out_dir.mkdir(parents=True, exist_ok=True)
             if not rep_out["finished"]:
                 shutil.copy(ckpt, out_dir / ckpt.name)
-            (out_dir / f"replay_s518_{lo}_{hi}.json").write_text(json.dumps(rep_out))
+            (out_dir / f"{name}.json").write_text(json.dumps(rep_out))
         log(f"[{card}] replay: {rep_out['converged']} of {rep_out['episodes_done']} converged "
             f"({rep_out['episodes_this_call']} this call, finished={rep_out['finished']}), "
             f"not converged: {rep_out['not_converged']}; lowest errors "
@@ -1705,12 +1946,15 @@ def main() -> int:
     net32, model32 = f32_step(cfg, device)
     if args.profile:
         with phase("profile"):
-            if args.profile in ("loop", "loop518"):
+            if args.profile in ("loop", "loop518", "int8loop"):
                 lnet, lmodel = net, model
+                lscene = load_poster_scene(device=device)
                 if args.profile == "loop518":
                     lmodel = ServoModel.create(trained_config(), device=device)
                     lnet = load_trained(lmodel)[0]
-                lscene = load_poster_scene(device=device)
+                elif args.profile == "int8loop":
+                    lmodel = ServoModel.create(ad_config(), device=device)
+                    lnet, lmodel = int8_serving_of_stream(load_trained(lmodel)[0], lmodel, lscene)
                 run = (loop_runner(lnet, lmodel, lscene, *loop_start(lmodel.cfg),
                                    torch.Generator(device).manual_seed(0))
                        if args.chunk is None else chunk_runner(lnet, lmodel, lscene, args.chunk))
@@ -1870,6 +2114,42 @@ def main() -> int:
             f"{csum['alone']['first_flip_step']}, twists within "
             f"{csum['alone']['twist_max_abs_err']:.3e} before it (tol {TWIST_TOL})")
 
+    with phase("3g int8-closed-loop"):
+        acfg = ad_config()
+        amodel = ServoModel.create(acfg, device=device)
+        with tempfile.TemporaryDirectory() as out:
+            isum = run_int8_chunk(tnet32, acfg, amodel, scene, out)
+        irun = isum.pop("run")
+        log(f"int8 chunk of {CHUNK} at run AD's settings (configs/real_s518_pool2mm.yaml: "
+            f"int8 static scales, {isum['quant_attn']}, kv_pool {isum['kv_pool']} by the "
+            f"matrix, conv embed, '{isum['pp_precision']}' preprocess, source-quantized bins), "
+            f"episodes {isum['episodes']}, {CHUNK_STEPS} steps: {json.dumps(isum)}")
+        if isum["chunk_steps"] != CHUNK_STEPS or isum["device_steps"] != CHUNK * CHUNK_STEPS:
+            raise AssertionError(f"int8 chunk: {isum['chunk_steps']} chunk-steps, "
+                                 f"{isum['device_steps']} episode-steps")
+        if any(isum["launches"].values()):
+            raise AssertionError(f"int8 chunk: hand kernels launched {isum['launches']}")
+        tf = isum["teacher_forced"]
+        log(f"[{card}] int8 chunk: {isum['chunk_steps']} chunk-steps of {CHUNK} in "
+            f"{isum['wall_s']:.2f} s with the calibration, the goal and the search; no hand "
+            f"kernel launched; teacher-forced on the CPU ({tf['steps']} chunk-steps, "
+            f"{tf['cpu_s']:.1f} s): flips per episode {tf['steps_with_flips']}, twists "
+            f"within {tf['twist_max_abs_err']:.3e} on the {tf['episode_steps_compared']} "
+            f"others; against chunk 1: first flip at {isum['alone']['first_flip_step']}, "
+            f"twists within {isum['alone']['twist_max_abs_err']:.3e} before it "
+            f"(tol {TWIST_TOL})")
+        for fn in _counters().values():
+            fn.launches = 0
+        graph = compare_bench_graph(tnet32, amodel, scene)
+        if any(fn.launches for fn in _counters().values()):
+            raise AssertionError("the bench.py graph launched a hand kernel")
+        log(f"bench.py graph (real_s518_pool2mmpre: K/V pooled before the projection, reshape "
+            f"embed) against run AD's, goal + {N_STEPS} steps near the goal (logged): "
+            f"{json.dumps(graph)}")
+        gap = preprocess_gap(amodel, scene)
+        log(f"'default' preprocess (one TF32 pass) against 'highest' on the goal view: "
+            f"{json.dumps(gap)}; TF32 off again after it")
+
     with phase("4 times"):
         step_ms = time_run(step_runner(net, model))
         log(f"[{card}] servo_step median {step_ms:.3f} ms (ViT-S/14 @ 308, bf16, kernels)")
@@ -1910,16 +2190,24 @@ def main() -> int:
         times["matcher_bf16_batched"] = chunk_times["matcher_bf16_batched"]
         bounds["matcher_bf16_batched"] = matcher_bound_ms(TRAINED_MATCH_SHAPE, bf16=True,
                                                           nb=CHUNK)
-        # the closed-loop chunk step on the trained weights, in alternating rounds
-        runners = {b: chunk_runner(tnet, tmodel, scene, b) for b in LOOP_CHUNKS}
-        rounds = [{b: time_run(run) for b, run in runners.items()} for _ in range(3)]
-        for b in LOOP_CHUNKS:
-            ms = statistics.median(r[b] for r in rounds)
-            log(f"[{card}] closed-loop chunk step, B = {b} (ViT-S/14 @ 518, bf16, trained, "
-                f"kernels): median {ms:.3f} ms a chunk-step (rounds "
-                f"{[round(r[b], 3) for r in rounds]}), {1e3 * b / ms:.1f} episode-steps a "
-                f"second, {ms * EPISODE_CAP / b / 1e3:.3f} card-s an episode at "
+        # the closed-loop chunk step on the trained weights, bf16 and int8 (run
+        # AD's settings), in alternating rounds
+        runners = {(kind, b): chunk_runner(n, m, scene, b) for b in LOOP_CHUNKS
+                   for kind, n, m in (("bf16", tnet, tmodel), ("int8", irun.net, irun.model))}
+        rounds = [{key: time_run(run) for key, run in runners.items()} for _ in range(3)]
+        for kind, b in runners:
+            ms = statistics.median(r[kind, b] for r in rounds)
+            what = ("bf16, kernels" if kind == "bf16" else
+                    "int8 at run AD's settings, no hand kernel")
+            log(f"[{card}] closed-loop chunk step, B = {b} (ViT-S/14 @ 518, {what}, trained): "
+                f"median {ms:.3f} ms a chunk-step (rounds "
+                f"{[round(r[kind, b], 3) for r in rounds]}), {1e3 * b / ms:.1f} episode-steps "
+                f"a second, {ms * EPISODE_CAP / b / 1e3:.3f} card-s an episode at "
                 f"{EPISODE_CAP} steps")
+        pooled = time_pooled_attention(device, irun.model.vit)
+        log(f"[{card}] pooled nomax3 attention at (B, T, keys, h, hd) = {POOLED_ATTN_SHAPE} "
+            f"(the int8 chunk's, plain PyTorch: no hand kernel on this path): "
+            f"{json.dumps(pooled)}")
         f32_bounds = [attention_bound_ms(shape, f32=True, tensor_cores=tc)[0]
                       for tc in (True, False) for shape in (ATTN_SHAPE, SERVE_ATTN_SHAPE)]
         log(f"[{card}] attention_f32 bounds at T = 485 and 1370: tensor cores "

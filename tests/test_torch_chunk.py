@@ -6,6 +6,7 @@ tolerances of tests/test_torch_rollout.py.  Each function the chunk goes
 through is held batched against its per-episode calls on episodes that
 differ, so a reduction over the batch fails it."""
 
+import dataclasses
 import math
 import os
 import sys
@@ -29,11 +30,14 @@ from vitvs_tpu_torch.control import ibvs as tibvs  # noqa: E402
 from vitvs_tpu_torch.control.ibvs import EmaState  # noqa: E402
 from vitvs_tpu_torch.core import se3 as tse3  # noqa: E402
 from vitvs_tpu_torch.core.batch import item  # noqa: E402
+from vitvs_tpu_torch.harness import benchmark as tbench  # noqa: E402
 from vitvs_tpu_torch.harness import pipeline as tpipe  # noqa: E402
 from vitvs_tpu_torch.harness import rollout as troll  # noqa: E402
 from vitvs_tpu_torch.match import correspondence as tcorr  # noqa: E402
+from vitvs_tpu_torch.match.binned import QuantizedBinned, quantize_binned_int8  # noqa: E402
 from vitvs_tpu_torch.ops import matcher  # noqa: E402
 from vitvs_tpu_torch.sim import scene as tscene  # noqa: E402
+from vitvs_tpu_torch.sim.env import observe as tobserve  # noqa: E402
 from vitvs_tpu_torch.sim.perturb import perturb_texture  # noqa: E402
 
 # start offsets (m) of the chunk's episodes from the goal pose, and their spins
@@ -443,19 +447,93 @@ def test_constant_twist_step_fn_integrates_as_the_reference():
                                   np.broadcast_to(twist, (3, 12, 6)))
 
 
-def test_int8_paths_take_one_frame():
-    """The int8 serving step and int8 matching take one frame; a chunk of
-    them raises, naming the roadmap item that ports it."""
-    import dataclasses
+def _int8_pair(pair, pool_where="post"):
+    """The pair's ViT in the int8 serving configuration of run AD (2 x 2 K/V
+    pooling by the matrix, 'nomax3', conv patch embed, 'default' resize,
+    static scales calibrated on the goal view and the chunk's start views,
+    source-quantized bins), through harness/benchmark.py's int8_serving."""
+    model = dataclasses.replace(pair.tmodel, vit=dataclasses.replace(
+        pair.tmodel.vit, kv_pool=2, kv_pool_impl="matmul", kv_pool_where=pool_where))
+    pos, quat = _starts()
+    calib = (np.concatenate([GOAL_POS[None], pos]), np.concatenate([GOAL_QUAT[None], quat]))
+    qnet, qmodel = tbench.int8_serving(pair.net, model, pair.tscene, calib)
+    assert qmodel.quantized and qmodel.source_quantized_bins and qmodel.pp_precision == "default"
+    assert (qmodel.vit.quant_attn, qmodel.vit.patch_embed_impl) == ("nomax3", "conv")
+    return qnet, qmodel
 
-    pair = make_pair()
-    qmodel = dataclasses.replace(pair.tmodel, quantized=True)
-    qnet = tpipe.quantized_vit(pair.net, qmodel)
-    rgb, depth = _frames(pair, OFFSETS[:2], SPINS_DEG[:2])
-    ema, prev = _states(2)
-    with pytest.raises(NotImplementedError, match="queue 1, item 3"):
-        tpipe.servo_step(qnet, qmodel, tpipe.goal_descriptors(qnet, qmodel, rgb[0]), rgb, depth,
-                         ema, prev, scores=torch.rand(2, pair.t))
-    goal, cur, scores = _match_inputs(2)
-    with pytest.raises(NotImplementedError, match="queue 1, item 3"):
-        tcorr.find_correspondences(goal, cur, (5, 6), 8, scores, use_kernel=False, int8=True)
+
+def _int8_goal(pair, qnet, qmodel):
+    rgb, _ = tobserve(pair.tscene, qmodel.camera, torch.from_numpy(GOAL_POS),
+                      torch.from_numpy(GOAL_QUAT))
+    return tpipe.goal_descriptors(qnet, qmodel, rgb)
+
+
+@pytest.mark.parametrize("pool_where", ["post", "pre"])
+def test_int8_paths_take_one_frame(pool_where):
+    """The int8 serving step on a chunk of 3 frames (the last one all
+    background) equals the 3 frames stepped alone bit for bit: one forward,
+    the batched source quantizer, one int8 product against the goal and
+    each frame's max/argmax.  int8 matching of a chunk of float rows
+    (``int8=True``) and of QuantizedBinned rows equals its frames matched
+    alone, and the batched quantizer its frames quantized alone."""
+    pair = make_pair(compute_dtype="bfloat16")
+    qnet, qmodel = _int8_pair(pair, pool_where)
+    goal = _int8_goal(pair, qnet, qmodel)
+    assert isinstance(goal, QuantizedBinned) and goal.q.dtype == torch.int8
+    rgb, depth = _frames(pair, OFFSETS[:2] + [OFF_POSTER])
+    ema, prev = _states(3)
+    scores = torch.rand((3, pair.t), generator=torch.Generator().manual_seed(1))
+    chunk = tpipe.servo_step(qnet, qmodel, goal, rgb, depth, ema, prev, scores=scores)
+    alone = [tpipe.servo_step(qnet, qmodel, goal, rgb[i], depth[i],
+                              EmaState(ema.value[i], ema.initialized[i]), prev[i],
+                              scores=scores[i]) for i in range(3)]
+    _same(chunk, _stack(alone))
+    assert chunk.feature_ok.tolist() == [True, True, False]
+    descs = tpipe.batch_descriptors(qnet, qmodel, rgb)
+    _same(descs, _stack([tpipe.goal_descriptors(qnet, qmodel, rgb[i]) for i in range(3)]))
+    base = _rand(3, 30, 16, seed=9)
+    _same(quantize_binned_int8(base, (5, 6)),
+          _stack([quantize_binned_int8(base[i], (5, 6)) for i in range(3)]))
+    goal_f, cur_f, sc = _match_inputs(3)
+    for g, c in ((goal_f, cur_f), (quantize_binned_int8(goal_f, (5, 6)),
+                                   quantize_binned_int8(cur_f, (5, 6)))):
+        m = tcorr.find_correspondences(g, c, (5, 6), 8, sc, use_kernel=False, int8=True)
+        _same(m, _stack([tcorr.find_correspondences(g, item(c, i), (5, 6), 8, sc[i],
+                                                    use_kernel=False, int8=True)
+                         for i in range(3)]))
+
+
+def test_int8_rollout_segment_chunk_equals_episodes_alone():
+    """12 steps of an int8 chunk of 3 (run AD's settings, as above) from
+    carries that differ (episode 1 sees only the background and aborts
+    after 10 feature failures), each episode drawing from its own
+    generator: carry and histories equal the episodes run alone bit for
+    bit."""
+    pair = make_pair(compute_dtype="bfloat16")
+    qnet, qmodel = _int8_pair(pair)
+    goal = _int8_goal(pair, qnet, qmodel)
+    carry, desired = _chunk_carry(pair, [OFFSETS[0], OFF_POSTER, OFFSETS[2]], SPINS_DEG)
+    gens = lambda i: torch.Generator().manual_seed(200 + i)  # noqa: E731
+    chunk = troll.rollout_segment(qnet, qmodel, pair.tscene, goal, carry, 12, *desired,
+                                  generator=[gens(i) for i in range(3)])
+    alone = [troll.rollout_segment(qnet, qmodel, pair.tscene, goal, item(carry, i), 12,
+                                   *desired, generator=gens(i)) for i in range(3)]
+    _same(chunk[0], _stack([a[0] for a in alone]), "carry")
+    _same(chunk[1], _stack([a[1] for a in alone]), "histories")
+    assert chunk[0].aborted.tolist() == [False, True, False]
+
+
+def test_int8_search_chunk_equals_single_searches():
+    """The int8 rotation search over a chunk of 3 poses (12 views in one
+    forward, source-quantized, one int8 product) equals 3 single searches."""
+    pair = make_pair(compute_dtype="bfloat16", pixel_identity=True, octaves=(2, 5))
+    qnet, qmodel = _int8_pair(pair)
+    goal = _int8_goal(pair, qnet, qmodel)
+    pos, quat = _starts([(0.0, 0.0, 0.05), (0.01, -0.01, 0.04), (-0.01, 0.0, 0.06)],
+                        [180.0, 90.0, 0.0])
+    gens = lambda i: torch.Generator().manual_seed(1000 + i)  # noqa: E731
+    _, chunk = troll.find_best_start_pose(qnet, qmodel, pair.tscene, goal, pos, quat,
+                                          generator=[gens(i) for i in range(3)])
+    alone = [troll.find_best_start_pose(qnet, qmodel, pair.tscene, goal, pos[i], quat[i],
+                                        generator=gens(i))[1] for i in range(3)]
+    _same(chunk, torch.stack(alone))

@@ -580,3 +580,106 @@ def test_chunk_servo_step_with_kernels_matches_plain(cuda):
     assert bool(agree.any())
     assert (ref.body_twist - ker.body_twist).abs().amax(-1)[agree].max().item() <= 1e-3
     assert ker.body_twist.shape == (3, 6) and torch.isfinite(ker.body_twist).all()
+
+
+def _ad_int8_on(device):
+    """Run AD's int8 serving ViT and model (configs/real_s518_pool2mm.yaml,
+    static scales of the stream's first views) of the exported trained
+    ViT-S/14 @ 518, quantized on the CPU, then moved to ``device``."""
+    import dataclasses
+
+    from vitvs_tpu_torch.harness.pipeline import ServoModel
+    from vitvs_tpu_torch.sim.scene import load_poster_scene
+
+    model = ServoModel.create(chip_smoke.ad_config(), device="cpu")
+    scene = load_poster_scene(device="cpu")
+    qnet, qmodel = chip_smoke.int8_serving_of_stream(chip_smoke.load_trained(model)[0], model,
+                                                     scene)
+    return qnet.to(device), dataclasses.replace(qmodel, device=str(device)), scene
+
+
+def test_int8_chunk_step_on_the_card_matches_the_cpu_step(cuda):
+    """The int8 chunk step at run AD's settings on the card (no hand kernel:
+    no counter moves) against the same step on CPU tensors, a chunk of 3
+    views near the goal with the same int8 weights, EMA, commands and
+    scores.  The card's products round otherwise than the CPU's, and an
+    int8 activation near a rounding tie then moves its token (as against
+    JAX on the CPU: tests/test_torch_trained_int8.py), so near the goal, where
+    matches are near-ties, the eligible tokens differ by a few and the 24
+    selected pairs shift slots (20, 23 and 2 slots apart on these views on
+    an NVIDIA H100 80GB HBM3 at 700 W):
+    the goal's source-quantized rows are held by their cosine (>= 0.99) and
+    every episode's twist within BASELINE.md's 1e-3."""
+    from vitvs_tpu_torch.control.ibvs import EmaState
+    from vitvs_tpu_torch.harness.pipeline import goal_descriptors, servo_step
+
+    qnet, qmodel, scene = _ad_int8_on(cuda)
+    cpu_net, cpu_model = _ad_int8_on("cpu")[:2]
+    goal, rgbs, depths = chip_smoke.render_views(cpu_model, scene,
+                                                 chip_smoke.TRAINED_STEP_OFFSETS[:3])
+    rgb, depth = torch.stack(rgbs), torch.stack(depths)
+    ema, prev = EmaState.init(device="cpu", batch=(3,)), torch.zeros(3, 6)
+    scores = torch.rand((3, 1369), generator=torch.Generator().manual_seed(5))
+    counts = {k: fn.launches for k, fn in chip_smoke._counters().items()}
+    goal_card = goal_descriptors(qnet, qmodel, goal.cuda())
+    got = servo_step(qnet, qmodel, goal_card, rgb.cuda(), depth.cuda(),
+                     EmaState(ema.value.cuda(), ema.initialized.cuda()), prev.cuda(),
+                     scores=scores.cuda())
+    torch.cuda.synchronize()
+    assert counts == {k: fn.launches for k, fn in chip_smoke._counters().items()}
+    goal_cpu = goal_descriptors(cpu_net, cpu_model, goal)
+    ref = servo_step(cpu_net, cpu_model, goal_cpu, rgb, depth, ema, prev, scores=scores)
+    cos = torch.nn.functional.cosine_similarity(chip_smoke._unit_rows(goal_card).cpu(),
+                                                chip_smoke._unit_rows(goal_cpu), dim=-1)
+    assert cos.min().item() >= 0.99
+    got = chip_smoke._to_cpu(got)
+    assert torch.isfinite(got.body_twist).all()
+    flips = (~chip_smoke.same_pairs(ref, got)).sum(-1).tolist()
+    err = (ref.body_twist - got.body_twist).abs().max().item()
+    assert err <= chip_smoke.TWIST_TOL, (err, flips)
+
+
+def test_batched_int8_match_is_one_product_of_single_calls(cuda):
+    """int8 matching of a chunk of 4 frames on the card is one _int_mm of
+    (4 t, d) against the goal: each item's match equal to its frame matched
+    alone, for source-quantized and for int8 float rows, and the int32
+    products exact (the CPU's)."""
+    from vitvs_tpu_torch.core.batch import item
+    from vitvs_tpu_torch.match import correspondence as corr
+    from vitvs_tpu_torch.match.binned import quantize_binned_int8
+
+    rs = np.random.default_rng(41)
+    goal = torch.from_numpy(rs.standard_normal((1369, 384)).astype(np.float32))
+    frames = goal + 0.5 * torch.from_numpy(rs.standard_normal((4, 1369, 384)).astype(np.float32))
+    scores = torch.rand((4, 1369), generator=torch.Generator().manual_seed(2))
+    grid = (37, 37)
+    for g, f in ((quantize_binned_int8(goal.cuda().bfloat16(), grid),
+                  quantize_binned_int8(frames.cuda().bfloat16(), grid)),
+                 (goal.cuda().bfloat16(), frames.cuda().bfloat16())):
+        m = corr.find_correspondences(g, f, grid, 24, scores.cuda(), use_kernel=False, int8=True)
+        for i in range(4):
+            one = corr.find_correspondences(g, item(f, i), grid, 24, scores[i].cuda(),
+                                            use_kernel=False, int8=True)
+            for name, a, b in zip(m._fields, item(m, i), one):
+                assert torch.equal(a, b), (i, name)
+    qg, qf = (quantize_binned_int8(x.bfloat16(), grid) for x in (goal, frames))
+    prod = corr._int8_frames_by_goal(qg.q.cuda(), qf.q.cuda()).cpu()
+    assert torch.equal(prod, corr._int8_frames_by_goal(qg.q, qf.q))
+
+
+def test_default_preprocess_scopes_tf32_on_the_card(cuda):
+    """'default' runs the resize's two products as one TF32 pass (so it
+    differs from 'highest', by about TF32's 2^-11 of the values) and turns
+    TF32 off again after; 'highest' is exact f32 (the CPU's up to summation
+    order)."""
+    from vitvs_tpu_torch.core import image
+
+    image.set_f32_matmul_precision()
+    rgb = torch.from_numpy(np.random.default_rng(3).integers(0, 256, (480, 640, 3),
+                                                             dtype=np.uint8))
+    exact = image.preprocess_frame(rgb.cuda(), 518)
+    fast = image.preprocess_frame(rgb.cuda(), 518, precision="default")
+    assert not torch.backends.cuda.matmul.allow_tf32
+    gap = (fast - exact).abs().max().item()
+    assert 0.0 < gap <= 2e-2, gap
+    assert (exact.cpu() - image.preprocess_frame(rgb, 518)).abs().max().item() <= 1e-5

@@ -3,12 +3,15 @@
 foreign checkpoint, replays and chunk sizes that leave results unchanged
 (bit for bit), the frozen fast-forward against running the device to the
 end and waiting for a chunk's slowest episode, the flags that are not
-ported, and the port's copy of the poster texture."""
+ported, the port's copy of the poster texture, and the int8 serving
+benchmark (``quantized=True, int8_static=True``) against vitvs_tpu's with
+JAX's draws injected."""
 
 import os
 import pickle
 import sys
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -185,8 +188,7 @@ def test_frozen_fast_forward_equals_running_the_device(tmp_path):
                 "all_applied_velocity_x", "all_velocity_mean_10"))
 
 
-@pytest.mark.parametrize("flag", [dict(quantized=True), dict(mesh=object()),
-                                  dict(live_dir="live")])
+@pytest.mark.parametrize("flag", [dict(mesh=object()), dict(live_dir="live")])
 def test_flags_not_ported_raise(tmp_path, flag):
     pair = make_pair(pixel_identity=True, max_iterations=2)
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item"):
@@ -226,3 +228,90 @@ def test_build_model_is_bf16_whatever_the_config_says():
     built, model = build_model(VSConfig(compute_dtype="float32", model_name="dino_vits16",
                                         stride=16, dino_input_size=224), device="cpu")
     assert model.compute_dtype == torch.bfloat16 and built.compute_dtype == torch.bfloat16
+
+
+class _JaxDraws:
+    """JAX's random draws injected into the port's run_benchmark: each
+    search generator (seeded 1000 + i) becomes ``split(PRNGKey(1000 + i),
+    4)``'s uniforms and each rollout generator (seeded i) the key chain of
+    ``PRNGKey(i)`` (one split a step, carried across segments), as the
+    reference's benchmark derives them."""
+
+    def __init__(self, monkeypatch, t: int):
+        from test_torch_rollout import search_scores
+
+        from vitvs_tpu_torch.harness import benchmark as tbench
+
+        keys = {}
+        search, segment = tbench.find_best_start_pose, tbench.rollout_segment
+
+        def find_best_start_pose(*a, generator, **kw):
+            scores = torch.stack([search_scores(jax.random.PRNGKey(g.initial_seed()), 4, t)
+                                  for g in generator])
+            return search(*a, scores=scores, **kw)
+
+        def rollout_segment(net, model, scene, goal, carry, nsteps, dp, dq, generator, **kw):
+            rows = []
+            for g in generator:
+                key = keys.get(id(g), jax.random.PRNGKey(g.initial_seed()))
+                steps = []
+                for _ in range(nsteps):
+                    key, sub = jax.random.split(key)
+                    steps.append(np.asarray(jax.random.uniform(sub, (t,))))
+                keys[id(g)] = key
+                rows.append(np.stack(steps))
+            return segment(net, model, scene, goal, carry, nsteps, dp, dq,
+                           scores=torch.from_numpy(np.stack(rows)), **kw)
+
+        monkeypatch.setattr(tbench, "find_best_start_pose", find_best_start_pose)
+        monkeypatch.setattr(tbench, "rollout_segment", rollout_segment)
+
+
+def test_int8_run_benchmark_matches_reference(tmp_path, monkeypatch):
+    """run_benchmark(quantized=True, int8_static=True) at run AD's settings
+    (2 x 2 K/V pooling by the matrix; run_benchmark adds 'nomax3', the conv
+    patch embed, the 'default' resize, static scales calibrated on the goal
+    view and the stream's first start views, source-quantized bins) on a
+    tiny f32 model, 2 episodes with the rotation search, 12 steps in
+    segments of 5, against vitvs_tpu's run_benchmark, JAX's draws injected:
+    the same start orientations chosen, poses within 1e-4 and commands
+    within 1e-3 (tests/test_torch_rollout.py's closed-loop tolerances), the
+    flags and iterations equal; the run's fingerprint records the int8
+    settings."""
+    import dataclasses
+
+    from vitvs_tpu.harness import benchmark as jbench
+
+    pair = make_pair(max_iterations=12)
+    pool = dict(kv_pool=2, kv_pool_impl="matmul")
+    jmodel = dataclasses.replace(pair.jmodel, vit=dataclasses.replace(pair.jmodel.vit, **pool),
+                                 cfg=pair.jmodel.cfg.replace(num_samples=2, num_circles=1, **pool))
+    tmodel = dataclasses.replace(pair.tmodel, vit=dataclasses.replace(pair.tmodel.vit, **pool),
+                                 cfg=pair.tmodel.cfg.replace(num_samples=2, num_circles=1, **pool))
+    common = dict(quantized=True, int8_static=True, rotation_search=True, chunk=2, num_steps=12,
+                  segment_steps=5, save=False, verbose=False)
+    _, _, ref = jbench.run_benchmark(jmodel.cfg, pair.params, model=jmodel, scene=pair.jscene,
+                                     out_dir=str(tmp_path), **common)
+    _JaxDraws(monkeypatch, pair.t)
+    ckpt = str(tmp_path / "int8.pkl")
+    run = run_benchmark(tmodel.cfg, net=pair.net, model=tmodel, scene=pair.tscene,
+                        out_dir=str(tmp_path), device="cpu", checkpoint_path=ckpt, **common)
+    ours = run.summaries
+    np.testing.assert_allclose(np.stack([b[1] for b in ours["best_poses"]]),
+                               np.stack([np.asarray(b[1]) for b in ref["best_poses"]]), atol=1e-6)
+    for k in ("convergence_flags", "all_iteration_histories"):
+        assert _equal(ours[k], [np.asarray(x) for x in ref[k]]), k
+    for k in ("all_position_histories", "all_orientation_histories", "final_positions"):
+        for a, b in zip(ours[k], ref[k]):
+            np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=1e-4, rtol=0, err_msg=k)
+    for k in ("all_applied_velocity_x", "all_applied_velocity_yaw"):
+        for a, b in zip(ours[k], ref[k]):
+            np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=1e-3, rtol=0, err_msg=k)
+    assert run.device_steps == 2 * 12
+    with open(ckpt, "rb") as fh:
+        meta = pickle.load(fh)["meta"]
+    assert meta["quantized"] and meta["int8_static"]
+    with pytest.raises(ValueError, match="different run"):
+        run_benchmark(tmodel.cfg, net=pair.net, model=tmodel, scene=pair.tscene,
+                      out_dir=str(tmp_path), device="cpu", checkpoint_path=ckpt,
+                      **dict(common, int8_static=False))

@@ -45,3 +45,35 @@ def test_set_f32_matmul_precision_turns_tf32_off():
     timage.set_f32_matmul_precision()
     assert not torch.backends.cuda.matmul.allow_tf32
     assert not torch.backends.cudnn.allow_tf32
+
+
+@pytest.mark.parametrize("precision", ["highest", "high", "default"])
+def test_preprocess_frame_precision_matches(precision):
+    """Each resize precision against jax.jit of the reference at that
+    precision, uint8 640 x 480 -> 308: on the CPU both compute f32 at every
+    precision (XLA's CPU dots take no reduced-precision pass), so the port's
+    three are the same bits and within the f32 summation-order gap of the
+    jitted reference (rtol / atol 1e-5, as test_preprocess_frame_matches)."""
+    import jax
+
+    rgb = RNG.integers(0, 256, (480, 640, 3), dtype=np.uint8)
+    ref = np.asarray(jax.jit(lambda x: jimage.preprocess_frame(x, 308, precision=precision))(
+        jnp.asarray(rgb)))
+    out = timage.preprocess_frame(torch.from_numpy(rgb), 308, precision=precision)
+    highest = timage.preprocess_frame(torch.from_numpy(rgb), 308)
+    assert torch.equal(out, highest)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError, match="precision"):
+        timage.resize(torch.zeros(4, 4, 3), (2, 2), precision="bf16")
+
+
+def test_default_precision_scopes_tf32_to_the_resize():
+    """On the CPU 'default' leaves the process's TF32 setting as it found
+    it, both ways (on the card the two products run with TF32 allowed and
+    the setting is restored: tests/test_torch_gpu.py)."""
+    img = torch.rand(8, 10, 3)
+    for before in (False, True):
+        torch.backends.cuda.matmul.allow_tf32 = before
+        timage.resize(img, (4, 5), "bicubic", True, precision="default")
+        assert torch.backends.cuda.matmul.allow_tf32 is before
+    timage.set_f32_matmul_precision()

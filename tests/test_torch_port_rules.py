@@ -320,3 +320,79 @@ def test_chip_smoke_replay_stops_at_its_budget_and_resumes(tmp_path):
     assert ckpt.exists() and out["weights"] == "vitvs_tpu_torch/assets/ckpt_real518.npz"
     again = chip_smoke.run_replay(0, 1, ckpt, 0.0, tmp_path / "out", "cpu")
     assert not again["finished"] and again["call_steps"] == 1 and again["episodes_this_call"] == 0
+
+
+def test_chip_smoke_ad_config_is_real_s518_pool2mm():
+    """Phase 3g and --replay --int8 run configs/real_s518_pool2mm.yaml (run
+    AD's) on the 500-episode stream; its int8 model is what run_benchmark
+    serves, and K/V pooled before the projection is real_s518_pool2mmpre's."""
+    cfg = chip_smoke.ad_config()
+    assert cfg == load_config(REPO / "configs" / "real_s518_pool2mm.yaml").replace(
+        num_samples=500)
+    pre = load_config(REPO / "configs" / "real_s518_pool2mmpre.yaml").replace(num_samples=500)
+    assert pre == cfg.replace(kv_pool_where="pre")
+    model = ServoModel.create(cfg, device="cpu")
+    q = chip_smoke.int8_model(model)
+    assert q.quantized and q.source_quantized_bins and q.pp_precision == "default"
+    assert (q.vit.quant_attn, q.vit.patch_embed_impl, q.vit.kv_pool, q.vit.kv_pool_impl,
+            q.vit.kv_pool_where) == ("nomax3", "conv", 2, "matmul", "post")
+    qpre = chip_smoke.int8_model(model, "reshape", "pre")
+    assert (qpre.vit.patch_embed_impl, qpre.vit.kv_pool_where, qpre.cfg) == ("reshape", "pre", pre)
+    # the exported weights load into the AD model (its run settings aside)
+    net, _ = chip_smoke.load_trained(model)
+    assert net.cfg == model.vit
+    assert chip_smoke.replay_name(0, 500, int8=True) == "replay_s518_int8_0_500"
+    assert chip_smoke.replay_name(0, 500) == "replay_s518_0_500"
+
+
+def test_chip_smoke_int8_chunk_runs_tiny_on_cpu(tmp_path, one_intra_op_thread):
+    """Phase 3g with a tiny 2-block ViT (2 x 2 K/V pooling) on a synthetic
+    poster on the CPU: run_benchmark(quantized=True, int8_static=True) on
+    episodes 0 to 2 as one chunk for 6 steps in segments of 4, its first 3
+    chunk-steps teacher-forced through the same step on CPU tensors (equal:
+    it ran there), then one a chunk for 3 steps; no kernel counts a launch;
+    the bench.py graph beside it and the preprocess gap (none on the CPU);
+    the int8 chunk runner of phase 4 takes a step."""
+    from vitvs_tpu_torch.sim.scene import Scene, make_synthetic_poster
+
+    cfg = VSConfig(u_max=96, v_max=72, f_x=75.0, f_y=75.0, dino_input_size=84, num_pairs=12,
+                   layer=1, model_name="tiny", pinv_mode="dls", lambda_=0.5,
+                   min_iterations=20, max_iterations=40, num_samples=5, num_circles=1,
+                   kv_pool=2, kv_pool_impl="matmul")
+    vcfg = tvit.ViTConfig(patch_size=14, embed_dim=96, depth=2, num_heads=3, pos_grid=5,
+                          gelu_approx=True, model_name="tiny", kv_pool=2, kv_pool_impl="matmul")
+    model = ServoModel(vit=vcfg, cfg=cfg, compute_dtype=torch.bfloat16, device="cpu")
+    fnet = tvit.init_vit(vcfg, torch.Generator().manual_seed(0), device="cpu",
+                         layerscale=1.0).eval()
+    scene = Scene.create(make_synthetic_poster(128, seed=3), half_size=0.42, device="cpu")
+    s = chip_smoke.run_int8_chunk(fnet, cfg, model, scene, str(tmp_path), episodes=[0, 1, 2],
+                                  num_steps=6, segment_steps=4, forced=3, alone_steps=3)
+    run = s.pop("run")
+    assert run.model.quantized and run.model.vit.quant_attn == "nomax3"
+    assert s["device_steps"] == 18 and s["chunk_steps"] == 6
+    assert all(v == 0 for v in s["launches"].values())
+    tf = s["teacher_forced"]
+    assert tf["steps"] == 3 and tf["flips"] == [0, 0, 0] and tf["episode_steps_compared"] == 9
+    assert tf["twist_max_abs_err"] == 0.0
+    alone = s["alone"]
+    assert alone["first_flip_step"] == [None] * 3 and alone["episode_steps_compared"] == 9
+    assert alone["twist_max_abs_err"] == 0.0
+    graph = chip_smoke.compare_bench_graph(fnet, model, scene)
+    assert len(graph["pairs_agreeing"]) == chip_smoke.N_STEPS and graph["pairs"] == 12
+    assert np.isfinite(graph["twist_gap"])
+    assert chip_smoke.preprocess_gap(model, scene) == {"max_abs_gap": 0.0, "share_apart": 0.0}
+    chip_smoke.chunk_runner(run.net, run.model, scene, 2)()
+
+
+def test_chip_smoke_int8_replay_is_its_own_run(tmp_path):
+    """--replay --int8 on the CPU with no time budget: run AD's int8
+    configuration calibrates, searches episode 0's start at ViT-S/14 @ 518,
+    checkpoints, and drops the episode in flight at its first step; the
+    checkpoint is not a bf16 replay's (its fingerprint says quantized), so
+    the bf16 replay refuses to resume from it."""
+    ckpt = tmp_path / f"{chip_smoke.replay_name(0, 1, int8=True)}.ckpt"
+    out = chip_smoke.run_replay(0, 1, ckpt, 0.0, tmp_path / "out", "cpu", int8=True)
+    assert out["int8"] and not out["finished"] and out["call_steps"] == 1
+    assert out["episodes_done"] == 0 and ckpt.exists()
+    with pytest.raises(ValueError, match="different run"):
+        chip_smoke.run_replay(0, 1, ckpt, 0.0, tmp_path / "out", "cpu")

@@ -20,6 +20,8 @@ import torch
 from vitvs_tpu.models import extractor as jext
 from vitvs_tpu.models import quant as jq
 from vitvs_tpu.models import vit as jvit
+from vitvs_tpu_torch.harness.pipeline import ServoModel
+from vitvs_tpu_torch.io_bridge.config import VSConfig
 from vitvs_tpu_torch.models import extractor as text
 from vitvs_tpu_torch.models import quant as tq
 from vitvs_tpu_torch.models import vit as tvit
@@ -275,12 +277,119 @@ def test_quantized_vit_lives_in_the_compute_dtype():
 
 
 def test_unported_modes_raise():
-    for mode in ("pv", "qk+pv", "nomax", "nomax2", "nomax3"):
+    """What queue 1 item 3 still holds: the int8-probability modes, the
+    relu / sqrelu scores and the 'attn' facet; 'fused' takes no pooled keys."""
+    for mode in ("pv", "qk+pv"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tvit.ViTConfig(**VIT, quant_attn=mode)
+    for score in ("relu", "sqrelu"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            ServoModel.create(VSConfig(attn_score=score), device="cpu")
     _, tcfg = _cfgs()
     qnet = tq.quantize_vit_params(_float_net(_params(), tcfg), compute_dtype=torch.float32)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tq.vit_features_quant(qnet, torch.from_numpy(_images(1)), layer=1, facet="attn")
     with pytest.raises(ValueError):
         dataclasses.replace(tcfg, attn_impl="flash")
+    fused = dataclasses.replace(tcfg, quant_attn="fused", kv_pool=2)
+    qnet = tq.quantize_vit_params(_float_net(_params(), tcfg), fused, compute_dtype=torch.float32)
+    with pytest.raises(ValueError, match="kv_pool"):
+        tq.vit_features_quant(qnet, torch.from_numpy(_images(1)), layer=1)
+
+
+POOLS = {"none": dict(),
+         "post_window": dict(kv_pool=2, kv_pool_impl="window"),
+         "post_matmul": dict(kv_pool=2, kv_pool_impl="matmul"),
+         "pre": dict(kv_pool=2, kv_pool_impl="matmul", kv_pool_where="pre")}
+
+
+def _nomax_cfgs(mode, pool):
+    kw = dict(VIT, quant_attn=mode, **POOLS[pool])
+    return jvit.ViTConfig(**kw), tvit.ViTConfig(**kw)
+
+
+def _jitted_features(qp, jcfg, img, dtype=jnp.float32, layer=1):
+    run = jax.jit(lambda q, x: jq.vit_features_quant(q, jcfg, x, layer=layer,
+                                                     compute_dtype=dtype))
+    return np.array(run(qp, jnp.asarray(img)), dtype=np.float32)
+
+
+def _hold_loose(out, ref):
+    """Within 1e-2 of the output scale at most and 5e-4 on average: a token
+    whose int8 activations moved by one step (see
+    test_vit_features_quant_dynamic_scales_match)."""
+    scale = np.abs(ref).max()
+    assert np.abs(out - ref).max() <= 1e-2 * scale
+    assert np.abs(out - ref).mean() <= 5e-4 * scale
+
+
+@pytest.mark.parametrize("scales", ["static", "dynamic"])
+@pytest.mark.parametrize("pool", sorted(POOLS))
+@pytest.mark.parametrize("mode", ["nomax", "nomax2", "nomax3"])
+def test_nomax_modes_with_pooling_match(mode, pool, scales):
+    """The no-max modes without and with 2 x 2 K/V pooling (after the
+    projection by windows or by the matrix, or of the tokens before the K/V
+    projection) on the 5 x 5 grid (odd: its edge windows hold 2 and 1
+    patches), on identical int8 weights, against jax.jit of the reference's
+    vit_features_quant and _block_q, f32.  Each block on the same input:
+    with static scales within 1e-5 of the output scale, as the
+    exact-softmax forward; with dynamic per-token scales, whose amax can
+    differ in its last bit, as :func:`_hold_loose`.  End to end through both
+    blocks as :func:`_hold_loose` either way: block 0's outputs agree to
+    about 1e-6, and where a block-1 activation lies that close to an int8
+    rounding tie its token moves by one int8 step (static 2 x 2 pooling
+    after the projection does so on this input)."""
+    params = _params()
+    jcfg, tcfg = _nomax_cfgs(mode, pool)
+    qp = _jax_quant(params, jcfg, _images(2) if scales == "static" else None)
+    qnet = from_jax_quant_params(qp, tcfg, torch.float32)
+    img = _images(2, seed=4)
+    hold = _close if scales == "static" else _hold_loose
+    x0 = _jitted_features(qp, jcfg, img, layer=0)
+    hold(tq.vit_features_quant(qnet, torch.from_numpy(img), layer=0).numpy(), x0)
+    block1 = jax.tree.map(lambda a: a[1], qp["blocks"])
+    ref1 = np.asarray(jax.jit(lambda b, x: jq._block_q(x, jq._cast_block(b, jnp.float32), jcfg))(
+        block1, jnp.asarray(x0)))
+    hold(tq._block_q(torch.from_numpy(x0), qnet.blocks[1], tcfg, True).numpy(), ref1)
+    ref = _jitted_features(qp, jcfg, img)
+    out = tq.vit_features_quant(qnet, torch.from_numpy(img), layer=1).numpy()
+    assert out.shape == ref.shape == (2, 26, 128)
+    _hold_loose(out, ref)
+
+
+@pytest.mark.parametrize("pool", sorted(POOLS))
+def test_nomax3_bf16_close(pool):
+    """nomax3 in bf16, the serving dtype (logits and exp2 in bf16): held to
+    jax.jit of the reference by cosine per token (>= 0.9999), as
+    test_vit_features_quant_bf16_close."""
+    params = _params()
+    jcfg, tcfg = _nomax_cfgs("nomax3", pool)
+    qp = jax.tree.map(np.asarray, jq.quantize_vit_params(
+        params, cfg=jcfg, calib_images=jnp.asarray(_images(2)), layer=1,
+        compute_dtype=jnp.bfloat16))
+    img = _images(1, seed=4)
+    ref = _jitted_features(qp, jcfg, img, jnp.bfloat16)
+    out = tq.vit_features_quant(from_jax_quant_params(qp, tcfg, torch.bfloat16),
+                                torch.from_numpy(img), layer=1)
+    assert out.dtype == torch.bfloat16
+    out = out.float().numpy()
+    cos = (out * ref).sum(-1) / (np.linalg.norm(out, axis=-1) * np.linalg.norm(ref, axis=-1))
+    assert cos.min() >= 0.9999, cos.min()
+
+
+@pytest.mark.parametrize("pool", ["post_window", "post_matmul", "pre"])
+def test_collect_act_amax_with_pooling_matches(pool):
+    """Calibration with K/V pooling: K and V pooled after the projection
+    whatever kv_pool_where says, as the reference calibrates (f32)."""
+    params = _params()
+    jcfg, tcfg = _nomax_cfgs("nomax3", pool)
+    calib = _images(3)
+    ref = jq._collect_act_amax(params, jcfg, jnp.asarray(calib), 1, jnp.float32)
+    out = tq._collect_act_amax(_float_net(params, tcfg), tcfg, torch.from_numpy(calib), 1,
+                               torch.float32)
+    for o, r in zip(out, ref):
+        np.testing.assert_allclose(o.numpy(), np.asarray(r), rtol=1e-6)
+    # the pooled attention output is another distribution than the dense one's
+    dense = tq._collect_act_amax(_float_net(params, tcfg), _cfgs()[1], torch.from_numpy(calib),
+                                 1, torch.float32)
+    assert not torch.equal(out[2], dense[2])

@@ -154,3 +154,68 @@ def test_full_width_checkpoint_descriptors_match():
                                        layer=11, bin=True).numpy()
     assert out.shape == ref.shape == (1, 1, 64, 384 * 9)
     np.testing.assert_allclose(out, ref, rtol=0, atol=1e-5 * np.abs(ref).max())
+
+
+POOLS = {"post_window": dict(kv_pool=2, kv_pool_impl="window"),
+         "post_matmul": dict(kv_pool=2, kv_pool_impl="matmul"),
+         "pre": dict(kv_pool=2, kv_pool_impl="matmul", kv_pool_where="pre"),
+         "pool3_window": dict(kv_pool=3, kv_pool_impl="window")}
+
+
+@pytest.mark.parametrize("T,pool", [(17, 2), (26, 2), (50, 2), (50, 3), (1370, 2), (1370, 3)])
+def test_pool_matrix_identical(T, pool):
+    """The port's copy of the pooling matrix, even and odd grids (edge
+    windows of 5 x 5 and 37 x 37 count their true members), bit for bit."""
+    out = tvit._pool_matrix(T, pool)
+    np.testing.assert_array_equal(out, jvit._pool_matrix(T, pool))
+    np.testing.assert_allclose(out.sum(-1), 1.0, rtol=1e-6)
+
+
+@pytest.mark.parametrize("impl", ["window", "matmul"])
+@pytest.mark.parametrize("T", [17, 26, 50])
+def test_pool_kv_matches(impl, T):
+    """Both pooling implementations on (2, T, 3, 8) tokens against jax.jit
+    of the reference's: f32 sums of at most 9 terms in another order."""
+    t = RNG.standard_normal((2, T, 3, 8)).astype(np.float32)
+    ref = np.asarray(jax.jit(lambda x: jvit._pool_kv(x, 2, impl))(t))
+    out = tvit.pool_kv(torch.from_numpy(t), 2, impl).numpy()
+    assert out.shape == ref.shape
+    np.testing.assert_allclose(out, ref, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("size", [56, 70], ids=["grid4", "grid5"])
+@pytest.mark.parametrize("pool", sorted(POOLS))
+def test_vit_features_pooled_matches(pool, size):
+    """The float ViT with K/V pooling (plain softmax over the pooled keys)
+    against jax.jit of the reference, f32, on an even and an odd patch
+    grid: f32 matmuls in other summation orders, as the unpooled test."""
+    jcfg, tcfg = _tiny_cfgs()
+    jcfg, tcfg = (dataclasses.replace(c, **POOLS[pool]) for c in (jcfg, tcfg))
+    params = _tiny_params(jcfg)
+    imgs = _images(size, n=2)
+    ref = np.asarray(jax.jit(lambda p, x: jvit.vit_features(p, jcfg, x, layer=1))(params, imgs))
+    with torch.no_grad():
+        out = tvit.vit_features(_net(tcfg, params), torch.from_numpy(imgs), layer=1,
+                                use_kernels=True).numpy()
+    assert out.shape == ref.shape
+    np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-5)
+
+
+def test_vit_features_conv_embed_matches():
+    """patch_embed_impl='conv' (a convolution with stride = patch) against
+    the reference's conv lowering, and against the port's reshape route:
+    the same patch products, summed in another order."""
+    jcfg, tcfg = _tiny_cfgs()
+    jconv, tconv = (dataclasses.replace(c, patch_embed_impl="conv") for c in (jcfg, tcfg))
+    params = _tiny_params(jcfg)
+    imgs = _images(n=2)
+    ref = np.asarray(jax.jit(lambda p, x: jvit.vit_features(p, jconv, x, layer=0))(params, imgs))
+    with torch.no_grad():
+        out = tvit.vit_features(_net(tconv, params), torch.from_numpy(imgs), layer=0).numpy()
+        reshape = tvit.vit_features(_net(tcfg, params), torch.from_numpy(imgs), layer=0).numpy()
+    np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(out, reshape, rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError):
+        dataclasses.replace(tcfg, patch_embed_impl="einsum6")
+    with pytest.raises(ValueError):
+        dataclasses.replace(tcfg, kv_pool_impl="gather")

@@ -2,9 +2,13 @@
 (``vitvs_tpu/core/image.py``): out = W_h @ img @ W_w^T, with the weights
 computed once per shape in numpy.
 
-``resize`` keeps the reference's ``precision='highest'`` semantics: full f32
-matmuls.  On the card that needs TF32 off for matmuls and for cuDNN, which
-:func:`set_f32_matmul_precision` sets and the servo pipeline calls.
+``resize`` takes the reference's ``precision``.  'highest' (the default)
+and 'high' are full f32 matmuls; on the card that needs TF32 off for
+matmuls and for cuDNN, which :func:`set_f32_matmul_precision` sets and the
+servo pipeline calls.  'default' (the int8 serving setting) is one reduced
+precision pass: on the card the two resize products run in TF32, as XLA
+lowers ``DEFAULT`` f32 dots on Ampere and later, with TF32 allowed for
+those two products only; on the CPU it is f32, as XLA computes it there.
 
 Parity notes (as in the JAX package):
   * ``method='bicubic'`` reproduces torch's cubic convolution (A = -0.75,
@@ -17,6 +21,7 @@ Parity notes (as in the JAX package):
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import numpy as np
@@ -26,6 +31,7 @@ IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 HALF_MEAN = (0.5, 0.5, 0.5)
 HALF_STD = (0.5, 0.5, 0.5)
+PRECISIONS = ("highest", "high", "default")
 
 
 def set_f32_matmul_precision() -> None:
@@ -34,6 +40,17 @@ def set_f32_matmul_precision() -> None:
     runs rely on.  Process-wide PyTorch settings."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+@contextlib.contextmanager
+def _tf32_matmuls():
+    """TF32 cuBLAS matmuls inside the block, the setting restored after."""
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
 
 
 def _cubic_kernel(x: np.ndarray, a: float = -0.75) -> np.ndarray:
@@ -127,14 +144,20 @@ def resize(
     out_hw: tuple[int, int],
     method: str = "bilinear",
     antialias: bool = False,
+    precision: str = "highest",
 ) -> torch.Tensor:
-    """Resize (..., H, W, C) f32 images to (..., H', W', C) via two matmuls."""
+    """Resize (..., H, W, C) f32 images to (..., H', W', C) via two matmuls,
+    at ``precision`` (see the module docstring)."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
     h, w = img.shape[-3], img.shape[-2]
     oh, ow = out_hw
     wh = _weights_on(h, oh, method, antialias, None, img.device)
     ww = _weights_on(w, ow, method, antialias, None, img.device)
-    out = torch.einsum("Oh,...hwc->...Owc", wh, img)
-    return torch.einsum("Ow,...hwc->...hOc", ww, out)
+    tf32 = precision == "default" and img.device.type == "cuda"
+    with _tf32_matmuls() if tf32 else contextlib.nullcontext():
+        out = torch.einsum("Oh,...hwc->...Owc", wh, img)
+        return torch.einsum("Ow,...hwc->...hOc", ww, out)
 
 
 def interpolate_bicubic_scale_factor(
@@ -165,15 +188,18 @@ def preprocess_frame(
     std=IMAGENET_STD,
     method: str = "bicubic",
     antialias: bool = True,
+    precision: str = "highest",
 ) -> torch.Tensor:
-    """Resize to (input_size, input_size), scale uint8 to [0, 1], normalize.
+    """Resize to (input_size, input_size) at ``precision``, scale uint8 to
+    [0, 1], normalize.
 
     Accepts (..., H, W, 3) uint8 or float; returns float32 (..., S, S, 3).
     """
     img = rgb.to(torch.float32)
     if rgb.dtype == torch.uint8:
         img = img / 255.0
-    img = resize(img, (input_size, input_size), method=method, antialias=antialias)
+    img = resize(img, (input_size, input_size), method=method, antialias=antialias,
+                 precision=precision)
     return normalize(img, mean, std)
 
 

@@ -11,8 +11,17 @@ reference's ``main()`` and its Gazebo orchestration, on one device.
   6. the reference's 22-array npz and the convergence statistics.
 
 ``chunk`` episodes run together, as the reference's vmapped chunk: each
-step of a chunk is one render, one ViT forward, one matcher launch and one
-batched solve; the last chunk is padded by repeating its last episode.
+step of a chunk is one render, one ViT forward, one matcher launch (one
+int8 product when quantized) and one batched solve; the last chunk is
+padded by repeating its last episode.
+
+``quantized=True`` runs the JAX package's int8 serving configuration, the
+graph its ``bench.py`` times: W8A8 projections quantized from the float
+master weights, 'nomax3' attention, the conv patch embedding, the
+'default' (one TF32 pass) preprocess resize and source-quantized bins;
+``int8_static`` adds static activation scales calibrated on the port's
+renders of the goal view and the first min(7, n) start views of the full
+seed-41 stream (so a replayed subset serves the full sweep's scales).
 Each random stream is a ``torch.Generator`` of the model's device seeded
 from the ABSOLUTE episode index, as the JAX benchmark derives its keys (the
 search ``1000 + i``, the rollout ``i``, the texture ``(perturb_seed << 32)
@@ -24,6 +33,7 @@ round otherwise), on resuming, or on which ``episode_indices`` run.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import hashlib
 import time
 from typing import Callable, NamedTuple
@@ -32,10 +42,11 @@ import numpy as np
 import torch
 
 from vitvs_tpu_torch.harness import chunks, evals, results, samplers
-from vitvs_tpu_torch.harness.pipeline import ServoModel, goal_descriptors
+from vitvs_tpu_torch.harness.pipeline import ServoModel, goal_descriptors, quantized_vit
 from vitvs_tpu_torch.harness.rollout import (EpisodeResult, episode_init, finalize_episode,
                                              find_best_start_pose, goal_pose, rollout_segment)
 from vitvs_tpu_torch.io_bridge.config import VSConfig
+from vitvs_tpu_torch.models.quant import QuantViT
 from vitvs_tpu_torch.models.vit import ViT, init_vit
 from vitvs_tpu_torch.sim.env import observe
 from vitvs_tpu_torch.sim.scene import Scene, load_poster_scene
@@ -49,6 +60,8 @@ class BenchmarkRun(NamedTuple):
     summaries: dict                   # the npz's arrays
     device_steps: int                 # episode-steps of the real episodes run on the device
     chunk_steps: int                  # chunk-steps run on the device (one forward each)
+    net: ViT | QuantViT               # the ViT the episodes ran (the cast copy, or the int8 one)
+    model: ServoModel                 # and its model
 
 
 def build_model(cfg: VSConfig, net: ViT | None = None, compute_dtype=torch.bfloat16,
@@ -83,6 +96,25 @@ def cast_for_benchmark(net: ViT, dtype: torch.dtype) -> ViT:
     its parameters before the rollouts (its bf16 patch matmul); the servo
     step alone keeps the embedding in f32."""
     return copy.deepcopy(net).to(dtype)
+
+
+def int8_serving(net: ViT, model: ServoModel, scene: Scene, calib_poses=None
+                 ) -> tuple[QuantViT, ServoModel]:
+    """The int8 serving configuration of ``model`` (the reference
+    benchmark's ``quantized=True``): 'nomax3' attention, the conv patch
+    embedding, the 'default' preprocess resize, W8A8 weights quantized from
+    ``net``'s float weights; with ``calib_poses`` ((N, 3), (N, 4)) static
+    activation scales calibrated on the scene's views from those poses."""
+    model = dataclasses.replace(
+        model, pp_precision="default",
+        vit=dataclasses.replace(model.vit, quant_attn="nomax3", patch_embed_impl="conv"))
+    calib = None
+    if calib_poses is not None:
+        p, q = (torch.tensor(np.asarray(a, np.float32), device=model.device)
+                for a in calib_poses)
+        calib, _ = observe(scene, model.camera, p, q)
+    qnet = quantized_vit(net, model, calib)
+    return qnet, dataclasses.replace(model, quantized=True)
 
 
 def _generator(device, seed: int) -> torch.Generator:
@@ -136,6 +168,7 @@ def run_benchmark(
     checkpoint_path: str | None = None,
     mesh=None,
     quantized: bool = False,
+    int8_static: bool = False,
     episode_indices=None,
     live_dir: str | None = None,
     device="cuda",
@@ -154,13 +187,12 @@ def run_benchmark(
     ``on_step(abs_ids, inputs, result)`` sees every step of a chunk: the
     chunk's absolute episode indices (the padding repeating the last), its
     ``rollout.StepInputs`` and ``StepResult``, each with a leading B.
+    ``quantized`` (and ``int8_static``): the int8 serving configuration of
+    the module docstring, quantized from ``net``; a model that is already
+    quantized runs its ``QuantViT`` ``net`` as given.
 
-    Not ported: ``quantized`` (the int8 closed loop runs
-    ``quant_attn='nomax3'``), ``mesh`` and ``live_dir`` raise."""
+    Not ported: ``mesh`` and ``live_dir`` raise."""
     t_start = time.time()
-    if quantized or (model is not None and model.quantized):
-        raise NotImplementedError("the int8 closed loop needs quant_attn='nomax3' "
-                                  "(ROADMAP.md queue 1, item 3)")
     if mesh is not None:
         raise NotImplementedError("sharding the sweep over a mesh is not ported "
                                   "(ROADMAP.md queue 1, item 8)")
@@ -171,11 +203,19 @@ def run_benchmark(
         net, model = build_model(cfg, net, device=device)
     if net is None:
         raise ValueError("pass the ViT when supplying a prebuilt model")
-    net = cast_for_benchmark(net, model.compute_dtype)
     dev = model.device
     scene = scene or build_scene(device=dev)
 
     positions, quats, n = samplers.generate_episode_starts(cfg, seed=seed)
+    if quantized and not model.quantized:
+        calib = None
+        if int8_static:
+            k = min(7, n)
+            calib = (np.concatenate([[samplers.DESIRED_POSITION], positions[:k]]),
+                     np.concatenate([[samplers.DESIRED_ORIENTATION], quats[:k]]))
+        net, model = int8_serving(net, model, scene, calib)
+    elif not model.quantized:
+        net = cast_for_benchmark(net, model.compute_dtype)
     abs_idx = np.arange(n)
     if episode_indices is not None:
         abs_idx = np.asarray(sorted(set(int(i) for i in episode_indices)))
@@ -207,7 +247,8 @@ def run_benchmark(
         size=int(cfg.dino_input_size), layer=int(cfg.layer),
         dtype=str(model.compute_dtype), abs_idx=tuple(int(i) for i in abs_idx),
         starts=starts, seed=int(seed), perturbation=bool(perturbation),
-        perturb_seed=int(perturb_seed), rotation_search=bool(rotation_search), T=int(T))
+        perturb_seed=int(perturb_seed), rotation_search=bool(rotation_search), T=int(T),
+        quantized=bool(model.quantized), int8_static=bool(int8_static))
     episodes, ckpt_extra = chunks.load_episodes(checkpoint_path, "bench", verbose,
                                                 meta=ckpt_meta)
 
@@ -271,4 +312,4 @@ def run_benchmark(
     if verbose:
         print(f"[bench] convergence {stats.convergence_rate:.1f}% "
               f"({stats.num_converged}/{stats.num_samples}) in {total_time:.1f}s")
-    return BenchmarkRun(stats, path, summaries, device_steps, chunk_steps)
+    return BenchmarkRun(stats, path, summaries, device_steps, chunk_steps, net, model)

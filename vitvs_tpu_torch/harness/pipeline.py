@@ -21,8 +21,9 @@ solve, every reduction per episode.  One frame is the chunk of one.
 The int8 W8A8 serving step (``ServoModel.quantized``) runs a ``QuantViT``
 (``models/quant.py``, made by :func:`quantized_vit`), quantizes the binned
 descriptors at the source (``fused_bin_quant``, ``match/binned.py``) and
-matches them with an int8 matmul; ``use_kernels`` then selects the
-attention kernels or their plain versions, and never a matcher kernel.
+matches them with an int8 matmul, a chunk of B frames in one product;
+``use_kernels`` then selects the attention kernels or their plain versions,
+and never a matcher kernel.
 """
 
 from __future__ import annotations
@@ -54,7 +55,9 @@ class ServoModel:
     weights travel separately as a :class:`ViT` module.
 
     Creating one sets full-f32 matmuls on the card (no TF32), the
-    ``precision='highest'`` semantics of the preprocess resize."""
+    ``precision='highest'`` semantics of the preprocess resize;
+    ``pp_precision='default'`` allows TF32 for the resize's two products
+    alone."""
 
     vit: ViTConfig
     cfg: VSConfig
@@ -73,6 +76,9 @@ class ServoModel:
     # int8 serving only: quantize the binned descriptors at the source
     # (match/binned.quantize_binned_int8); they travel as QuantizedBinned
     fused_bin_quant: bool = True
+    # matmul precision of the preprocess resize (core/image.resize):
+    # 'highest' the f32 parity default, 'default' one TF32 pass on the card
+    pp_precision: str = "highest"
 
     def __post_init__(self):
         image_ops.set_f32_matmul_precision()
@@ -90,15 +96,18 @@ class ServoModel:
         """gelu_approx=True is the production default (tanh GELU); pass
         False for strict torch-parity numerics.  compute_dtype defaults to
         cfg.compute_dtype (bfloat16).  attn_impl and quant_attn go to the
-        ViTConfig (quant_attn matters only with quantized=True)."""
-        if cfg.attn_score != "softmax" or cfg.kv_pool != 1:
-            raise NotImplementedError("attn_score and kv_pool are not ported "
+        ViTConfig (quant_attn matters only with quantized=True), and so do
+        cfg's kv_pool, kv_pool_impl and kv_pool_where."""
+        if cfg.attn_score != "softmax":
+            raise NotImplementedError("attn_score relu / sqrelu is not ported "
                                       "(ROADMAP.md queue 1, item 3)")
         if compute_dtype is None:
             compute_dtype = getattr(torch, cfg.compute_dtype)
         vit = dataclasses.replace(make_config(cfg.model_name, cfg.stride),
                                   gelu_approx=gelu_approx, attn_impl=attn_impl,
-                                  quant_attn=quant_attn)
+                                  quant_attn=quant_attn, kv_pool=cfg.kv_pool,
+                                  kv_pool_impl=cfg.kv_pool_impl,
+                                  kv_pool_where=cfg.kv_pool_where)
         return ServoModel(vit=vit, cfg=cfg, compute_dtype=compute_dtype,
                           use_kernels=use_kernels, device=device, quantized=quantized,
                           fused_bin_quant=fused_bin_quant)
@@ -169,7 +178,7 @@ def preprocess(model: ServoModel, rgb) -> torch.Tensor:
     """Camera frame (H, W, 3) -> normalized ViT input (S, S, 3) f32."""
     return image_ops.preprocess_frame(_on_device(model, rgb), model.cfg.dino_input_size,
                                       model.mean, model.std, method="bicubic",
-                                      antialias=True)
+                                      antialias=True, precision=model.pp_precision)
 
 
 @torch.no_grad()
@@ -187,22 +196,19 @@ def quantized_vit(net: ViT, model: ServoModel, calib_rgb=None,
 
 
 def _descriptors(net: ViT | QuantViT, model: ServoModel, rgb):
-    """One frame (H, W, 3) -> (t, d) (a ``QuantizedBinned`` on the
-    source-quantized int8 path), or float descriptors of a batch of frames
-    (A, H, W, 3) -> (A, t, d) from one forward."""
+    """One frame (H, W, 3) -> (t, d), or a batch of frames (A, H, W, 3) ->
+    (A, t, d) from one forward; on the source-quantized int8 path a
+    ``QuantizedBinned`` of (t, 9D) or (A, t, 9D)."""
     _check_net(net, model)
     x = preprocess(model, rgb)
     batched = x.ndim == 4
     src_q = model.source_quantized_bins
-    if batched and src_q:
-        raise NotImplementedError("batched source-quantized descriptors are not ported "
-                                  "(ROADMAP.md queue 1, item 3)")
     desc = extract_descriptors(net, x if batched else x[None], layer=model.cfg.layer,
                                facet=model.cfg.facet, bin=model.binned and not src_q,
                                use_kernels=model.use_kernels, quantized=model.quantized)[:, 0]
-    if batched:
-        return desc
-    return quantize_binned_int8(desc[0], model.grid()) if src_q else desc[0]
+    if src_q:
+        desc = quantize_binned_int8(desc, model.grid())
+    return desc if batched else item(desc, 0)
 
 
 @torch.inference_mode()
@@ -213,9 +219,10 @@ def goal_descriptors(net: ViT | QuantViT, model: ServoModel, goal_rgb):
 
 
 @torch.inference_mode()
-def batch_descriptors(net: ViT, model: ServoModel, frames) -> torch.Tensor:
-    """Float descriptors (A, t, d) of A camera frames (A, H, W, 3), one
-    batched ViT forward (the rotation search's four views)."""
+def batch_descriptors(net: ViT | QuantViT, model: ServoModel, frames):
+    """Descriptors (A, t, d) of A camera frames (A, H, W, 3), one batched
+    ViT forward (the rotation search's views); a ``QuantizedBinned`` on the
+    source-quantized int8 path."""
     return _descriptors(net, model, frames)
 
 
@@ -239,8 +246,7 @@ def servo_step(
     arrays or tensors.  ema, prev_v_c: one episode's, or with a leading B.
     scores: (t,) or (B, t) pair-sampling scores, drawn on the model's
     device from ``generator`` (a generator of that device) when None.  One
-    frame runs as the chunk of one and its result has no batch axis.  The
-    int8 serving step takes one frame.
+    frame runs as the chunk of one and its result has no batch axis.
     """
     rgb = _on_device(model, frame_rgb)
     single = rgb.dim() == 3
@@ -253,23 +259,17 @@ def servo_step(
     k = num_pairs or cfg.num_pairs
     grid = model.grid()
     nb = rgb.shape[0]
-    one = model.quantized           # the int8 serving step matches one frame's descriptors
-    if one and nb != 1:
-        raise NotImplementedError("the int8 serving step takes one frame, not a chunk "
-                                  "(ROADMAP.md queue 1, item 3)")
-    cur_desc = _descriptors(net, model, rgb[0] if one else rgb)           # (B, t, d)
+    cur_desc = _descriptors(net, model, rgb)                               # (B, t, d)
     if scores is None:
         scores = torch.rand((nb, grid[0] * grid[1]), generator=generator, device=model.device)
     scores = scores.to(model.device)
     # int8 serving matches with an int8 matmul, never a matcher kernel
-    match = find_correspondences(goal_desc, cur_desc, grid, k, scores[0] if one else scores,
+    match = find_correspondences(goal_desc, cur_desc, grid, k, scores,
                                  distance_threshold=cfg.thresh_filter_keypoints,
                                  use_kernel=model.use_kernels and not model.quantized,
                                  int8=model.quantized, use_match_kernel=model.use_match_kernel)
     if cfg.subpixel_matching:
         match = refine_matches_subpixel(goal_desc, cur_desc, match, grid)
-    if one:
-        match = item(match, None)
 
     round_px = not cfg.subpixel_matching
     size_uv = (cfg.u_max, cfg.v_max)

@@ -20,7 +20,8 @@ Kept from the JAX package:
 * ``step_fn`` overrides the per-frame pipeline (the classical path's hook);
 * the rotation-compensation search over 4 optical-axis spins, scored by the
   mean similarity of its matches at ``num_pairs`` 48, the chunk's 4B views
-  rendered together and matched from one batched ViT forward.
+  rendered together and matched from one batched ViT forward (on the int8
+  serving path source-quantized and matched in one int8 product).
 
 Pair scores are the one random stream torch cannot reproduce: JAX draws
 ``jax.random.uniform(sub, (t,))`` each step.  Here each episode draws (t,) a
@@ -269,7 +270,8 @@ def find_best_start_pose(net, model: ServoModel, scene: Scene, goal_desc, positi
     highest mean similarity (first on ties), of one start pose (3,) / (4,)
     or of a chunk's (B, 3) / (B, 4) (``scene`` one scene, or one of B
     textures).  The 4B views are rendered in one call, described by one ViT
-    forward and matched against the goal in one matcher launch.
+    forward and matched against the goal in one matcher launch (one int8
+    product on the int8 serving path).
     ``scores``: injected pair scores (A, t), or (B, A, t); else each
     episode's generator (``generator``: one, or the chunk's B) draws (A, t)
     on the model's device.  Returns (position, best quat)."""
@@ -292,7 +294,7 @@ def find_best_start_pose(net, model: ServoModel, scene: Scene, goal_desc, positi
     m = find_correspondences(goal_desc, descs, model.grid(), SEARCH_PAIRS,
                              scores.to(dev).flatten(0, 1),
                              use_kernel=model.use_kernels and not model.quantized,
-                             use_match_kernel=model.use_match_kernel)
+                             int8=model.quantized, use_match_kernel=model.use_match_kernel)
     total = torch.where(m.valid, m.sim, torch.zeros_like(m.sim)).sum(-1)
     mean = total / torch.clamp(m.num_valid, min=1)
     mean_sims = torch.where(m.num_valid > 0, mean, torch.full_like(mean, -math.inf))

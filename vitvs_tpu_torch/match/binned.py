@@ -10,7 +10,7 @@ values equal quantizing the materialized binned rows on the same grid.
 
 ``binned_cosine_similarity`` and ``fast_binned_match`` (the factorized
 similarity) are not ported: the serving step does not run them (ROADMAP.md
-queue 1, item 3).
+queue 1, item 4).
 """
 
 from __future__ import annotations
@@ -26,39 +26,43 @@ from vitvs_tpu_torch.ops.attn_int8 import INV127
 class QuantizedBinned(NamedTuple):
     """int8 hierarchy-1 log-binned descriptors: ``q`` holds
     ``round(binned_row * 127 / amax(binned_row))`` and ``nq`` the per-row
-    sum of squares; every per-row scale cancels in the cosine."""
+    sum of squares; every per-row scale cancels in the cosine.  A chunk of
+    B frames' has a leading B on both."""
 
     q: torch.Tensor    # (t, 9D) int8
     nq: torch.Tensor   # (t,) float32
 
 
-def _edge_pad(x: torch.Tensor) -> torch.Tensor:
-    """Pad the two leading (grid) axes by one, repeating the edge."""
-    x = torch.cat([x[:1], x, x[-1:]], dim=0)
-    return torch.cat([x[:, :1], x, x[:, -1:]], dim=1)
+def _edge_pad(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Pad the grid axes ``dim`` and ``dim + 1`` by one, repeating the edge."""
+    for d in (dim, dim + 1):
+        n = x.shape[d]
+        x = torch.cat([x.narrow(d, 0, 1), x, x.narrow(d, n - 1, 1)], dim=d)
+    return x
 
 
 def quantize_binned_int8(base: torch.Tensor, grid: tuple[int, int]) -> QuantizedBinned:
-    """UNBINNED (t, D) descriptors -> int8 binned descriptors.
+    """UNBINNED (t, D) descriptors, or a chunk's (B, t, D) -> int8 binned
+    descriptors (t, 9D), or (B, t, 9D); each item is its frame alone.
 
     Bin order (dy outer, dx inner over -1, 0, 1) and edge clamping match
     ``log_bin`` at hierarchy 1.  The inverse scale is rounded to the
     descriptors' dtype and the rescale runs in it, as in JAX."""
-    t, D = base.shape
+    *lead, t, D = base.shape
     gh, gw = grid
     if t != gh * gw:
         raise ValueError(f"{t} descriptors do not fit the {gh}x{gw} grid")
-    x = base.reshape(gh, gw, D)
-    a_p = _edge_pad(x.abs().amax(-1).float())                  # (gh + 2, gw + 2)
-    amax9 = torch.zeros(gh, gw, dtype=torch.float32, device=base.device)
+    x = base.reshape(*lead, gh, gw, D)
+    a_p = _edge_pad(x.abs().amax(-1).float(), -2)             # (..., gh + 2, gw + 2)
+    amax9 = torch.zeros(*lead, gh, gw, dtype=torch.float32, device=base.device)
     for dy in (0, 1, 2):
         for dx in (0, 1, 2):
-            amax9 = torch.maximum(amax9, a_p[dy:dy + gh, dx:dx + gw])
+            amax9 = torch.maximum(amax9, a_p[..., dy:dy + gh, dx:dx + gw])
     inv = (127.0 / torch.clamp(amax9, min=1e-12)).to(base.dtype)[..., None]
-    xp = _edge_pad(x)
-    parts = [torch.clamp(torch.round(xp[dy:dy + gh, dx:dx + gw] * inv), -127, 127)
+    xp = _edge_pad(x, -3)
+    parts = [torch.clamp(torch.round(xp[..., dy:dy + gh, dx:dx + gw, :] * inv), -127, 127)
              .to(torch.int8) for dy in (0, 1, 2) for dx in (0, 1, 2)]
-    q = torch.cat(parts, dim=-1).reshape(t, 9 * D)
+    q = torch.cat(parts, dim=-1).reshape(*lead, t, 9 * D)
     nq = torch.square(q.float()).sum(-1)
     return QuantizedBinned(q=q, nq=nq)
 

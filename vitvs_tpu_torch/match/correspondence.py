@@ -10,7 +10,8 @@ mode, which f32 descriptors take either way).  ``use_kernel`` picks the
 CUDA kernel of that mode, or with ``use_kernel`` off its plain version;
 CPU tensors always take the plain version.  int8 matching (``int8=True``, or
 source-quantized :class:`QuantizedBinned` descriptors) takes its similarity
-from :func:`cosine_similarity_matrix`, an int8 matmul, then row/column
+from :func:`cosine_similarity_matrix`, one int8 matmul of a chunk's B frames'
+rows (B t, d) against the goal's, then each frame's row and column
 max/argmax; it never goes through a matcher kernel.
 
 Kept from the JAX package: first-index argmax ties; the float32
@@ -49,6 +50,14 @@ class MatchResult(NamedTuple):
     same_image: torch.Tensor  # () bool
 
 
+def _int8_frames_by_goal(goal_q: torch.Tensor, frames_q: torch.Tensor) -> torch.Tensor:
+    """int8 goal rows (t1, d) and a chunk's frame rows (B, t2, d) -> the
+    exact int32 products (B, t2, t1), as ONE (B t2, d) x (d, t1) product
+    (``torch._int_mm`` is 2-D)."""
+    B, t2, d = frames_q.shape
+    return int8_matmul_nt(frames_q.reshape(B * t2, d), goal_q).reshape(B, t2, -1)
+
+
 def cosine_similarity_matrix(desc1, desc2, int8: bool = False) -> torch.Tensor:
     """(t1, d) x (t2, d) -> (t1, t2) f32 cosine similarities.
 
@@ -58,22 +67,29 @@ def cosine_similarity_matrix(desc1, desc2, int8: bool = False) -> torch.Tensor:
     quantized rows' norms.  :class:`QuantizedBinned` inputs: the int8
     matmul scaled by the rsqrt of the quantized rows' sums of squares (all
     per-row scales cancel)."""
+    if int8 or isinstance(desc1, QuantizedBinned) or isinstance(desc2, QuantizedBinned):
+        return _int8_similarity_t(desc1, item(desc2, None))[0].T
+    return unit_rows(desc1).float() @ unit_rows(desc2).float().T
+
+
+def _int8_similarity_t(desc1, desc2) -> torch.Tensor:
+    """int8 cosine similarities of a chunk, transposed: goal (t1, d)
+    against frames (B, t2, d), float rows quantized per row or
+    :class:`QuantizedBinned` -> (B, t2, t1) f32, each frame's the same
+    values in the same order of operations as the reference's (t1, t2)
+    matrix of that frame alone."""
     if isinstance(desc1, QuantizedBinned) or isinstance(desc2, QuantizedBinned):
         if not (isinstance(desc1, QuantizedBinned) and isinstance(desc2, QuantizedBinned)):
             raise TypeError("both descriptor sets must be QuantizedBinned, or neither")
-        acc = int8_matmul_nt(desc1.q, desc2.q).float()
-        return (acc * torch.rsqrt(desc1.nq + 1e-12)[:, None]
-                * torch.rsqrt(desc2.nq + 1e-12)[None, :])
-
-    a, b = unit_rows(desc1), unit_rows(desc2)
-    if int8:
-        qa, sa = quantize_rows_int8(a)
-        qb, sb = quantize_rows_int8(b)
-        sim = int8_matmul_nt(qa, qb).float() * sa * sb.reshape(1, -1)
-        na = torch.square(qa.float() * sa).sum(-1, keepdim=True)
-        nb = torch.square(qb.float() * sb).sum(-1, keepdim=True)
-        return sim * torch.rsqrt(na + 1e-24) * torch.rsqrt(nb.reshape(1, -1) + 1e-24)
-    return a.float() @ b.float().T
+        acc = _int8_frames_by_goal(desc1.q, desc2.q).float()
+        return (acc * torch.rsqrt(desc1.nq + 1e-12)[None, None, :]
+                * torch.rsqrt(desc2.nq + 1e-12)[..., None])
+    qa, sa = quantize_rows_int8(unit_rows(desc1))            # (t1, d), (t1, 1)
+    qb, sb = quantize_rows_int8(unit_rows(desc2))            # (B, t2, d), (B, t2, 1)
+    sim = _int8_frames_by_goal(qa, qb).float() * sa.reshape(1, 1, -1) * sb
+    na = torch.square(qa.float() * sa).sum(-1)
+    nb = torch.square(qb.float() * sb).sum(-1, keepdim=True)
+    return sim * torch.rsqrt(na + 1e-24).reshape(1, 1, -1) * torch.rsqrt(nb + 1e-24)
 
 
 def _to_cartesian(idx: torch.Tensor, width: int) -> torch.Tensor:
@@ -97,23 +113,25 @@ def find_correspondences(
 
     desc1: (t, d) goal descriptors on the row-major grid ``num_patches``;
     desc2: one frame's (t, d), or a chunk's (B, t, d) against the same goal
-    (one matcher launch), or :class:`QuantizedBinned` pairs of one frame.
+    (one matcher launch, or one int8 product); :class:`QuantizedBinned`
+    descriptors the same, with a (t, 9D) goal and (B, t, 9D) frames.
     scores: (t,) sampling scores, (B, t) for a chunk; the ``num_pairs``
     eligible tokens with the largest scores are taken (ties to the lower
     index, as ``lax.top_k``).
     use_kernel: float matching through the matcher kernel of the selected
     mode (else its plain version); it does not compose with int8 matching,
-    which is an int8 matmul (as in the JAX package) of one frame.
+    which is an int8 matmul, as in the JAX package.
     use_match_kernel: the reference's flag: match in the TPU kernel's f32
     arithmetic instead of its default (see the module docstring).
     A frame is the chunk of one: every reduction is per frame.
     """
     gh, gw = num_patches
     quantized = isinstance(desc1, QuantizedBinned)
-    single = quantized or desc2.dim() == 2
+    rows2 = desc2.q if isinstance(desc2, QuantizedBinned) else desc2
+    single = rows2.dim() == 2
     rows = desc1.q if quantized else desc1
     t = rows.shape[0]
-    nb = 1 if single else desc2.shape[0]
+    nb = 1 if single else rows2.shape[0]
     if single:
         scores = scores[None]
     if t != gh * gw or scores.shape != (nb, t):
@@ -124,11 +142,9 @@ def find_correspondences(
         if use_kernel:
             raise ValueError("use_kernel does not compose with int8 matching: the "
                              "matcher kernels compute a float similarity")
-        if not single:
-            raise NotImplementedError("int8 matching of a chunk of frames is not ported "
-                                      "(ROADMAP.md queue 1, item 3)")
-        sim = cosine_similarity_matrix(desc1, desc2, int8=int8)
-        sim_1, nn_1, nn_2 = sim.amax(1)[None], sim.argmax(1)[None], sim.argmax(0)[None]
+        # (B, t2, t1): the row max/argmax of goal token i runs over t2
+        sim_t = _int8_similarity_t(desc1, item(desc2, None) if single else desc2)
+        sim_1, nn_1, nn_2 = sim_t.amax(1), sim_t.argmax(1), sim_t.argmax(2)
     else:
         if use_match_kernel or rows.dtype == torch.float32:
             match_fn = dual_argmax_cosine if use_kernel else dual_argmax_cosine_plain
@@ -185,8 +201,8 @@ def refine_matches_subpixel(
     +-0.5 patch and zeroed on grid borders, for invalid slots and under the
     same-image shortcut; goal points stay at patch centres.  ``desc2`` and
     ``match``: one frame's, or a chunk's (B, t, d) and (B, k, ...).
-    :class:`QuantizedBinned` inputs (one frame): the int8 rows are gathered
-    (their per-row scales cancel in the unit normalization)."""
+    :class:`QuantizedBinned` inputs: the int8 rows are gathered (their
+    per-row scales cancel in the unit normalization)."""
     gh, gw = num_patches
     if isinstance(desc1, QuantizedBinned):
         desc1, desc2 = desc1.q, desc2.q

@@ -12,9 +12,16 @@ Attention inside the int8 block follows ``ViTConfig.quant_attn``:
 'none' runs bf16 attention (exact softmax, or the no-max kernel under
 ``attn_impl='fast'``), 'fused' the fused int8-QK^T kernel
 (``ops/attn_int8.py``), each the CUDA kernel on the card or its plain
-version.  The other modes of the JAX package ('pv', 'qk+pv', 'nomax',
-'nomax2', 'nomax3'), ``kv_pool``, ``attn_score`` and the 'attn' facet are
-not ported (ROADMAP.md queue 1, item 3).
+version; 'nomax', 'nomax2' and 'nomax3' the JAX package's no-max,
+deferred-normalize softmax, which is plain XLA there and plain PyTorch
+here (logits clamped at ``nomax_clamp`` instead of max-subtracted, the
+1/denominator applied to the P.V output; 'nomax3', the serving mode, folds
+hd^-0.5 log2(e) into Q and keeps logits and probabilities in the compute
+dtype).  K/V pooling (``kv_pool``) runs with every mode but 'fused': after
+the qkv projection ('post') or, with ``kv_pool_where='pre'``, as the K/V
+columns of the int8 qkv product on the pooled normed tokens; pooled
+attention takes no kernel.  'pv', 'qk+pv', ``attn_score`` and the 'attn'
+facet are not ported (ROADMAP.md queue 1, item 3).
 
 Dtype points follow the JAX package: activation scales are f32, the
 inverse scale is rounded to the activation dtype and ``round(x * inv)``
@@ -34,7 +41,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from vitvs_tpu_torch.models.vit import ViT, ViTConfig, attention_core, embed_tokens
+from vitvs_tpu_torch.models.vit import (ViT, ViTConfig, attention_core, embed_tokens, pool_kv,
+                                        pool_matrix, softmax_attention)
 from vitvs_tpu_torch.ops.attn_int8 import (INV127, fused_int8_attention,
                                            fused_int8_attention_plain)
 from vitvs_tpu_torch.ops.int_mm import int8_matmul_nt
@@ -171,11 +179,50 @@ class QuantViT(nn.Module):
         return x.to(dt)
 
 
+NOMAX_MODES = ("nomax", "nomax2", "nomax3")
+
+
+def _nomax_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     cfg: ViTConfig) -> torch.Tensor:
+    """The no-max modes of the JAX ``_attn_qkv``: q (B, T, h, hd) against
+    (possibly pooled) k, v (B, Tk, h, hd) -> (B, T, h * hd) in q's dtype.
+    Exp is taken of the logits clamped at ``nomax_clamp`` (no row max); the
+    denominator sums in f32, floored at 1e-30, and divides the P.V output.
+    'nomax': f32 logits scaled by hd^-0.5, exp(min(l, c) - c); 'nomax2':
+    hd^-0.5 folded into Q, exp(min(l, c)) in f32; 'nomax3': hd^-0.5 log2(e)
+    folded into Q (rounded to q's dtype), logits and exp2(min(l, c log2(e)))
+    in q's dtype."""
+    B, T, h, hd = q.shape
+    dt, mode, clamp = q.dtype, cfg.quant_attn, cfg.nomax_clamp
+    scale = 1.0 / math.sqrt(hd)
+    if mode == "nomax2":
+        q = q * torch.tensor(scale, dtype=dt, device=q.device)
+    elif mode == "nomax3":
+        q = q * torch.tensor(scale * math.log2(math.e), dtype=dt, device=q.device)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k)
+    if mode == "nomax3":
+        e = torch.exp2(torch.minimum(logits, torch.tensor(clamp * math.log2(math.e), dtype=dt,
+                                                          device=q.device)))
+    elif mode == "nomax2":
+        e = torch.exp(torch.clamp(logits.float(), max=clamp))
+    else:
+        e = torch.exp(torch.clamp(logits.float() * scale, max=clamp) - clamp)
+    denom = torch.clamp(e.sum(-1, dtype=torch.float32), min=1e-30)       # (B, h, T)
+    pv = torch.einsum("bhqk,bkhd->bqhd", e.to(dt), v)
+    return (pv.float() / denom.transpose(1, 2)[..., None]).to(dt).reshape(B, T, h * hd)
+
+
 def _attn_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg: ViTConfig,
               use_kernels: bool) -> torch.Tensor:
-    """quant_attn='none': bf16 attention of (B, T, h, hd) q, k, v -> (B, T, D),
-    exact softmax or the no-max variant under attn_impl='fast'."""
+    """Attention of (B, T, h, hd) q against (possibly pooled) k, v -> (B, T,
+    D) for every mode but 'fused': the no-max modes; 'none' the bf16
+    attention (exact softmax, or the no-max kernel under attn_impl='fast'),
+    in plain PyTorch when the keys are pooled."""
     B, T, h, hd = q.shape
+    if cfg.quant_attn in NOMAX_MODES:
+        return _nomax_attention(q, k, v, cfg)
+    if cfg.kv_pool > 1:
+        return softmax_attention(q, k, v)
     return attention_core(q, k, v, use_kernels, cfg.attn_impl).reshape(B, T, h * hd)
 
 
@@ -184,14 +231,30 @@ def _block_q(x: torch.Tensor, blk: QuantBlock, cfg: ViTConfig,
     """Pre-norm block with int8 projections (mirrors the JAX ``_block_q``)."""
     B, T, D = x.shape
     h, hd = cfg.num_heads, cfg.head_dim
-    qkv = blk.qkv(blk.norm1(x), blk.act(0))
-    if cfg.quant_attn == "fused":
-        # q, k, v stay column slices of the qkv output, no head transpose
-        fn = fused_int8_attention if use_kernels else fused_int8_attention_plain
-        attn = fn(qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:], heads=h)
+    if cfg.quant_attn == "fused" and cfg.kv_pool > 1:
+        raise ValueError("quant_attn='fused' (ops/attn_int8.py) does not compose with kv_pool")
+    x_norm = blk.norm1(x)
+    if cfg.kv_pool > 1 and cfg.kv_pool_where == "pre":
+        # the K/V columns of the int8 qkv product run on the pooled tokens,
+        # their per-column weight scales sliced with them and the static qkv
+        # activation scale shared (pooled means stay within the calibrated amax)
+        lin = blk.qkv
+        xp = torch.einsum("ot,btd->bod", pool_matrix(T, cfg.kv_pool, x_norm), x_norm)
+        q = _q_matmul(x_norm, lin.weight[:D], lin.scale[:D], lin.bias[:D], x.dtype, blk.act(0))
+        kv = _q_matmul(xp, lin.weight[D:], lin.scale[D:], lin.bias[D:], x.dtype, blk.act(0))
+        kv = kv.reshape(B, -1, 2, h, hd)
+        attn = _attn_qkv(q.reshape(B, T, h, hd), kv[:, :, 0], kv[:, :, 1], cfg, use_kernels)
     else:
-        q, k, v = qkv.reshape(B, T, 3, h, hd).permute(2, 0, 1, 3, 4).contiguous().unbind(0)
-        attn = _attn_qkv(q, k, v, cfg, use_kernels)
+        qkv = blk.qkv(x_norm, blk.act(0))
+        if cfg.quant_attn == "fused":
+            # q, k, v stay column slices of the qkv output, no head transpose
+            fn = fused_int8_attention if use_kernels else fused_int8_attention_plain
+            attn = fn(qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:], heads=h)
+        else:
+            q, k, v = qkv.reshape(B, T, 3, h, hd).permute(2, 0, 1, 3, 4).contiguous().unbind(0)
+            k = pool_kv(k, cfg.kv_pool, cfg.kv_pool_impl)
+            v = pool_kv(v, cfg.kv_pool, cfg.kv_pool_impl)
+            attn = _attn_qkv(q, k, v, cfg, use_kernels)
     x = x + blk.ls1 * blk.proj(attn.to(x.dtype), blk.act(2))
     mid = blk.fc1(blk.norm2(x), blk.act(1))
     mid = F.gelu(mid, approximate="tanh" if cfg.gelu_approx else "none")
@@ -251,13 +314,14 @@ def _collect_act_amax(net: ViT, cfg: ViTConfig, images: torch.Tensor, layer: int
     batch, blocks 0..layer: per channel for the LayerNorm outputs (qkv, fc1
     inputs), per tensor for the attention and GELU outputs (proj, fc2
     inputs).  Exact softmax in the compute dtype, whatever ``quant_attn``
-    says.  Returns ((layer+1, D), (layer+1, D), (layer+1,), (layer+1,))."""
+    says; with ``kv_pool`` K and V pooled after the projection, whatever
+    ``kv_pool_where`` says (as the JAX package calibrates).  Returns
+    ((layer+1, D), (layer+1, D), (layer+1,), (layer+1,))."""
     dt = compute_dtype
     x = embed_tokens(cfg, images.to(dt), net.patch_embed.proj.weight.float(),
                      net.patch_embed.proj.bias.float(), net.cls_token.float(),
                      net.pos_embed.float()).to(dt)
     D, h, hd = cfg.embed_dim, cfg.num_heads, cfg.head_dim
-    scale = 1.0 / math.sqrt(hd)
     approximate = "tanh" if cfg.gelu_approx else "none"
     # the block's parameters are rounded to the compute dtype first, as JAX casts them
     lin = lambda mod, a: a @ mod.weight.to(dt).T + mod.bias.to(dt)
@@ -270,9 +334,8 @@ def _collect_act_amax(net: ViT, cfg: ViTConfig, images: torch.Tensor, layer: int
         B, T, _ = x.shape
         n1 = ln(x, blk.norm1)
         q, k, v = lin(blk.attn.qkv, n1).reshape(B, T, 3, h, hd).unbind(2)
-        logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float()
-        probs = torch.softmax(logits * scale, -1).to(dt)
-        attn = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(B, T, D)
+        attn = softmax_attention(q, pool_kv(k, cfg.kv_pool, cfg.kv_pool_impl),
+                                 pool_kv(v, cfg.kv_pool, cfg.kv_pool_impl))
         x = x + blk.ls1.gamma.to(dt) * lin(blk.attn.proj, attn)
         n2 = ln(x, blk.norm2)
         act = F.gelu(lin(blk.mlp.fc1, n2), approximate=approximate)

@@ -1,11 +1,15 @@
 """DINOv2-style Vision Transformer (``vitvs_tpu/models/vit.py``) as an
 ``nn.Module``, with the facet forward of the servo step.
 
-Covered: patch embedding (a reshape and one matmul when stride == patch, a
-convolution otherwise), bicubic pos-embed resampling with the DINO "+0.1"
-scale fudge, pre-norm blocks with LayerScale, LayerNorm statistics in f32,
-exact or tanh GELU, softmax attention, and ``vit_features`` up to block
-``layer`` for the token / query / key / value facets.
+Covered: patch embedding (a reshape and one matmul when stride == patch
+and ``patch_embed_impl='reshape'``, a convolution otherwise), bicubic
+pos-embed resampling with the DINO "+0.1" scale fudge, pre-norm blocks with
+LayerScale, LayerNorm statistics in f32, exact or tanh GELU, softmax
+attention, K/V pooling (``kv_pool``: the spatial keys and values mean-pooled
+``kv_pool`` x ``kv_pool`` over the patch grid, after the qkv projection or,
+with ``kv_pool_where='pre'``, of the normed tokens before the K/V
+projection), and ``vit_features`` up to block ``layer`` for the token /
+query / key / value facets.
 
 Dtypes follow the JAX package: the embedding (patch kernel, cls, pos) stays
 f32 and sees the images rounded to the compute dtype; the blocks run in the
@@ -17,15 +21,19 @@ Attention goes through one dispatch point, :func:`attention_core`, routed by
 ``ViTConfig.attn_impl``: exact softmax ('xla', 'pallas', 'auto') or the
 no-max serving variant ('fast'), each the kernel wrapper of
 ``ops.attention`` (CUDA kernel on the card, plain version on the CPU), or
-its plain version when ``use_kernels`` is off.
+its plain version when ``use_kernels`` is off.  Pooled attention
+(``kv_pool > 1``) is plain PyTorch whatever ``attn_impl`` says: the JAX
+package sends it to no Pallas kernel either.
 State-dict names follow torch-hub DINOv2 (``blocks.0.attn.qkv.weight`` ...).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -37,10 +45,12 @@ from vitvs_tpu_torch.ops.attention import (mha_attention, mha_attention_fast_pla
 # 'xla', 'pallas' and 'auto' name the JAX package's exact-softmax paths; the
 # port runs them all as exact softmax.  'fast' is the no-max serving kernel.
 ATTN_IMPLS = ("xla", "pallas", "auto", "fast")
-# int8 serving attention modes of models/quant.py that the port runs; the
-# others ('pv', 'qk+pv', 'nomax', 'nomax2', 'nomax3') wait for ROADMAP.md
-# queue 1, item 3
-QUANT_ATTN_MODES = ("none", "fused")
+# int8 serving attention modes of models/quant.py that the port runs; 'pv'
+# and 'qk+pv' (int8 probabilities) wait for ROADMAP.md queue 1, item 3
+QUANT_ATTN_MODES = ("none", "fused", "nomax", "nomax2", "nomax3")
+KV_POOL_IMPLS = ("window", "matmul")
+KV_POOL_WHERE = ("post", "pre")
+PATCH_EMBED_IMPLS = ("reshape", "conv")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,6 +69,19 @@ class ViTConfig:
     model_name: str = "dinov2_vits14"
     attn_impl: str = "xla"       # see ATTN_IMPLS
     quant_attn: str = "none"     # int8 serving path only (models/quant.py)
+    # the no-max modes clamp the logits at this bound instead of subtracting
+    # the row max
+    nomax_clamp: float = 30.0
+    # mean-pool K and V kv_pool x kv_pool over a square patch grid (the CLS
+    # token passes through; edge windows of odd grids average their true
+    # count); 'window' sums reshaped windows, 'matmul' applies the static
+    # (T_out, T) pooling matrix; 'pre' pools the normed tokens before the K/V
+    # projection (always by the matrix), 'post' pools K and V after it
+    kv_pool: int = 1
+    kv_pool_impl: str = "window"
+    kv_pool_where: str = "post"
+    # non-overlapping patch embedding: a reshape and one matmul, or a convolution
+    patch_embed_impl: str = "reshape"
 
     def __post_init__(self):
         if self.attn_impl not in ATTN_IMPLS:
@@ -67,6 +90,12 @@ class ViTConfig:
             raise NotImplementedError(
                 f"quant_attn={self.quant_attn!r} is not ported (ROADMAP.md queue 1, item 3); "
                 f"the port runs {QUANT_ATTN_MODES}")
+        for name, allowed in (("kv_pool_impl", KV_POOL_IMPLS), ("kv_pool_where", KV_POOL_WHERE),
+                              ("patch_embed_impl", PATCH_EMBED_IMPLS)):
+            if getattr(self, name) not in allowed:
+                raise ValueError(f"{name} must be one of {allowed}, got {getattr(self, name)!r}")
+        if self.kv_pool < 1:
+            raise ValueError(f"kv_pool must be at least 1, got {self.kv_pool}")
 
     @property
     def head_dim(self) -> int:
@@ -119,6 +148,76 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (mha_attention_fast_plain if fast else mha_attention_plain)(q, k, v)
 
 
+def _pool_grid_dims(T: int, pool: int) -> tuple[int, int]:
+    """(grid side g, windows per side) of T = 1 + g * g tokens."""
+    g = int(round(math.sqrt(T - 1)))
+    if g * g != T - 1:
+        raise ValueError(f"kv_pool requires a square patch grid; got {T - 1} spatial tokens")
+    return g, -(-g // pool)
+
+
+@functools.lru_cache(maxsize=8)
+def _pool_matrix(T: int, pool: int) -> np.ndarray:
+    """Static (1 + nw * nw, T) f32 mean-pooling matrix over the (1 + g * g)
+    token axis: row 0 passes CLS through; a window's row holds 1 / count at
+    its member patches (edge windows of odd grids count their true
+    members).  ``vitvs_tpu/models/vit.py:_pool_matrix``, copied."""
+    g, nw = _pool_grid_dims(T, pool)
+    P = np.zeros((1 + nw * nw, T), np.float32)
+    P[0, 0] = 1.0
+    for wi in range(nw):
+        rows = range(wi * pool, min((wi + 1) * pool, g))
+        for wj in range(nw):
+            cols = range(wj * pool, min((wj + 1) * pool, g))
+            w = 1.0 / (len(rows) * len(cols))
+            for r in rows:
+                for c in cols:
+                    P[1 + wi * nw + wj, 1 + r * g + c] = w
+    return P
+
+
+def pool_matrix(T: int, pool: int, like: torch.Tensor) -> torch.Tensor:
+    """:func:`_pool_matrix` in ``like``'s dtype on its device."""
+    return torch.from_numpy(_pool_matrix(T, pool)).to(like.device, like.dtype)
+
+
+def pool_kv(t: torch.Tensor, pool: int, impl: str = "window") -> torch.Tensor:
+    """Mean-pool the spatial tokens of (B, 1 + g * g, h, hd) ``pool`` x
+    ``pool`` over the patch grid, in t's dtype; the CLS token passes
+    through.  'matmul': one token-axis product with the pooling matrix;
+    'window': zero-pad, window sums, then times the windows' inverse counts."""
+    if pool <= 1:
+        return t
+    B, T, h, hd = t.shape
+    if impl == "matmul":
+        return torch.einsum("ot,bthd->bohd", pool_matrix(T, pool, t), t)
+    if impl != "window":
+        raise ValueError(f"unknown kv_pool_impl {impl!r} (expected 'window' or 'matmul')")
+    g, nw = _pool_grid_dims(T, pool)
+    pad = nw * pool - g
+    sp = t[:, 1:].reshape(B, g, g, h * hd)
+    if pad:
+        sp = F.pad(sp, (0, 0, 0, pad, 0, pad))
+    sums = sp.reshape(B, nw, pool, nw, pool, h * hd).sum(dim=(2, 4))
+    cnt = np.full(nw, pool, np.float32)
+    if pad:
+        cnt[-1] = g - pool * (nw - 1)
+    inv = torch.from_numpy(1.0 / (cnt[:, None] * cnt[None, :])).to(t.device, t.dtype)
+    pooled = (sums * inv[None, :, :, None]).reshape(B, nw * nw, h, hd)
+    return torch.cat([t[:, :1], pooled], dim=1)
+
+
+def softmax_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Exact softmax attention in plain PyTorch, the JAX package's XLA path:
+    q (B, Tq, h, hd) against (possibly pooled) k, v (B, Tk, h, hd) -> (B, Tq,
+    h * hd); logits in q's dtype, then softmax of the f32 logits times
+    hd^-0.5, probabilities rounded to q's dtype for P.V."""
+    B, T, h, hd = q.shape
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float()
+    probs = torch.softmax(logits * (1.0 / math.sqrt(hd)), dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(B, T, h * hd)
+
+
 def _layernorm(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
     """LayerNorm with f32 statistics whatever the compute dtype."""
     return F.layer_norm(x.float(), norm.normalized_shape, norm.weight.float(),
@@ -141,8 +240,8 @@ class Attention(nn.Module):
     def __init__(self, cfg: ViTConfig):
         super().__init__()
         D = cfg.embed_dim
+        self.cfg = cfg
         self.num_heads = cfg.num_heads
-        self.attn_impl = cfg.attn_impl
         self.qkv = nn.Linear(D, 3 * D, bias=cfg.qkv_bias)
         self.proj = nn.Linear(D, D)
 
@@ -152,10 +251,33 @@ class Attention(nn.Module):
         qkv = self.qkv(x_norm).reshape(B, T, 3, self.num_heads, D // self.num_heads)
         return qkv.permute(2, 0, 1, 3, 4).contiguous()
 
+    def qkv_prepool(self, x_norm: torch.Tensor):
+        """kv_pool_where='pre': q (B, T, h, hd) projected from every token,
+        k and v (B, T_p, h, hd) from the pooled normed tokens (equal to
+        project-then-pool up to float association: each pooling row sums to
+        1, so the bias passes through)."""
+        B, T, D = x_norm.shape
+        h = self.num_heads
+        w, b = self.qkv.weight, self.qkv.bias
+        xp = torch.einsum("ot,btd->bod", pool_matrix(T, self.cfg.kv_pool, x_norm), x_norm)
+        q = F.linear(x_norm, w[:D], None if b is None else b[:D]).reshape(B, T, h, D // h)
+        kv = F.linear(xp, w[D:], None if b is None else b[D:]).reshape(B, -1, 2, h, D // h)
+        return q, kv[:, :, 0], kv[:, :, 1]
+
     def forward(self, x_norm: torch.Tensor, use_kernels: bool) -> torch.Tensor:
         B, T, D = x_norm.shape
-        q, k, v = self.qkv_heads(x_norm).unbind(0)
-        out = attention_core(q, k, v, use_kernels, self.attn_impl).reshape(B, T, D)
+        cfg = self.cfg
+        if cfg.kv_pool == 1:
+            q, k, v = self.qkv_heads(x_norm).unbind(0)
+            out = attention_core(q, k, v, use_kernels, cfg.attn_impl).reshape(B, T, D)
+        else:
+            if cfg.kv_pool_where == "pre":
+                q, k, v = self.qkv_prepool(x_norm)
+            else:
+                q, k, v = self.qkv_heads(x_norm).unbind(0)
+                k = pool_kv(k, cfg.kv_pool, cfg.kv_pool_impl)
+                v = pool_kv(v, cfg.kv_pool, cfg.kv_pool_impl)
+            out = softmax_attention(q, k, v)
         return self.proj(out)
 
 
@@ -240,13 +362,13 @@ def embed_tokens(cfg: ViTConfig, images: torch.Tensor, weight: torch.Tensor,
     """Patch embedding (``vitvs_tpu/models/vit.py:_embed``): images
     (B, H, W, 3), patch kernel (D, 3, P, P) OIHW -> tokens (B, 1+t, D) with
     cls and pos embeddings, computed in the promoted dtype of the images and
-    the kernel (a reshape and one matmul when stride == patch, a
-    convolution otherwise)."""
+    the kernel (a reshape and one matmul when stride == patch and
+    ``patch_embed_impl`` is 'reshape', a convolution otherwise)."""
     B, H, W, _ = images.shape
     gh, gw = cfg.num_patches(H, W)
     ct = torch.promote_types(images.dtype, weight.dtype)
     x, w = images.to(ct), weight.to(ct)
-    if cfg.stride == cfg.patch_size:
+    if cfg.stride == cfg.patch_size and cfg.patch_embed_impl == "reshape":
         P = cfg.patch_size
         x = x[:, : gh * P, : gw * P, :].reshape(B, gh, P, gw, P, 3)
         x = x.permute(0, 1, 3, 2, 4, 5).reshape(B, gh * gw, P * P * 3)
