@@ -2,21 +2,28 @@
 """Smoke run of the PyTorch/CUDA port (vitvs_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py              # the smoke run below
-    python3 chip_smoke.py --profile [bf16|f32|F|N|loop|loop518|int8loop] [--trace trace.json]
+    python3 chip_smoke.py --profile [bf16|f32|F|N|loop|loop518|int8loop|sift|orb|akaze|harris]
+                          [--trace trace.json]
                           [--chunk B]  # only: device-time breakdown of servo steps
                                        # of the bf16 or f32 path or an int8 serving variant,
                                        # or of closed-loop steps (at 308, or on the trained
                                        # ViT-S/14 @ 518 in bf16 or, int8loop, at run AD's
-                                       # int8 settings, a chunk of B episodes a step)
-    python3 chip_smoke.py --replay A:B [--int8] [--chunk C] [--checkpoint F] [--budget-s S]
+                                       # int8 settings; or a classical method's closed
+                                       # loop), a chunk of B episodes a step
+    python3 chip_smoke.py --replay A:B [--method M] [--int8] [--perturbed] [--chunk C]
+                          [--checkpoint F] [--budget-s S]
                                        # only: episodes [A, B) of the 500-episode seed-41
                                        # stream on the trained ViT-S/14 @ 518 (bf16; --int8:
-                                       # run AD's int8 configuration), C (8) a chunk,
+                                       # run AD's int8 configuration; --perturbed: each
+                                       # episode's perturbed texture), C (8) a chunk,
                                        # resumable: an unfinished run leaves its checkpoint
-                                       # (.replay/replay_s518[_int8]_A_B.ckpt) in
+                                       # (.replay/replay_s518[_int8][_pert]_A_B.ckpt) in
                                        # chiprun_out/ too; copy it back into .replay/ and
                                        # run again to go on; prints the converged count and
-                                       # writes chiprun_out/replay_s518[_int8]_A_B.json
+                                       # writes chiprun_out/replay_s518[_int8][_pert]_A_B.json;
+                                       # --method sift|orb|akaze|harris: that classical
+                                       # baseline on the 64-episode stream of
+                                       # configs/real64.yaml (files replay_M[_pert]_A_B.*)
 
 Phases, each announced with a flushed, timestamped start/done line:
 
@@ -118,6 +125,17 @@ Phases, each announced with a flushed, timestamped start/done line:
    pooled before the projection, reshape embed) beside it on goal + 5 steps
    near the goal, and the 'default' preprocess against 'highest' on one
    frame, logged;
+3h. the classical baselines (vitvs_tpu_torch/classical/) at configs/real64.yaml's
+   settings (runs J, K and AN's) on the poster at 640x480: for each of sift,
+   orb, akaze and harris with its default keypoints (1152, 1000, 512, 512),
+   run_classical_benchmark on episodes 0 to 7 of the 64-episode stream as one
+   chunk for 60 steps, twice (the twists equal bit for bit); no hand kernel
+   may launch (the reference runs this path in plain XLA); every 6th
+   chunk-step held against the port on the CPU on the same frames (keypoint
+   and pair sets compared, twists within 1e-4 where the pairs agree; the
+   Hamming distances of the int8 product on the card against the CPU's bit
+   for bit); each episode alone for 20 steps against the chunk, twists held
+   up to its first pair flip; the npz's 22 arrays;
 4. times on the card (CUDA events / synchronized host clock) beside each
    kernel's bound and the PyTorch library call for the same function (the
    exact kernels at T = 485 and T = 1370; the int8 kernel from the bf16
@@ -128,7 +146,8 @@ Phases, each announced with a flushed, timestamped start/done line:
    step on the trained weights at B in {1, 8, 16}, bf16 and int8 at run
    AD's settings (ms a chunk-step, episode-steps a second, card-seconds an
    episode at the 1500 cap), and the int8 chunk's pooled 'nomax3'
-   attention at (8, 1370, 362 keys, 6 heads) beside SDPA.  The
+   attention at (8, 1370, 362 keys, 6 heads) beside SDPA; the classical
+   chunk-step of each method at B = 1 and 8.  The
    f32 attention kernel is held to the tensor-core bound of f32-accurate
    work (three TF32 passes), its f32 FMA bound logged beside it.
 
@@ -158,6 +177,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from vitvs_tpu_torch.classical.benchmark import classical_model, run_classical_benchmark
+from vitvs_tpu_torch.classical.features import _hamming_d2, grayscale
+from vitvs_tpu_torch.classical.pipeline import (DEFAULT_MAX_CORNERS, METHOD_NORMS,
+                                                classical_servo_step, extract_features,
+                                                extract_goal_features)
 from vitvs_tpu_torch.control.ibvs import EmaState
 from vitvs_tpu_torch.core.batch import item
 from vitvs_tpu_torch.harness.benchmark import cast_for_benchmark, int8_serving, run_benchmark
@@ -273,6 +297,13 @@ LOOP_CHUNKS = [1, CHUNK, 2 * CHUNK]   # phase 4's closed-loop chunk steps
 INT8_FORCED = 10
 POOLED_KEYS = 1 + 19 * 19             # 2 x 2 pooling of the 37 x 37 grid: CLS + 19 x 19
 POOLED_ATTN_SHAPE = (CHUNK, 1370, POOLED_KEYS, 6, 64)   # (B, T, keys, h, hd) of the int8 chunk
+# phase 3h, the classical baselines: runs J, K and AN's configuration, episodes 0 to 7
+CLASSICAL = ("sift", "orb", "akaze", "harris")
+CLASSICAL_STREAM = 64                 # configs/real64.yaml's 64-episode stream
+CLASSICAL_STEPS = 60
+CLASSICAL_COMPARED = tuple(range(0, CLASSICAL_STEPS, 6))   # chunk-steps held against the CPU
+CLASSICAL_ALONE_STEPS = 20
+CLASSICAL_TWIST_TOL = 1e-4
 EPISODE_CAP = 1500                    # the ladder's max_iterations: card-seconds an episode
 TIMING_ROUNDS = 7                     # alternating rounds, closed-loop step and bare step
 # the reference's npz: its 22 arrays and the run time
@@ -1256,7 +1287,7 @@ def int8_serving_of_stream(fnet, model: ServoModel, scene: Scene):
 def _to_cpu(nest):
     if isinstance(nest, tuple):
         return type(nest)(*(_to_cpu(x) for x in nest))
-    return nest.cpu()
+    return None if nest is None else nest.cpu()
 
 
 def run_int8_chunk(fnet, cfg: VSConfig, model: ServoModel, scene: Scene, out_dir: str,
@@ -1393,6 +1424,161 @@ def preprocess_gap(model: ServoModel, scene: Scene) -> dict:
         raise AssertionError("the 'default' preprocess left TF32 on")
     return {"max_abs_gap": (fast - exact).abs().max().item(),
             "share_apart": (fast != exact).float().mean().item()}
+
+
+# ---------------------------------------------------------------------------
+# phase 3h: the classical baselines (SIFT, ORB, AKAZE, Harris)
+# ---------------------------------------------------------------------------
+
+
+def real64_config() -> VSConfig:
+    """configs/real64.yaml's settings, built in code: the defaults with the
+    dls solve on the 64-episode stream (runs J, K and AN's)."""
+    return VSConfig(pinv_mode="dls", num_samples=CLASSICAL_STREAM)
+
+
+def _same_pairs(a, b) -> torch.Tensor:
+    """(B,) bool: the two chunk-steps selected the same pairs."""
+    return ((a.valid == b.valid).all(-1) & (a.s_uv == b.s_uv).flatten(-2).all(-1)
+            & (a.s_uv_star == b.s_uv_star).flatten(-2).all(-1))
+
+
+def _same_keypoints(a, b) -> torch.Tensor:
+    """(B,) bool: two frames' feature sets hold the same valid keypoints."""
+    return (a.valid == b.valid).all(-1) & ((a.uv == b.uv).all(-1) | ~a.valid).all(-1)
+
+
+def run_classical_chunk(method: str, cfg: VSConfig, scene: Scene, out_dir: str,
+                        episodes=CHUNK_EPISODES, num_steps=CLASSICAL_STEPS,
+                        compared=CLASSICAL_COMPARED, alone_steps=CLASSICAL_ALONE_STEPS,
+                        max_corners: int | None = None) -> dict:
+    """run_classical_benchmark on ``episodes`` as one chunk for
+    ``num_steps`` steps on the scene's device (``max_corners`` the method's
+    default when None), twice: the two runs' twists must be equal bit for
+    bit and no hand kernel may launch.  The ``compared`` chunk-steps are
+    held against the port on the CPU on the same frames (the goal's and the
+    frames' keypoint sets and pair sets compared, twists within
+    CLASSICAL_TWIST_TOL where the pairs agree), with the Hamming distances
+    of the int8 product on the device against the CPU's bit for bit; then
+    each episode alone for ``alone_steps`` steps against the chunk, twists
+    held up to its first pair flip."""
+    dev = scene.texture.device
+    k = max_corners or DEFAULT_MAX_CORNERS[method]
+    common = dict(method=method, episode_indices=episodes, num_steps=num_steps, chunk=len(episodes),
+                  max_corners=k, verbose=False, device=dev)
+    record, steps = {}, [[], []]
+
+    def on_step_of(run):
+        def on_step(abs_ids, inputs, res):
+            i = len(steps[run])
+            steps[run].append(res)
+            if run == 0 and i in compared:
+                record[i] = (_to_cpu(inputs), _to_cpu(res))
+        return on_step
+
+    for fn in _counters().values():
+        fn.launches = 0
+    sync(dev)
+    t0 = time.perf_counter()
+    run = run_classical_benchmark(cfg, scene=scene, out_dir=out_dir, config_name="classical",
+                                  on_step=on_step_of(0), **common)
+    sync(dev)
+    wall_s = time.perf_counter() - t0
+    again = run_classical_benchmark(cfg, scene=scene, save=False, on_step=on_step_of(1), **common)
+    check_npz(run.path, len(episodes))
+    twists = [torch.stack([s.body_twist for s in st]) for st in steps]
+    if not torch.equal(twists[0], twists[1]):
+        raise AssertionError(f"{method}: two runs of the chunk differ by "
+                             f"{(twists[0] - twists[1]).abs().max().item():.3e}")
+    if not torch.isfinite(twists[0]).all():
+        raise AssertionError(f"{method}: non-finite twists")
+
+    # the CPU port on the same frames
+    model = run.model
+    cpu = dataclasses.replace(model, device="cpu")
+    goal_rgb, _ = observe(scene, model.camera, *goal_pose(dev))
+    goal = extract_goal_features(model, goal_rgb, k, method)
+    goal_cpu = extract_goal_features(cpu, goal_rgb.cpu(), k, method)
+    t_cpu = time.perf_counter()
+    frames_same = pairs_same = compared_steps = 0
+    twist_err, hamming_checked = 0.0, 0
+    for i, (inputs, res) in sorted(record.items()):
+        gray = grayscale(inputs.rgb.float())
+        feats_dev = extract_features(gray.to(dev), k, method)
+        feats_cpu = extract_features(gray, k, method)
+        frames_same += int(_same_keypoints(_to_cpu(feats_dev), feats_cpu).sum())
+        ref = classical_servo_step(cpu, goal_cpu, inputs.rgb, inputs.depth, inputs.ema,
+                                   inputs.prev_v_c, k, method)
+        same = _same_pairs(res, ref)
+        pairs_same += int(same.sum())
+        compared_steps += len(same)
+        if same.any():
+            twist_err = max(twist_err, (res.body_twist - ref.body_twist)[same].abs().max().item())
+        if METHOD_NORMS[method] == "hamming":
+            d_dev = _hamming_d2(goal.desc, feats_dev.desc).cpu()
+            d_cpu = _hamming_d2(goal.desc.cpu(), feats_dev.desc.cpu())
+            if not torch.equal(d_dev, d_cpu):
+                raise AssertionError(f"{method}: Hamming distances on the device differ from "
+                                     f"the CPU's at chunk-step {i}")
+            hamming_checked += d_cpu.numel()
+    cpu_s = time.perf_counter() - t_cpu
+    if twist_err > CLASSICAL_TWIST_TOL:
+        raise AssertionError(f"{method}: twists {twist_err:.3e} from the CPU port's where the "
+                             f"pairs agree (tol {CLASSICAL_TWIST_TOL})")
+
+    # each episode alone against the chunk
+    first_flip, alone_err = [], 0.0
+    for b, e in enumerate(episodes):
+        solo = []
+        run_classical_benchmark(cfg, scene=scene, save=False,
+                                on_step=lambda ids, x, r: solo.append(r),
+                                **{**common, "episode_indices": [e], "chunk": 1,
+                                   "num_steps": alone_steps})
+        flip = None
+        for i, r in enumerate(solo):
+            if not bool(_same_pairs(item(steps[0][i], b), item(r, 0))):
+                flip = i
+                break
+            alone_err = max(alone_err, (steps[0][i].body_twist[b] - r.body_twist[0])
+                            .abs().max().item())
+        first_flip.append(flip)
+    if alone_err > CLASSICAL_TWIST_TOL:
+        raise AssertionError(f"{method}: a chunk's twists {alone_err:.3e} from its episodes "
+                             f"alone before their first flip (tol {CLASSICAL_TWIST_TOL})")
+    launches = {name: fn.launches for name, fn in _counters().items()}
+    return {"method": method, "max_corners": k, "episodes": list(episodes),
+            "device_steps": run.device_steps, "chunk_steps": run.chunk_steps,
+            "chunk_steps_again": again.chunk_steps, "wall_s": wall_s,
+            "launches": launches, "goal_keypoints": int(goal.valid.sum()),
+            "goal_keypoints_same_on_cpu": bool(_same_keypoints(_to_cpu(goal), goal_cpu)),
+            "iterations": [int(i) for i in run.summaries["all_iteration_histories"]],
+            "final_pos_err_cm": [float(x) for x in run.summaries["position_errors"]],
+            "pairs_per_step": float(torch.stack([s.num_valid for s in steps[0]]).float().mean()),
+            "cpu": {"chunk_steps": sorted(record), "frames": compared_steps,
+                    "frames_with_same_keypoints": frames_same,
+                    "frames_with_same_pairs": pairs_same, "twist_max_abs_err": twist_err,
+                    "hamming_distances_bit_for_bit": hamming_checked, "cpu_s": cpu_s},
+            "alone": {"first_flip_step": first_flip, "twist_max_abs_err": alone_err}}
+
+
+def classical_runner(method: str, scene: Scene, chunk: int):
+    """One classical closed-loop chunk-step a call (render, features,
+    matching, solve, integrate, ladder) of the first ``chunk`` episodes of
+    the 64-episode stream, the method's default keypoints, carrying its
+    state."""
+    model = classical_model(real64_config(), scene.texture.device)
+    k = DEFAULT_MAX_CORNERS[method]
+    desired = goal_pose(model.device)
+    goal = extract_goal_features(model, observe(scene, model.camera, *desired)[0], k, method)
+    state = {"carry": episode_init(*loop_start(model.cfg, chunk), *desired)}
+
+    def step_fn(rgb, depth, ema, prev_v_c, scores):
+        return classical_servo_step(model, goal, rgb, depth, ema, prev_v_c, k, method)
+
+    def run():
+        state["carry"], _ = rollout_segment(None, model, scene, None, state["carry"], 1,
+                                            *desired, step_fn=step_fn, draw_scores=False)
+    return run
 
 
 # ---------------------------------------------------------------------------
@@ -1711,27 +1897,41 @@ class BudgetSpent(Exception):
     """The replay's time budget ran out inside an episode."""
 
 
-def replay_name(lo: int, hi: int, int8: bool = False) -> str:
+def replay_name(lo: int, hi: int, int8: bool = False, perturbed: bool = False,
+                method: str = "dino") -> str:
     """The replay's file stem: its checkpoint, npz and JSON."""
-    return f"replay_s518{'_int8' if int8 else ''}_{lo}_{hi}"
+    pert = "_pert" if perturbed else ""
+    if method != "dino":
+        return f"replay_{method}{pert}_{lo}_{hi}"
+    return f"replay_s518{'_int8' if int8 else ''}{pert}_{lo}_{hi}"
 
 
 def run_replay(lo: int, hi: int, checkpoint: Path, budget_s: float, out_dir: Path,
                device, chunk: int = CHUNK, path: Path = TRAINED_S518,
-               int8: bool = False) -> dict:
+               int8: bool = False, perturbed: bool = False, method: str = "dino") -> dict:
     """run_benchmark on episodes [lo, hi) of the 500-episode seed-41 stream
     (runs Z and AA's) at configs/real_s518.yaml's other settings on the
-    trained ViT-S/14 @ 518 (cast whole to bf16, standard texture, rotation
-    search on), ``chunk`` episodes a chunk, resuming from ``checkpoint``
-    (whole chunks); with ``int8`` run AD's configuration instead
-    (configs/real_s518_pool2mm.yaml served by run_benchmark(quantized=True,
-    int8_static=True), whose checkpoint fingerprint differs from the bf16
-    run's).  When ``budget_s`` seconds have passed the chunk in flight is
-    dropped (it reruns, bit for bit, on resume).  Returns the checkpoint's
-    episodes summarized and this call's times."""
-    cfg = ad_config() if int8 else trained_config()
-    model = ServoModel.create(cfg, device=device)
-    net, info = load_trained(model, path)
+    trained ViT-S/14 @ 518 (cast whole to bf16, rotation search on),
+    ``chunk`` episodes a chunk, resuming from ``checkpoint`` (whole chunks);
+    on the standard texture, or with ``perturbed`` on each episode's
+    perturbed texture (run AM's protocol); with ``int8`` run AD's
+    configuration instead (configs/real_s518_pool2mm.yaml served by
+    run_benchmark(quantized=True, int8_static=True)).  A classical
+    ``method`` ('sift', 'orb', 'akaze', 'harris') runs
+    run_classical_benchmark instead, on episodes [lo, hi) of the 64-episode
+    stream at configs/real64.yaml's settings (runs J, K and AN's), with the
+    method's default keypoints.  Each of these runs has its own checkpoint
+    fingerprint, so none resumes another's file.  When ``budget_s`` seconds
+    have passed the chunk in flight is dropped (it reruns, bit for bit, on
+    resume).  Returns the checkpoint's episodes summarized and this call's
+    times."""
+    classical = method != "dino"
+    if classical:
+        cfg, net, info = real64_config(), None, {"file": None}
+    else:
+        cfg = ad_config() if int8 else trained_config()
+        model = ServoModel.create(cfg, device=device)
+        net, info = load_trained(model, path)
     checkpoint.parent.mkdir(parents=True, exist_ok=True)
     out_dir.mkdir(parents=True, exist_ok=True)
     before = len(load_episodes(str(checkpoint), "replay", verbose=False)[0])
@@ -1745,11 +1945,14 @@ def run_replay(lo: int, hi: int, checkpoint: Path, budget_s: float, out_dir: Pat
         if time.perf_counter() - t0 > budget_s:
             raise BudgetSpent
 
+    common = dict(episode_indices=range(lo, hi), checkpoint_path=str(checkpoint), chunk=chunk,
+                  out_dir=str(out_dir), config_name=replay_name(lo, hi, int8, perturbed, method),
+                  device=device, on_step=on_step, perturbation=perturbed)
     try:
-        run_benchmark(cfg, net=net, model=model, episode_indices=range(lo, hi),
-                      checkpoint_path=str(checkpoint), chunk=chunk, out_dir=str(out_dir),
-                      config_name=replay_name(lo, hi, int8), device=device, on_step=on_step,
-                      quantized=int8, int8_static=int8)
+        if classical:
+            run_classical_benchmark(cfg, method=method, **common)
+        else:
+            run_benchmark(cfg, net=net, model=model, quantized=int8, int8_static=int8, **common)
         finished = True
     except BudgetSpent:
         finished = False
@@ -1765,7 +1968,8 @@ def run_replay(lo: int, hi: int, checkpoint: Path, budget_s: float, out_dir: Pat
         "all_iteration_histories": np.asarray([int(e.iterations) for e in episodes]),
         "total_execution_time": wall_s})
     done_now = len(episodes) - before
-    return {"episodes": [lo, hi], "weights": info["file"], "int8": int8, "chunk": chunk,
+    return {"episodes": [lo, hi], "method": method, "weights": info["file"], "int8": int8,
+            "perturbed": perturbed, "chunk": chunk,
             "finished": finished,
             "episodes_done": len(episodes), "episodes_this_call": done_now,
             "converged": int(sum(flags)), "not_converged": [lo + i for i, f in enumerate(flags)
@@ -1788,19 +1992,27 @@ def run_replay(lo: int, hi: int, checkpoint: Path, budget_s: float, out_dir: Pat
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", nargs="?", const="bf16",
-                    choices=["bf16", "f32", *VARIANTS, "loop", "loop518", "int8loop"],
+                    choices=["bf16", "f32", *VARIANTS, "loop", "loop518", "int8loop", *CLASSICAL],
                     help="build, then only profile servo steps of the bf16 path (default), "
                          "the f32 path or an int8 serving variant, or closed-loop steps at "
                          "308 (seeded) or 518 (trained; int8loop: the int8 closed loop at "
-                         "run AD's settings) (no checks, no result line)")
+                         "run AD's settings), or a classical method's closed loop at 640x480 "
+                         "(no checks, no result line)")
     ap.add_argument("--trace", type=Path, default=None,
                     help="with --profile: write the profiler's chrome trace here")
     ap.add_argument("--replay", default=None, metavar="A:B",
                     help="build, then only run episodes [A, B) of the seed-41 benchmark on the "
-                         "trained ViT-S/14 @ 518 (bf16), resuming from --checkpoint")
+                         "trained ViT-S/14 @ 518 (bf16), or of a classical --method, resuming "
+                         "from --checkpoint")
     ap.add_argument("--int8", action="store_true",
                     help="with --replay: run AD's int8 configuration (configs/"
                          "real_s518_pool2mm.yaml, int8 static scales, nomax3)")
+    ap.add_argument("--method", default="dino", choices=["dino", *CLASSICAL],
+                    help="with --replay: a classical baseline on the 64-episode stream "
+                         "(configs/real64.yaml, runs J, K and AN's) instead of dino")
+    ap.add_argument("--perturbed", action="store_true",
+                    help="with --replay: each episode on its perturbed texture (run AM's "
+                         "protocol) instead of the standard one")
     ap.add_argument("--checkpoint", type=Path, default=None,
                     help="with --replay: the resume file (default .replay/replay_s518_A_B.ckpt, "
                          ".replay/replay_s518_int8_A_B.ckpt with --int8; a copy is left in "
@@ -1903,15 +2115,19 @@ def main() -> int:
 
     if args.replay:
         lo, hi = (int(x) for x in args.replay.split(":"))
-        name = replay_name(lo, hi, args.int8)
+        if args.int8 and args.method != "dino":
+            ap.error("--int8 applies to --method dino only")
+        name = replay_name(lo, hi, args.int8, args.perturbed, args.method)
         ckpt = args.checkpoint or here / ".replay" / f"{name}.ckpt"
         out_dir = here / "chiprun_out"
-        with phase(f"replay {lo}:{hi}{' int8' if args.int8 else ''}"):
+        with phase(f"replay {lo}:{hi} {args.method}{' int8' if args.int8 else ''}"
+                   f"{' perturbed' if args.perturbed else ''}"):
             # the npz and the checkpoint of hundreds of episodes' histories stay
             # beside the checkpoint (chiprun_out/ is kept to 64 MiB at most);
             # an unfinished run's checkpoint is copied out to be resumed
             rep_out = run_replay(lo, hi, ckpt, args.budget_s, ckpt.parent, device,
-                                 chunk=args.chunk or CHUNK, int8=args.int8)
+                                 chunk=args.chunk or CHUNK, int8=args.int8,
+                                 perturbed=args.perturbed, method=args.method)
             out_dir.mkdir(parents=True, exist_ok=True)
             if not rep_out["finished"]:
                 shutil.copy(ckpt, out_dir / ckpt.name)
@@ -1946,7 +2162,12 @@ def main() -> int:
     net32, model32 = f32_step(cfg, device)
     if args.profile:
         with phase("profile"):
-            if args.profile in ("loop", "loop518", "int8loop"):
+            if args.profile in CLASSICAL:
+                log(f"profile: classical {args.profile} closed loop, a chunk of "
+                    f"{args.chunk or 1} episodes a step")
+                profile_run(classical_runner(args.profile, load_poster_scene(device=device),
+                                             args.chunk or 1), trace_path=args.trace)
+            elif args.profile in ("loop", "loop518", "int8loop"):
                 lnet, lmodel = net, model
                 lscene = load_poster_scene(device=device)
                 if args.profile == "loop518":
@@ -2150,6 +2371,32 @@ def main() -> int:
         log(f"'default' preprocess (one TF32 pass) against 'highest' on the goal view: "
             f"{json.dumps(gap)}; TF32 off again after it")
 
+    with phase("3h classical"):
+        ccfg = real64_config()
+        log(f"classical baselines at configs/real64.yaml's settings (runs J, K and AN's), the "
+            f"poster at {ccfg.u_max}x{ccfg.v_max}, episodes {CHUNK_EPISODES} of the "
+            f"{CLASSICAL_STREAM}-episode stream as one chunk, {CLASSICAL_STEPS} steps, the "
+            f"methods' default keypoints {json.dumps(DEFAULT_MAX_CORNERS)}")
+        for method in CLASSICAL:
+            with tempfile.TemporaryDirectory() as out:
+                c = run_classical_chunk(method, ccfg, scene, out)
+            log(f"classical {method}: {json.dumps(c)}")
+            if any(c["launches"].values()):
+                raise AssertionError(f"classical {method}: hand kernels launched {c['launches']}")
+            if not 0 < c["chunk_steps"] <= CLASSICAL_STEPS or c["pairs_per_step"] < 4:
+                raise AssertionError(f"classical {method}: {c['chunk_steps']} chunk-steps, "
+                                     f"{c['pairs_per_step']} pairs a step")
+            cpu = c["cpu"]
+            log(f"[{card}] classical {method}: {c['chunk_steps']} chunk-steps of {CHUNK} in "
+                f"{c['wall_s']:.2f} s with the goal; a second run equal bit for bit; no hand "
+                f"kernel launched; against the CPU port ({cpu['cpu_s']:.1f} s): "
+                f"{cpu['frames_with_same_keypoints']} of {cpu['frames']} frames with the same "
+                f"keypoints, {cpu['frames_with_same_pairs']} with the same pairs, twists within "
+                f"{cpu['twist_max_abs_err']:.3e} there (tol {CLASSICAL_TWIST_TOL}); "
+                f"{cpu['hamming_distances_bit_for_bit']} Hamming distances bit for bit; "
+                f"against chunk 1: first flip at {c['alone']['first_flip_step']}, twists within "
+                f"{c['alone']['twist_max_abs_err']:.3e} before it")
+
     with phase("4 times"):
         step_ms = time_run(step_runner(net, model))
         log(f"[{card}] servo_step median {step_ms:.3f} ms (ViT-S/14 @ 308, bf16, kernels)")
@@ -2204,6 +2451,13 @@ def main() -> int:
                 f"{[round(r[kind, b], 3) for r in rounds]}), {1e3 * b / ms:.1f} episode-steps "
                 f"a second, {ms * EPISODE_CAP / b / 1e3:.3f} card-s an episode at "
                 f"{EPISODE_CAP} steps")
+        for method in CLASSICAL:
+            for b in (1, CHUNK):
+                ms = time_run(classical_runner(method, scene, b))
+                log(f"[{card}] classical {method} chunk step, B = {b} (640x480, "
+                    f"{DEFAULT_MAX_CORNERS[method]} keypoints, f32, no hand kernel): median "
+                    f"{ms:.3f} ms a chunk-step, {ms * EPISODE_CAP / b / 1e3:.3f} card-s an "
+                    f"episode at {EPISODE_CAP} steps")
         pooled = time_pooled_attention(device, irun.model.vit)
         log(f"[{card}] pooled nomax3 attention at (B, T, keys, h, hd) = {POOLED_ATTN_SHAPE} "
             f"(the int8 chunk's, plain PyTorch: no hand kernel on this path): "

@@ -683,3 +683,22 @@ def test_default_preprocess_scopes_tf32_on_the_card(cuda):
     gap = (fast - exact).abs().max().item()
     assert 0.0 < gap <= 2e-2, gap
     assert (exact.cpu() - image.preprocess_frame(rgb, 518)).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("method", ["sift", "orb", "akaze", "harris"])
+def test_classical_chunk_on_the_card_matches_the_cpu_port(cuda, method, tmp_path):
+    """Phase 3h at a 240 x 320 camera on the poster: a chunk of 3 for 8
+    steps on the card, twice bit for bit, no hand kernel; chunk-steps 0 and
+    4 against the port on the CPU (twists within 1e-4 where the pairs
+    agree, Hamming distances bit for bit); each episode alone for 4 steps."""
+    from vitvs_tpu_torch.io_bridge.config import VSConfig
+    from vitvs_tpu_torch.sim.scene import load_poster_scene
+
+    cfg = VSConfig(u_max=320, v_max=240, f_x=251.15, f_y=251.15, pinv_mode="dls",
+                   num_samples=64)
+    s = chip_smoke.run_classical_chunk(method, cfg, load_poster_scene(device="cuda"),
+                                       str(tmp_path), episodes=[0, 1, 2], num_steps=8,
+                                       compared=(0, 4), alone_steps=4, max_corners=256)
+    assert all(v == 0 for v in s["launches"].values())
+    assert s["cpu"]["frames"] == 6 and s["cpu"]["twist_max_abs_err"] <= 1e-4
+    assert s["cpu"]["frames_with_same_pairs"] >= 3

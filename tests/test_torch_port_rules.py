@@ -396,3 +396,72 @@ def test_chip_smoke_int8_replay_is_its_own_run(tmp_path):
     assert out["episodes_done"] == 0 and ckpt.exists()
     with pytest.raises(ValueError, match="different run"):
         chip_smoke.run_replay(0, 1, ckpt, 0.0, tmp_path / "out", "cpu")
+
+
+def test_chip_smoke_real64_config_is_real64_yaml():
+    """Phase 3h and --replay --method run configs/real64.yaml (runs J, K and
+    AN's 64-episode stream), built in code."""
+    assert chip_smoke.real64_config() == load_config(REPO / "configs" / "real64.yaml")
+
+
+@pytest.mark.parametrize("method", ["sift", "orb"])
+def test_chip_smoke_classical_chunk_runs_tiny_on_cpu(method, tmp_path, one_intra_op_thread):
+    """Phase 3h at a 128 x 128 camera on a smooth seeded poster on the CPU:
+    episodes 0 to 2 as one chunk for 6 steps, run twice; chunk-steps 0 and
+    3 against the CPU port (equal: they ran there), the Hamming distances
+    (ORB) bit for bit, each episode alone for 3 steps; no kernel counts a
+    launch; then the classical profile runner takes a chunk-step at full
+    size."""
+    from scipy.ndimage import zoom
+
+    from vitvs_tpu_torch.sim.scene import Scene
+
+    rng = np.random.default_rng(11)
+    tex = np.clip(zoom(rng.random((32, 32, 3)), (8, 8, 1), order=3), 0, 1).astype(np.float32)
+    scene = Scene.create(tex, half_size=0.42, device="cpu")
+    cfg = VSConfig(u_max=128, v_max=128, f_x=100.5, f_y=100.5, num_pairs=16, lambda_=0.5,
+                   control_dt=0.1, pinv_mode="dls", num_samples=8, num_circles=2,
+                   min_iterations=4, max_iterations=40)
+    s = chip_smoke.run_classical_chunk(method, cfg, scene, str(tmp_path), episodes=[0, 1, 2],
+                                       num_steps=6, compared=(0, 3), alone_steps=3,
+                                       max_corners=64)
+    assert s["device_steps"] == 18 and s["chunk_steps"] == s["chunk_steps_again"] == 6
+    assert all(v == 0 for v in s["launches"].values())
+    assert s["goal_keypoints_same_on_cpu"] and s["goal_keypoints"] > 0
+    cpu = s["cpu"]
+    assert cpu["chunk_steps"] == [0, 3] and cpu["frames"] == 6
+    assert cpu["frames_with_same_keypoints"] == cpu["frames_with_same_pairs"] == 6
+    assert cpu["twist_max_abs_err"] == 0.0
+    assert (cpu["hamming_distances_bit_for_bit"] > 0) == (method == "orb")
+    assert s["alone"] == {"first_flip_step": [None] * 3, "twist_max_abs_err": 0.0}
+    chip_smoke.classical_runner(method, scene, 2)()
+
+
+def test_chip_smoke_classical_and_perturbed_replays_are_their_own_runs(tmp_path, monkeypatch):
+    """--replay --method and --replay --perturbed each name their own files
+    and fingerprint their own runs.  A classical replay (no ViT) at
+    real64's settings stops at its budget after one chunk-step, before any
+    checkpoint; cut to 2 steps at a 128 x 128 camera it finishes episode 0
+    and leaves a checkpoint that another method's or the perturbed run's
+    replay refuses.  The perturbed dino replay's checkpoint is not the
+    standard one's."""
+    assert chip_smoke.replay_name(0, 64, method="sift") == "replay_sift_0_64"
+    assert chip_smoke.replay_name(0, 64, perturbed=True, method="orb") == "replay_orb_pert_0_64"
+    assert chip_smoke.replay_name(0, 500, perturbed=True) == "replay_s518_pert_0_500"
+    ckpt = tmp_path / "harris.ckpt"
+    out = chip_smoke.run_replay(0, 1, ckpt, 0.0, tmp_path / "out", "cpu", method="harris")
+    assert out["method"] == "harris" and out["weights"] is None
+    assert not out["finished"] and out["call_steps"] == 1 and not ckpt.exists()
+    small = chip_smoke.real64_config().replace(u_max=128, v_max=128, f_x=100.5, f_y=100.5,
+                                                min_iterations=1, max_iterations=2)
+    monkeypatch.setattr(chip_smoke, "real64_config", lambda: small)
+    out = chip_smoke.run_replay(0, 1, ckpt, 60.0, tmp_path / "out", "cpu", method="harris")
+    assert out["finished"] and out["episodes_done"] == 1 and ckpt.exists()
+    for kw in (dict(method="sift"), dict(method="harris", perturbed=True)):
+        with pytest.raises(ValueError, match="different run"):
+            chip_smoke.run_replay(0, 1, ckpt, 0.0, tmp_path / "out", "cpu", **kw)
+    pert = tmp_path / "pert.ckpt"
+    out = chip_smoke.run_replay(0, 1, pert, 0.0, tmp_path / "out", "cpu", perturbed=True)
+    assert out["perturbed"] and not out["finished"] and out["call_steps"] == 1
+    with pytest.raises(ValueError, match="different run"):
+        chip_smoke.run_replay(0, 1, pert, 0.0, tmp_path / "out", "cpu")

@@ -203,11 +203,14 @@ def preprocess_frame(
     return normalize(img, mean, std)
 
 
-def pack_quad(img: torch.Tensor) -> torch.Tensor:
+def pack_quad(*maps: torch.Tensor) -> torch.Tensor:
     """(..., H, W, C) images -> (..., H * W, 4C): each pixel's 2x2 bilinear
     neighbourhood (edge-padded) packed into channels [v00, v01, v10, v11],
     so that one gather per sample fetches all four corners.  Built once per
-    texture."""
+    texture.  Several maps (..., H, W) sampled at the same coordinates are
+    packed as the C channels of one image, in the order given; one map
+    alone is passed with its channel axis, (..., H, W, 1)."""
+    img = maps[0] if len(maps) == 1 else torch.stack(maps, dim=-1)
     h, w, c = img.shape[-3:]
     tp = torch.cat([img, img[..., -1:, :, :]], dim=-3)
     tp = torch.cat([tp, tp[..., :, -1:, :]], dim=-2)

@@ -124,20 +124,22 @@ def _generator(device, seed: int) -> torch.Generator:
 
 
 def _run_chunk(net, model: ServoModel, scene: Scene, goal_desc, start_p, start_q,
-               generators: list, T: int, seg: int, on_step=None):
+               generators: list | None, T: int, seg: int, on_step=None, step_fn=None):
     """A chunk of episodes from starts (B, 3) / (B, 4) in segments of
     ``seg`` steps (the last one clamped).  At a segment's end one host sync
     asks whether every episode of the chunk is frozen (done or aborted); if
-    so, the rest of their histories are the frozen tail.  Returns (the
-    chunk's result as numpy arrays with a leading B, the chunk-steps run on
-    the device)."""
+    so, the rest of their histories are the frozen tail.  ``step_fn``
+    replaces the servo step and draws no pair scores (``generators`` then
+    None).  Returns (the chunk's result as numpy arrays with a leading B,
+    the chunk-steps run on the device)."""
     desired_p, desired_q = goal_pose(model.device)
     carry = episode_init(start_p, start_q, desired_p, desired_q)
     parts, done, steps = [], 0, 0
     while done < T:
         nsteps = min(seg, T - done)
         carry, ys = rollout_segment(net, model, scene, goal_desc, carry, nsteps, desired_p,
-                                    desired_q, generator=generators, on_step=on_step)
+                                    desired_q, generator=generators, on_step=on_step,
+                                    step_fn=step_fn, draw_scores=step_fn is None)
         parts.append(ys)
         done += nsteps
         steps += nsteps

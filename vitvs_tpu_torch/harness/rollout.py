@@ -106,7 +106,8 @@ class EpisodeResult(NamedTuple):
 
 class StepInputs(NamedTuple):
     """What one rollout step handed the chunk's ``servo_step`` (for
-    ``on_step``), each with the chunk's leading B."""
+    ``on_step``), each with the chunk's leading B (``scores`` None where the
+    rollout draws none)."""
 
     rgb: torch.Tensor
     depth: torch.Tensor
@@ -162,6 +163,7 @@ def rollout_segment(net, model: ServoModel, scene: Scene, goal_desc, carry0: Epi
                     scores: torch.Tensor | None = None,
                     on_step: Callable[[StepInputs, StepResult], None] | None = None,
                     step_fn: StepFn | None = None,
+                    draw_scores: bool = True,
                     ) -> tuple[EpisodeCarry, dict]:
     """``num_steps`` servo iterations from a carry: one episode's, or a
     chunk's with a leading B (``scene`` one scene, or one of B textures).
@@ -172,16 +174,20 @@ def rollout_segment(net, model: ServoModel, scene: Scene, goal_desc, carry0: Epi
     prev_v_c, scores) -> StepResult`` replaces the per-frame pipeline
     (default: ``servo_step`` on ``net`` and ``goal_desc``); it and
     ``on_step(inputs, result)`` see each step's chunk-shaped tensors (B = 1
-    for one episode).  Returns the carry and the histories, (num_steps,
-    ...) tensors, (B, num_steps, ...) for a chunk."""
+    for one episode).  ``draw_scores=False`` draws none and hands the step
+    ``None`` (a step without pair sampling, the classical path's).  Returns
+    the carry and the histories, (num_steps, ...) tensors, (B, num_steps,
+    ...) for a chunk."""
     if carry0.position.dim() == 1:
         carry, ys = rollout_segment(
             net, model, scene, goal_desc, item(carry0, None), num_steps, desired_position,
             desired_quat, generator=_generators(generator),
-            scores=None if scores is None else scores[None], on_step=on_step, step_fn=step_fn)
+            scores=None if scores is None else scores[None], on_step=on_step, step_fn=step_fn,
+            draw_scores=draw_scores)
         return item(carry, 0), {k: v[0] for k, v in ys.items()}
     cfg, cam = model.cfg, model.camera
-    nb, t = carry0.position.shape[0], _num_tokens(model)
+    nb = carry0.position.shape[0]
+    t = _num_tokens(model) if scores is None and draw_scores else 0
     gens = _generators(generator)
     if gens is not None and len(gens) != nb:
         raise ValueError(f"a chunk of {nb} episodes takes {nb} generators, got {len(gens)}")
@@ -194,6 +200,8 @@ def rollout_segment(net, model: ServoModel, scene: Scene, goal_desc, carry0: Epi
         frozen = carry.conv.done | carry.aborted                           # (B,)
         if scores is not None:
             s = scores[:, i]
+        elif not draw_scores:
+            s = None
         elif gens is None:
             s = torch.rand((nb, t), device=model.device)
         else:

@@ -105,11 +105,27 @@ class VSConfig:
 _FIELDS = {f.name for f in dataclasses.fields(VSConfig)}
 
 
+def _yaml():
+    """pyyaml, which only config files need (a machine may lack it)."""
+    try:
+        import yaml
+    except ImportError as e:
+        raise ImportError("YAML config files need pyyaml, which is not installed; build "
+                          "the VSConfig in code instead") from e
+    return yaml
+
+
 def load_config(path: str | os.PathLike) -> VSConfig:
     """Load a reference-format YAML config; unknown keys are ignored and
     missing keys take the defaults above."""
-    import yaml  # only config loading needs it
-
+    yaml = _yaml()
     with open(path, "r") as fh:
         raw = yaml.safe_load(fh) or {}
     return VSConfig(**{k: v for k, v in raw.items() if k in _FIELDS})
+
+
+def save_config(cfg: VSConfig, path: str | os.PathLike) -> None:
+    """Write ``cfg`` as a YAML config that :func:`load_config` reads back."""
+    yaml = _yaml()
+    with open(path, "w") as fh:
+        yaml.safe_dump(dataclasses.asdict(cfg), fh, sort_keys=False)
