@@ -2,14 +2,27 @@
 """Smoke run of the PyTorch/CUDA port (vitvs_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py              # the smoke run below
-    python3 chip_smoke.py --profile [bf16|f32|F|N|loop|loop518|int8loop|sift|orb|akaze|harris]
+    python3 chip_smoke.py --profile [bf16|f32|F|N|loop|loop518|int8loop|sift|orb|akaze|harris|train]
                           [--trace trace.json]
                           [--chunk B]  # only: device-time breakdown of servo steps
                                        # of the bf16 or f32 path or an int8 serving variant,
                                        # or of closed-loop steps (at 308, or on the trained
                                        # ViT-S/14 @ 518 in bf16 or, int8loop, at run AD's
                                        # int8 settings; or a classical method's closed
-                                       # loop), a chunk of B episodes a step
+                                       # loop), a chunk of B episodes a step; or (train)
+                                       # train steps of ViT-S/14 @ 308 at batch 8
+    python3 chip_smoke.py --train N [--size S] [--poster synthetic|real] [--resume P] [--budget-s T]
+                                       # only: python -m vitvs_tpu_torch.train.train_servo
+                                       # for N steps at S (308) with the JAX run's arguments
+                                       # (batch 8, lr 3e-4, warm-up 100, seed 0, its synthetic
+                                       # poster; --poster real the real one), from random
+                                       # init or P; its files under
+                                       # .train/ (a budget stop leaves the part checkpoint,
+                                       # and the same command continues it); prints the loss
+                                       # windows beside the JAX run's and the matching
+                                       # quality, writes chiprun_out/train_sS_N.json and the
+                                       # weights (bf16 blocks) beside it; --train 3000 at 308
+                                       # is held to steps 2976-3000 <= 2.2, patch-acc >= 0.70
     python3 chip_smoke.py --replay A:B [--method M] [--int8] [--perturbed] [--chunk C]
                           [--checkpoint F] [--budget-s S]
                                        # only: episodes [A, B) of the 500-episode seed-41
@@ -136,6 +149,20 @@ Phases, each announced with a flushed, timestamped start/done line:
    Hamming distances of the int8 product on the card against the CPU's bit
    for bit); each episode alone for 20 steps against the chunk, twists held
    up to its first pair flip; the npz's 22 arrays;
+3i. descriptor training at full width (vitvs_tpu_torch/train/; the training
+   forward is plain PyTorch with autograd and may launch no hand kernel):
+   (a) one bf16 loss and its gradients of a seeded ViT-S/14 @ 308 on a servo
+   pair batch of 2 built on the CPU, on the card against the card machine's
+   CPU (loss within 1e-2 relative, every parameter's gradient cosine at
+   least 0.99); (b) 100 steps from scratch with the JAX run's arguments
+   (batch 8, lr 3e-4, warm-up 100 of a 3000-step schedule, seed 0, its
+   synthetic poster): every
+   loss finite, steps 76-100 at most 6.0 and 0.8 below steps 1-25; (c) the
+   trained ViT-S/14 @ 518: matching_quality on 8 views before any update
+   with kernels (24 exact-attention and 1 batched bf16-matcher launches) and
+   plain, each at least (0.95, 0.90), then 25 steps at most 1.9; (d) save,
+   load and one servo step on the trained weights, kernels on; ms a train
+   step, busy share, device activities a step and peak memory at 308 and 518;
 4. times on the card (CUDA events / synchronized host clock) beside each
    kernel's bound and the PyTorch library call for the same function (the
    exact kernels at T = 485 and T = 1370; the int8 kernel from the bf16
@@ -194,12 +221,16 @@ from vitvs_tpu_torch.harness.samplers import (DESIRED_ORIENTATION, DESIRED_POSIT
                                               generate_episode_starts)
 from vitvs_tpu_torch.io_bridge.config import VSConfig
 from vitvs_tpu_torch.match.binned import QuantizedBinned
-from vitvs_tpu_torch.models.convert import TRAINED_S518, load_exported
+from vitvs_tpu_torch.models.convert import TRAINED_S518, load_exported, save_exported
 from vitvs_tpu_torch.models.quant import _nomax_attention
 from vitvs_tpu_torch.models.vit import ViT, init_vit
 from vitvs_tpu_torch.ops import _build, attention, attn_int8, matcher
 from vitvs_tpu_torch.sim.env import observe
 from vitvs_tpu_torch.sim.scene import Scene, load_poster_scene
+from vitvs_tpu_torch.train import train_servo
+from vitvs_tpu_torch.train.finetune import (_servo_batch_loss, init_train_state,
+                                            make_servo_pair_batch, make_servo_train_epoch,
+                                            matching_quality, warmup_cosine_decay_schedule)
 
 T0 = time.perf_counter()
 
@@ -304,6 +335,36 @@ CLASSICAL_STEPS = 60
 CLASSICAL_COMPARED = tuple(range(0, CLASSICAL_STEPS, 6))   # chunk-steps held against the CPU
 CLASSICAL_ALONE_STEPS = 20
 CLASSICAL_TWIST_TOL = 1e-4
+# phase 3i, training at full width: the JAX run held to (artifacts/ckpt_vits308.trainlog.json:
+# ViT-S/14 @ 308 from random init, seed 0, batch 8, lr 3e-4, warm-up 100, 3000 steps,
+# perturbed with probability 0.5, on the synthetic poster: its log says poster None, which
+# scripts/train_servo.py read as make_synthetic_poster(512, seed=0) when the log was
+# committed, before the real poster became the default) and its loss means over 25-step
+# windows
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_LR, TRAIN_WARMUP, TRAIN_SEED = 3000, 8, 3e-4, 100, 0
+TRAIN_POSTER = "synthetic"
+TRAIN_CHAIN = 25                      # train_servo's steps between host syncs
+JAX_LOSS_WINDOWS = {(1, 25): 6.969, (76, 100): 5.390, (176, 200): 4.694, (476, 500): 3.676,
+                    (976, 1000): 2.776, (2976, 3000): 1.656}
+JAX_FINAL_MATCHING = (0.875, 0.812)   # valid-frac, patch-acc after its 3000 steps
+# bounds, written before the first run on the card: (a) one step, card against CPU
+TRAIN_LOSS_RTOL = 1e-2
+TRAIN_GRAD_COS_MIN = 0.99
+# (b) 100 steps from scratch: steps 76-100 at most 6.0 and 0.8 below steps 1-25
+TRAIN_SMOKE_STEPS = 100
+TRAIN_EARLY_MAX = 6.0
+TRAIN_EARLY_DROP = 0.8
+# (c) the trained ViT-S/14 @ 518 (ckpt_real518: JAX final 1.0, 0.975; its last window
+# 1.468): matching quality before any update, then 25 steps on train_servo --resume's
+# schedule (the reference's 2000 steps, warm-up restarted)
+TRAIN_QUALITY_MIN = (0.95, 0.90)
+TRAIN_RESUME_STEPS = 25
+TRAIN_RESUME_SCHEDULE = 2000
+TRAIN_RESUME_MAX = 1.9
+TRAIN_EVAL_VIEWS = 8
+# --train 3000 at 308 from scratch: steps 2976-3000 at most 2.2, patch-acc at least 0.70
+TRAIN_FINAL_MAX = 2.2
+TRAIN_PATCH_ACC_MIN = 0.70
 EPISODE_CAP = 1500                    # the ladder's max_iterations: card-seconds an episode
 TIMING_ROUNDS = 7                     # alternating rounds, closed-loop step and bare step
 # the reference's npz: its 22 arrays and the run time
@@ -1036,7 +1097,8 @@ def load_trained(model: ServoModel, path: Path = TRAINED_S518):
         raise ValueError(f"{path} holds a {vcfg}, the model runs a {model.vit}")
     net = ViT(model.vit)
     net.load_state_dict(sd)
-    info = {"file": str(Path(path).resolve().relative_to(Path(__file__).resolve().parent)),
+    here, where = Path(__file__).resolve().parent, Path(path).resolve()
+    info = {"file": str(where.relative_to(here) if where.is_relative_to(here) else where),
             "bytes": Path(path).stat().st_size, "parameters": sum(v.numel() for v in sd.values()),
             "config": {k: getattr(vcfg, k) for k in ("model_name", "patch_size", "stride",
                                                      "embed_dim", "depth", "num_heads",
@@ -1582,6 +1644,248 @@ def classical_runner(method: str, scene: Scene, chunk: int):
 
 
 # ---------------------------------------------------------------------------
+# phase 3i: descriptor training at full width
+# ---------------------------------------------------------------------------
+
+
+def train_model(size: int, device, vit=None) -> ServoModel:
+    """The trainer's model (train/train_servo.py's defaults): ViT-S/14 at
+    ``size``, layer 11, bf16 blocks over f32 weights, tanh GELU; ``vit``
+    replaces the ViT (a tiny one in the CPU tests, its last block the
+    layer)."""
+    if vit is None:
+        return ServoModel.create(VSConfig(dino_input_size=size), compute_dtype=torch.bfloat16,
+                                 device=device)
+    return ServoModel(vit=vit, cfg=VSConfig(dino_input_size=size, layer=vit.depth - 1),
+                      compute_dtype=torch.bfloat16, device=device)
+
+
+def train_schedule(steps: int = TRAIN_STEPS, lr: float = TRAIN_LR, warmup: int = TRAIN_WARMUP):
+    """train_servo's schedule for a run of ``steps``."""
+    return warmup_cosine_decay_schedule(0.0, lr, warmup, max(steps, warmup + 1), lr * 0.05)
+
+
+def check_train_grads(device, size: int = 308, seed: int = 0, batch: int = 2, vit=None) -> dict:
+    """3i(a): one bf16 loss and its gradients on the card and on the card
+    machine's CPU, from one seeded ViT and one servo pair batch built on the
+    CPU from a seeded generator (the real poster)."""
+    cpu_model = train_model(size, "cpu", vit=vit)
+    net_cpu = init_vit(cpu_model.vit, torch.Generator().manual_seed(seed), device="cpu")
+    goal, data = make_servo_pair_batch(cpu_model, load_poster_scene(device="cpu"),
+                                       torch.Generator().manual_seed(seed + 1), batch)
+    t0 = time.perf_counter()
+    loss_cpu = _servo_batch_loss(net_cpu, cpu_model, goal, data)
+    loss_cpu.backward()
+    cpu_s = time.perf_counter() - t0
+    card_model = dataclasses.replace(cpu_model, device=device)
+    net = copy.deepcopy(net_cpu).to(device)
+    net.zero_grad(set_to_none=True)
+    loss = _servo_batch_loss(net, card_model, goal.to(device),
+                             {k: v.to(device) for k, v in data.items()})
+    loss.backward()
+    rel = abs(loss.item() - loss_cpu.item()) / abs(loss_cpu.item())
+    if not rel <= TRAIN_LOSS_RTOL:
+        raise AssertionError(f"train loss card {loss.item()} vs CPU {loss_cpu.item()}: "
+                             f"relative {rel} > {TRAIN_LOSS_RTOL}")
+    cos = {}
+    for (name, p), q in zip(net.named_parameters(), net_cpu.parameters()):
+        a, b = p.grad.double().cpu().flatten(), q.grad.double().flatten()
+        na, nb = a.norm().item(), b.norm().item()
+        cos[name] = 1.0 if na == nb == 0.0 else (a @ b).item() / max(na * nb, 1e-300)
+    worst = min(cos, key=cos.get)
+    if not cos[worst] >= TRAIN_GRAD_COS_MIN:
+        raise AssertionError(f"gradient of {worst}: cosine card vs CPU {cos[worst]} < "
+                             f"{TRAIN_GRAD_COS_MIN}")
+    return {"loss_card": loss.item(), "loss_cpu": loss_cpu.item(), "loss_rel_err": rel,
+            "grad_cos_min": cos[worst], "grad_cos_min_param": worst, "params": len(cos),
+            "cpu_s": cpu_s}
+
+
+def run_train_steps(state, model: ServoModel, scene: Scene, steps: int, generator,
+                    batch: int = TRAIN_BATCH, chain: int = TRAIN_CHAIN) -> tuple:
+    """``steps`` servo train steps in chains of ``chain``, the launch
+    counters zeroed before and read after (the training forward is plain by
+    construction: no hand kernel may launch).  Returns (state, losses,
+    ms a step, peak bytes allocated)."""
+    epoch = make_servo_train_epoch(model, batch, chain)
+    for fn in _counters().values():
+        fn.launches = 0
+    cuda = torch.device(model.device).type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    sync(model.device)
+    t0 = time.perf_counter()
+    losses = []
+    for _ in range(steps // chain):
+        state, got = epoch(state, scene, generator)
+        losses.append(got)
+    losses = torch.cat(losses).tolist()
+    sync(model.device)
+    ms = 1e3 * (time.perf_counter() - t0) / steps
+    launched = {name: fn.launches for name, fn in _counters().items() if fn.launches}
+    if launched:
+        raise AssertionError(f"training launched hand kernels {launched}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"a training loss is not finite: {losses}")
+    return state, losses, ms, torch.cuda.max_memory_allocated() if cuda else 0
+
+
+def window(losses, lo: int, hi: int) -> float:
+    """Mean loss of steps lo..hi (1-based, inclusive)."""
+    return statistics.fmean(losses[lo - 1:hi])
+
+
+def quality_both(net, model: ServoModel, scene: Scene, views: int = TRAIN_EVAL_VIEWS) -> dict:
+    """matching_quality with kernels (counters zeroed before, read after)
+    and with their plain versions, on the same draws."""
+    for fn in _counters().values():
+        fn.launches = 0
+    ker = matching_quality(net, model, scene, torch.Generator().manual_seed(123), views)
+    launches = {name: fn.launches for name, fn in _counters().items()}
+    plain = matching_quality(net, dataclasses.replace(model, use_kernels=False), scene,
+                             torch.Generator().manual_seed(123), views)
+    return {"kernels": ker, "plain": plain, "launches": launches}
+
+
+def train_step_runner(net, model: ServoModel, scene: Scene, batch: int = TRAIN_BATCH):
+    """One train step a call on a copy of ``net`` (its own optimizer)."""
+    state = init_train_state(copy.deepcopy(net), train_schedule())
+    epoch = make_servo_train_epoch(model, batch, 1)
+    gen = torch.Generator().manual_seed(0)
+    holder = [state]
+
+    def run():
+        holder[0], _ = epoch(holder[0], scene, gen)
+
+    return run
+
+
+def run_training(device, scene: Scene, steps: int = TRAIN_SMOKE_STEPS,
+                 resume_steps: int = TRAIN_RESUME_STEPS, path: Path = TRAINED_S518,
+                 size: int = 308, resume_size: int = 518, batch: int = TRAIN_BATCH,
+                 chain: int = TRAIN_CHAIN, views: int = TRAIN_EVAL_VIEWS, profile: bool = True,
+                 vit=None, early=(TRAIN_EARLY_MAX, TRAIN_EARLY_DROP),
+                 quality_min=TRAIN_QUALITY_MIN, resume_max: float = TRAIN_RESUME_MAX) -> dict:
+    """3i(b)-(d): ``steps`` steps from scratch at ``size`` with the JAX run's
+    arguments (its 3000-step schedule and poster, train_servo's seeds: these
+    are the first steps of ``--train 3000``); the trained weights of
+    ``path`` at ``resume_size`` on ``scene`` (the real poster they were
+    trained on): matching quality before any update, with kernels and
+    plain, then ``resume_steps`` steps (train_servo --resume's schedule);
+    then save, load and one servo step with kernels.  ``vit`` replaces
+    the ViT (the CPU tests' tiny one, with its own bounds ``early``,
+    ``quality_min`` and ``resume_max``)."""
+    out = {}
+    model = train_model(size, device, vit=vit)
+    net = init_vit(model.vit, torch.Generator().manual_seed(TRAIN_SEED), device=device)
+    state = init_train_state(net, train_schedule())
+    gen = torch.Generator().manual_seed(TRAIN_SEED + 1)
+    jax_scene = train_servo.scene_of(TRAIN_POSTER, device)
+    state, losses, ms, peak = run_train_steps(state, model, jax_scene, steps, gen, batch, chain)
+    first, last = window(losses, 1, chain), window(losses, steps - chain + 1, steps)
+    out["scratch"] = {"size": size, "steps": steps, "poster": TRAIN_POSTER,
+                      "first_window": first, "last_window": last,
+                      "ms_per_step": ms, "peak_bytes": peak, "losses": losses}
+    if not (last <= early[0] and first - last >= early[1]):
+        raise AssertionError(f"from scratch: mean loss {first:.4f} over steps 1-{chain}, "
+                             f"{last:.4f} over steps {steps - chain + 1}-{steps} (bounds: at "
+                             f"most {early[0]}, at least {early[1]} below)")
+    if profile:
+        out["scratch"]["profile"] = profile_run(train_step_runner(net, model, jax_scene, batch),
+                                                steps=5, top=8)
+
+    rmodel = train_model(resume_size, device, vit=vit)
+    rnet = load_trained(rmodel, path)[0]
+    q = quality_both(rnet, rmodel, scene, views)
+    out["resume"] = {"size": resume_size, "quality": q}
+    for kind in ("kernels", "plain"):
+        frac, acc = q[kind]
+        if not (frac >= quality_min[0] and acc >= quality_min[1]):
+            raise AssertionError(f"trained weights at {resume_size}, {kind}: valid-frac {frac}, "
+                                 f"patch-acc {acc} (bounds {quality_min})")
+    rstate = init_train_state(rnet, train_schedule(steps=TRAIN_RESUME_SCHEDULE))
+    rstate, rlosses, rms, rpeak = run_train_steps(rstate, rmodel, scene, resume_steps,
+                                                  torch.Generator().manual_seed(TRAIN_SEED + 1),
+                                                  batch, chain)
+    out["resume"].update(mean_loss=statistics.fmean(rlosses), ms_per_step=rms, peak_bytes=rpeak,
+                         losses=rlosses)
+    if not out["resume"]["mean_loss"] <= resume_max:
+        raise AssertionError(f"resumed at {resume_size}: mean loss {out['resume']['mean_loss']} "
+                             f"over {resume_steps} steps > {resume_max}")
+    if profile:
+        out["resume"]["profile"] = profile_run(train_step_runner(rnet, rmodel, scene, batch),
+                                               steps=5, top=8)
+
+    # 3i(d): save, load and serve the trained weights
+    with tempfile.TemporaryDirectory() as tmp:
+        wpath = Path(tmp) / "trained.npz"
+        save_exported(wpath, rstate.net.state_dict(), rstate.net.cfg, "float32")
+        sd, _ = load_exported(wpath)
+    for k, v in rstate.net.state_dict().items():
+        if not torch.equal(sd[k], v.cpu()):
+            raise AssertionError(f"save_exported / load_exported changed {k}")
+    serve = rmodel.load_vit(sd)
+    goal, rgbs, depths = render_views(rmodel, scene, TRAINED_STEP_OFFSETS[:1])
+    for fn in _counters().values():
+        fn.launches = 0
+    gd = goal_descriptors(serve, rmodel, goal)
+    r = servo_step(serve, rmodel, gd, rgbs[0], depths[0], EmaState.init(device=device),
+                   torch.zeros(6, device=device), generator=torch.Generator(device).manual_seed(0))
+    sync(device)
+    step_launches = {name: fn.launches for name, fn in _counters().items()}
+    check_outputs(rmodel, gd, [r])
+    out["served"] = {"num_valid": int(r.num_valid), "body_twist": r.body_twist.tolist(),
+                     "launches": step_launches}
+    return out
+
+
+def run_train_command(steps: int, size: int, resume: Path | None, budget_s: float | None,
+                      here: Path, device, poster: str = TRAIN_POSTER, extra_argv=()) -> dict:
+    """--train: ``python -m vitvs_tpu_torch.train.train_servo`` with the JAX
+    run's arguments (its defaults and ``poster``, by default the synthetic
+    one the JAX run trained on, 'real' for the real one; ``steps`` steps at
+    ``size``, from random init or ``resume``), its files under .train/ (a run stopped by
+    ``budget_s`` leaves its part there and the same command continues it).
+    Writes chiprun_out/train_s<size>_<steps>.json (every loss, the loss
+    windows beside the JAX run's, the matching quality) and the trained
+    weights with bf16 blocks beside it.  For the JAX run itself (3000 steps
+    at 308 from scratch on the synthetic poster) it holds the last window and the final patch-acc
+    to TRAIN_FINAL_MAX and TRAIN_PATCH_ACC_MIN.  ``extra_argv``: more
+    train_servo flags (the CPU tests' short chains)."""
+    name = (f"train_s{size}_{steps}" + ("" if poster == TRAIN_POSTER else f"_{poster}")
+            + ("_resumed" if resume else ""))
+    out = here / ".train" / f"{name}.npz"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    argv = ["--out", str(out), "--steps", str(steps), "--size", str(size), "--device", str(device)]
+    if poster != "real":
+        argv += ["--poster", poster]
+    if resume is not None:
+        argv += ["--resume", str(resume)]
+    argv += list(extra_argv)
+    res = train_servo.train(train_servo.parse_args(argv), budget_s=budget_s, log=log)
+    loss = res["loss"]
+    summary = {"steps": steps, "size": size, "poster": poster,
+               "resume": None if resume is None else str(resume),
+               "finished": res["finished"], "done": res["done"],
+               "windows": {f"{lo}-{hi}": {"port": window(loss, lo, hi), "jax": jax}
+                           for (lo, hi), jax in JAX_LOSS_WINDOWS.items() if hi <= len(loss)},
+               "init_matching": res["init_matching"], "final_matching": res["final_matching"],
+               "jax_final_matching": JAX_FINAL_MATCHING, "ms_per_step": res["ms_per_step"]}
+    if (steps, size, resume, poster) == (TRAIN_STEPS, 308, None, TRAIN_POSTER) and res["finished"]:
+        last, acc = window(loss, TRAIN_STEPS - 24, TRAIN_STEPS), res["final_matching"][1]
+        summary["bounds"] = {"last_window": [last, TRAIN_FINAL_MAX],
+                             "patch_acc": [acc, TRAIN_PATCH_ACC_MIN]}
+        summary["bounds_met"] = last <= TRAIN_FINAL_MAX and acc >= TRAIN_PATCH_ACC_MIN
+    out_dir = here / "chiprun_out"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / f"{name}.json").write_text(json.dumps({**summary, "loss": loss}))
+    if res["finished"]:
+        sd, vcfg = load_exported(out)
+        save_exported(out_dir / f"{name}_bf16.npz", sd, vcfg, "bfloat16", source=name)
+    return summary
+
+
+# ---------------------------------------------------------------------------
 # phase 4: times and bounds
 # ---------------------------------------------------------------------------
 
@@ -1853,7 +2157,7 @@ def profile_run(run, steps=10, top=25, trace_path: Path | None = None) -> dict:
     """Device time by kernel over ``steps`` calls of ``run`` (torch.profiler)
     after 3 warm-up calls, the device's busy share of that window, and the
     host's waits on the device.  Returns the window's ms per step and busy
-    share."""
+    share and its device activities (kernels and copies) a step."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
@@ -1866,8 +2170,10 @@ def profile_run(run, steps=10, top=25, trace_path: Path | None = None) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = prof.key_averages()
-    # kernels and copies are the rows on the device; operator rows repeat their time
-    on_device = [e for e in rows if str(e.device_type).endswith("CUDA")]
+    # kernels and copies are the rows on the device; operator rows repeat their time, and
+    # so do user-annotated ranges (torch.optim's "Optimizer.step#AdamW.step")
+    on_device = [e for e in rows if str(e.device_type).endswith("CUDA")
+                 and not getattr(e, "is_user_annotation", False)]
     dev_us = lambda e: e.self_device_time_total
     device_ms = sum(dev_us(e) for e in on_device) / 1e3
     log(f"profile: {steps} steps, wall {wall_ms / steps:.3f} ms/step (profiled), device busy "
@@ -1885,7 +2191,8 @@ def profile_run(run, steps=10, top=25, trace_path: Path | None = None) -> dict:
         prof.export_chrome_trace(str(trace_path))
         log(f"profile: trace written to {trace_path}")
     return {"wall_ms_per_step": wall_ms / steps, "device_ms_per_step": device_ms / steps,
-            "busy_share": device_ms / wall_ms}
+            "busy_share": device_ms / wall_ms,
+            "activities_per_step": sum(e.count for e in on_device) / steps}
 
 
 # ---------------------------------------------------------------------------
@@ -1992,12 +2299,14 @@ def run_replay(lo: int, hi: int, checkpoint: Path, budget_s: float, out_dir: Pat
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", nargs="?", const="bf16",
-                    choices=["bf16", "f32", *VARIANTS, "loop", "loop518", "int8loop", *CLASSICAL],
+                    choices=["bf16", "f32", *VARIANTS, "loop", "loop518", "int8loop", *CLASSICAL,
+                             "train"],
                     help="build, then only profile servo steps of the bf16 path (default), "
                          "the f32 path or an int8 serving variant, or closed-loop steps at "
                          "308 (seeded) or 518 (trained; int8loop: the int8 closed loop at "
-                         "run AD's settings), or a classical method's closed loop at 640x480 "
-                         "(no checks, no result line)")
+                         "run AD's settings), or a classical method's closed loop at 640x480, "
+                         "or (train) train steps of ViT-S/14 @ 308 at batch 8 (no checks, no "
+                         "result line)")
     ap.add_argument("--trace", type=Path, default=None,
                     help="with --profile: write the profiler's chrome trace here")
     ap.add_argument("--replay", default=None, metavar="A:B",
@@ -2017,8 +2326,20 @@ def main() -> int:
                     help="with --replay: the resume file (default .replay/replay_s518_A_B.ckpt, "
                          ".replay/replay_s518_int8_A_B.ckpt with --int8; a copy is left in "
                          "chiprun_out/ when the run is unfinished)")
-    ap.add_argument("--budget-s", type=float, default=480.0,
-                    help="with --replay: stop after this many seconds of episodes")
+    ap.add_argument("--budget-s", type=float, default=None,
+                    help="with --replay: stop after this many seconds of episodes (default "
+                         "480); with --train: stop at the first chain boundary after this many "
+                         "seconds, leaving the trainer's part checkpoint (default: no budget)")
+    ap.add_argument("--train", type=int, default=None, metavar="N",
+                    help="build, then only train ViT-S/14 for N steps with the JAX run's "
+                         "arguments (train_servo's defaults, batch 8; --train 3000 is the JAX "
+                         "run), resumable from the trainer's part files under .train/")
+    ap.add_argument("--size", type=int, default=308, help="with --train: the input size")
+    ap.add_argument("--poster", default=TRAIN_POSTER, choices=["synthetic", "real"],
+                    help="with --train: the synthetic poster the JAX run trained on (default), "
+                         "or the real poster (train_servo's default today)")
+    ap.add_argument("--resume", type=Path, default=None,
+                    help="with --train: start from these weights (exported .npz or .pth)")
     ap.add_argument("--chunk", type=int, default=None,
                     help=f"with --replay: episodes a chunk (default {CHUNK}); with --profile "
                          f"loop, loop518 or int8loop: profile chunk-steps of this many episodes")
@@ -2125,7 +2446,8 @@ def main() -> int:
             # the npz and the checkpoint of hundreds of episodes' histories stay
             # beside the checkpoint (chiprun_out/ is kept to 64 MiB at most);
             # an unfinished run's checkpoint is copied out to be resumed
-            rep_out = run_replay(lo, hi, ckpt, args.budget_s, ckpt.parent, device,
+            budget = 480.0 if args.budget_s is None else args.budget_s
+            rep_out = run_replay(lo, hi, ckpt, budget, ckpt.parent, device,
                                  chunk=args.chunk or CHUNK, int8=args.int8,
                                  perturbed=args.perturbed, method=args.method)
             out_dir.mkdir(parents=True, exist_ok=True)
@@ -2152,6 +2474,21 @@ def main() -> int:
                                                  "count": torch.cuda.device_count()}}), flush=True)
         return 0
 
+    if args.train:
+        with phase(f"train {args.train} at {args.size}"):
+            res = run_train_command(args.train, args.size, args.resume, args.budget_s, here,
+                                    device, args.poster)
+        log(f"[{card}] train: {json.dumps({k: v for k, v in res.items() if k != 'loss'})}")
+        print(json.dumps({"train": {k: v for k, v in res.items() if k != "loss"}}), flush=True)
+        if res.get("bounds_met") is False:
+            print(f"train: bounds missed: {res['bounds']}", file=sys.stderr)
+            return 1
+        print(card, flush=True)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                 "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+
     cfg = reference_config()
     model = ServoModel.create(cfg, use_kernels=True, device=device)
     net = init_vit(model.vit, torch.Generator().manual_seed(0), device=device,
@@ -2162,7 +2499,15 @@ def main() -> int:
     net32, model32 = f32_step(cfg, device)
     if args.profile:
         with phase("profile"):
-            if args.profile in CLASSICAL:
+            if args.profile == "train":
+                tmodel = train_model(308, device)
+                log(f"profile: train steps of ViT-S/14 @ 308, batch {TRAIN_BATCH}, bf16 over "
+                    f"f32 weights, from a seeded init")
+                profile_run(train_step_runner(init_vit(tmodel.vit, torch.Generator().manual_seed(0),
+                                                       device=device), tmodel,
+                                              load_poster_scene(device=device)),
+                            trace_path=args.trace)
+            elif args.profile in CLASSICAL:
                 log(f"profile: classical {args.profile} closed loop, a chunk of "
                     f"{args.chunk or 1} episodes a step")
                 profile_run(classical_runner(args.profile, load_poster_scene(device=device),
@@ -2396,6 +2741,44 @@ def main() -> int:
                 f"{cpu['hamming_distances_bit_for_bit']} Hamming distances bit for bit; "
                 f"against chunk 1: first flip at {c['alone']['first_flip_step']}, twists within "
                 f"{c['alone']['twist_max_abs_err']:.3e} before it")
+
+    with phase("3i training"):
+        log(f"training at full width: ViT-S/14, batch {TRAIN_BATCH}, bf16 blocks over f32 "
+            f"weights; (a) and (c) on the real poster, (b) on the JAX run's {TRAIN_POSTER} "
+            f"poster; bounds: (a) loss within {TRAIN_LOSS_RTOL} relative, "
+            f"gradient cosines at least {TRAIN_GRAD_COS_MIN}; (b) steps 76-100 at most "
+            f"{TRAIN_EARLY_MAX} and {TRAIN_EARLY_DROP} below steps 1-25; (c) matching quality "
+            f"at least {TRAIN_QUALITY_MIN}, 25 resumed steps at most {TRAIN_RESUME_MAX}")
+        g = check_train_grads(device)
+        log(f"(a) one step at 308, batch 2, card against CPU: {json.dumps(g)}")
+        tr = run_training(device, scene)
+        sc, rs = tr["scratch"], tr["resume"]
+        log(f"(b) {sc['steps']} steps from scratch at 308 ({sc['poster']} poster): mean loss "
+            f"steps 1-25 "
+            f"{sc['first_window']:.4f} (JAX {JAX_LOSS_WINDOWS[1, 25]}), steps 76-100 "
+            f"{sc['last_window']:.4f} (JAX {JAX_LOSS_WINDOWS[76, 100]}); losses "
+            f"{json.dumps([round(x, 4) for x in sc['losses']])}")
+        q = rs["quality"]
+        log(f"(c) trained ViT-S/14 @ 518: matching quality kernels {q['kernels']}, plain "
+            f"{q['plain']} (JAX final {[1.0, 0.975]}), launches {json.dumps(q['launches'])}; "
+            f"{TRAIN_RESUME_STEPS} resumed steps mean loss {rs['mean_loss']:.4f} (JAX last "
+            f"window 1.468)")
+        log(f"(d) saved, loaded and served: {json.dumps(tr['served'])}")
+        want = {k: 0 for k in _counters()}
+        # the goal's forward and the 8 views' one, a launch a block each; one batched match
+        want.update(attention=2 * (tcfg.layer + 1), matcher_bf16=1)
+        if q["launches"] != want:
+            raise AssertionError(f"matching_quality: launch counts {q['launches']} != {want}")
+        for k in ("attention", "matcher_bf16"):
+            launches[k] += want[k]
+        for name, part in (("308", sc), ("518", rs)):
+            prof = part["profile"]
+            log(f"[{card}] train step at {name}, batch {TRAIN_BATCH}: {part['ms_per_step']:.3f} "
+                f"ms a step over the run (chains of {TRAIN_CHAIN}), profiled "
+                f"{prof['wall_ms_per_step']:.3f} ms, device busy "
+                f"{prof['device_ms_per_step']:.3f} ms = {100 * prof['busy_share']:.1f}%, "
+                f"{prof['activities_per_step']:.0f} device activities a step, peak "
+                f"{part['peak_bytes'] / 2 ** 30:.3f} GiB allocated")
 
     with phase("4 times"):
         step_ms = time_run(step_runner(net, model))

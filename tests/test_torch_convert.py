@@ -74,9 +74,14 @@ def test_load_exported_refuses_what_it_cannot_read(tmp_path):
     np.savez(tmp_path / "bare.npz", w=np.zeros(3, np.float32))
     with pytest.raises(ValueError, match="__config__"):
         tconvert.load_exported(tmp_path / "bare.npz")
+    config = '{"blocks_dtype": "float16"}'
+    np.savez(tmp_path / "f16.npz", __config__=np.array(config), w=np.zeros(3, np.float32))
+    with pytest.raises(ValueError, match="blocks_dtype"):
+        tconvert.load_exported(tmp_path / "f16.npz")
+    # f32 blocks are read (the trainer writes them), but not without the architecture
     config = '{"blocks_dtype": "float32"}'
     np.savez(tmp_path / "f32.npz", __config__=np.array(config), w=np.zeros(3, np.float32))
-    with pytest.raises(ValueError, match="blocks_dtype"):
+    with pytest.raises(ValueError, match="lacks"):
         tconvert.load_exported(tmp_path / "f32.npz")
     (tmp_path / "junk.npz").write_bytes(b"not a zip")
     with pytest.raises(ValueError):

@@ -702,3 +702,30 @@ def test_classical_chunk_on_the_card_matches_the_cpu_port(cuda, method, tmp_path
     assert all(v == 0 for v in s["launches"].values())
     assert s["cpu"]["frames"] == 6 and s["cpu"]["twist_max_abs_err"] <= 1e-4
     assert s["cpu"]["frames_with_same_pairs"] >= 3
+
+
+def test_train_step_on_the_card_matches_the_cpu(cuda):
+    """Phase 3i(a) at a tiny ViT at 56 px: the bf16 servo loss and its
+    gradients on the card against the CPU (loss within 1e-2 relative, every
+    gradient's cosine at least 0.99), no hand kernel launched."""
+    from vitvs_tpu_torch.models.vit import ViTConfig
+
+    vit = ViTConfig(patch_size=14, embed_dim=64, depth=2, num_heads=2, pos_grid=4,
+                    model_name="tiny", gelu_approx=True)
+    before = {k: fn.launches for k, fn in chip_smoke._counters().items()}
+    g = chip_smoke.check_train_grads("cuda", size=56, vit=vit)
+    assert g["loss_rel_err"] <= 1e-2 and g["grad_cos_min"] >= 0.99
+    assert {k: fn.launches for k, fn in chip_smoke._counters().items()} == before
+
+
+def test_kernel_entries_refuse_grad_on_the_card(cuda):
+    """On CUDA tensors that require grad the kernel entries raise before any
+    launch; under no_grad they launch."""
+    q, k, v = (t.requires_grad_() for t in _bf16((1, 64, 2, 64), 31))
+    n = attention.mha_attention.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        attention.mha_attention(q, k, v)
+    assert attention.mha_attention.launches == n
+    with torch.no_grad():
+        attention.mha_attention(q, k, v)
+    assert attention.mha_attention.launches == n + 1

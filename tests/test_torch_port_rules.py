@@ -6,6 +6,7 @@ step) run at tiny size on the CPU (plain versions, which is what the kernel
 wrappers take for CPU tensors)."""
 
 import ast
+import json
 from pathlib import Path
 
 import numpy as np
@@ -34,6 +35,16 @@ def test_port_imports_neither_jax_nor_reference(path):
     for mod in _imported_modules(path):
         top = mod.split(".")[0]
         assert top not in ("jax", "jaxlib", "vitvs_tpu", "flax", "optax", "orbax"), (path, mod)
+
+
+def test_import_rule_covers_the_trainer():
+    """The trainer's modules are among the files the import rule reads, and
+    the rule bans optax with JAX (the port's optimizer is torch.optim)."""
+    train = {p.name for p in PORT_FILES if p.parent.name == "train"}
+    assert {"__init__.py", "finetune.py", "train_servo.py"} <= train
+    for path in PORT_FILES:
+        if path.parent.name == "train":
+            assert not {m.split(".")[0] for m in _imported_modules(path)} & {"optax", "jax"}
 
 
 def test_kernels_use_plain_c_interface():
@@ -465,3 +476,58 @@ def test_chip_smoke_classical_and_perturbed_replays_are_their_own_runs(tmp_path,
     assert out["perturbed"] and not out["finished"] and out["call_steps"] == 1
     with pytest.raises(ValueError, match="different run"):
         chip_smoke.run_replay(0, 1, pert, 0.0, tmp_path / "out", "cpu")
+
+
+def _tiny_train_vit():
+    return tvit.ViTConfig(patch_size=14, embed_dim=64, depth=2, num_heads=2, pos_grid=4,
+                          model_name="tiny", gelu_approx=True)
+
+
+def test_chip_smoke_training_phase_runs_tiny_on_cpu(tmp_path, one_intra_op_thread):
+    """Phase 3i with a tiny 2-block ViT on the real poster on the CPU:
+    (a) the card-against-CPU step (here CPU against CPU: equal), (b) steps
+    from scratch with no hand kernel launched, (c) matching quality with
+    kernels and plain (the plain versions on CPU tensors: equal; 2 forwards
+    of the layers and one batched matcher call), resumed steps, (d) save,
+    load and one servo step.  A bound the tiny run misses raises."""
+    from vitvs_tpu_torch.models.convert import save_exported
+    from vitvs_tpu_torch.sim.scene import load_poster_scene
+
+    vit = _tiny_train_vit()
+    g = chip_smoke.check_train_grads("cpu", size=56, vit=vit)
+    assert g["loss_rel_err"] == 0.0 and g["grad_cos_min"] > 0.999999 and g["params"] == 32
+    net = tvit.init_vit(vit, torch.Generator().manual_seed(0), device="cpu", layerscale=1.0)
+    path = tmp_path / "tiny.npz"
+    save_exported(path, net.state_dict(), vit, "bfloat16")
+    scene = load_poster_scene(device="cpu")
+    kw = dict(steps=4, resume_steps=2, path=path, size=56, resume_size=70, batch=2, chain=2,
+              views=2, profile=False, vit=vit)
+    out = chip_smoke.run_training("cpu", scene, early=(10.0, -10.0), quality_min=(0.0, 0.0),
+                                  resume_max=10.0, **kw)
+    assert len(out["scratch"]["losses"]) == 4 and len(out["resume"]["losses"]) == 2
+    q = out["resume"]["quality"]
+    assert q["kernels"] == q["plain"]
+    assert q["launches"] == dict.fromkeys(q["launches"], 0)   # CPU tensors: plain versions
+    assert out["served"]["launches"] == dict.fromkeys(q["launches"], 0)
+    assert np.isfinite(out["served"]["body_twist"]).all()
+    with pytest.raises(AssertionError, match="from scratch"):
+        chip_smoke.run_training("cpu", scene, **kw)
+
+
+def test_chip_smoke_train_command_runs_tiny_on_cpu(tmp_path, one_intra_op_thread):
+    """--train on the CPU: train_servo at 56 px for 2 steps in chains of 1 on
+    the synthetic poster (the JAX run's);
+    the summary JSON and the bf16 weights land in chiprun_out/, the loss
+    windows appear only where the run reaches them, and no bounds are held
+    outside the JAX run's configuration."""
+    from vitvs_tpu_torch.models.convert import load_exported
+
+    res = chip_smoke.run_train_command(2, 56, None, None, tmp_path, "cpu",
+                                       extra_argv=["--chain", "1", "--batch", "1", "--layer", "0"])
+    assert res["finished"] and res["done"] == 2 and res["windows"] == {}
+    assert res["poster"] == "synthetic"
+    assert "bounds" not in res and len(res["final_matching"]) == 2
+    saved = json.loads((tmp_path / "chiprun_out" / "train_s56_2.json").read_text())
+    assert len(saved["loss"]) == 2
+    sd, cfg = load_exported(tmp_path / "chiprun_out" / "train_s56_2_bf16.npz")
+    assert cfg == tvit.make_config("dinov2_vits14") and sd["blocks.0.attn.qkv.weight"].dtype == torch.bfloat16

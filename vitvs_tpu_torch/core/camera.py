@@ -49,3 +49,32 @@ class CameraIntrinsics:
         y = (torch.arange(self.height, dtype=torch.float32, device=device) + 0.5 - self.cy) / self.fy
         yy, xx = torch.meshgrid(y, x, indexing="ij")
         return torch.stack([xx, yy, torch.ones_like(xx)], dim=-1)
+
+
+def reproject_via_plane(cam: CameraIntrinsics, uv_a, pos_a: torch.Tensor, quat_a: torch.Tensor,
+                        pos_b: torch.Tensor, quat_b: torch.Tensor, plane_z):
+    """Ground-truth pixel correspondence view A -> view B through the world
+    plane z = ``plane_z`` (the poster): pixels ``uv_a`` (t, 2) of camera A
+    (body pose ``pos_a`` (..., 3), ``quat_a`` (..., 4)) are back-projected,
+    intersected with the plane and projected into camera B.
+
+    Returns ``(uv_b, world, t_hit, z_b)``, each with the poses' leading
+    dims before the pixels': pixel coords in B, the plane hit points, the
+    ray parameter in A (<= 0: the plane is behind A) and the depth along
+    B's optical axis (<= 0: behind B)."""
+    from vitvs_tpu_torch.core import se3
+
+    uv_a = torch.as_tensor(uv_a, dtype=torch.float32, device=pos_a.device)
+    xy = cam.pixel_to_normalized(uv_a)
+    d_c = torch.cat([xy, torch.ones_like(xy[..., :1])], -1)
+    r_wa = se3.matrix_from_quat(quat_a) @ se3.body_from_optical(quat_a)
+    d_w = d_c @ r_wa.mT                                          # (..., t, 3)
+    dz = d_w[..., 2]
+    t_hit = ((plane_z - pos_a[..., 2, None])
+             / torch.where(dz.abs() < 1e-9, torch.full_like(dz, 1e-9), dz))
+    world = pos_a[..., None, :] + t_hit[..., None] * d_w
+    r_wb = se3.matrix_from_quat(quat_b) @ se3.body_from_optical(quat_b)
+    p_c = (world - pos_b[..., None, :]) @ r_wb
+    z_b = p_c[..., 2]
+    uv_b = cam.normalized_to_pixel(p_c[..., :2] / torch.clamp(z_b, min=1e-9)[..., None])
+    return uv_b, world, t_hit, z_b

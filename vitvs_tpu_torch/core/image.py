@@ -132,9 +132,12 @@ def resize_weights(
 
 
 @functools.lru_cache(maxsize=64)
+@torch.inference_mode(False)
 def _weights_on(in_size: int, out_size: int, method: str, antialias: bool,
                 scale: float | None, device: torch.device) -> torch.Tensor:
-    """resize_weights as a constant tensor on ``device`` (built once)."""
+    """resize_weights as a constant tensor on ``device`` (built once, and
+    never as an inference tensor: a training forward may take it after a
+    serving call under inference_mode built it)."""
     return torch.from_numpy(
         resize_weights(in_size, out_size, method, antialias, scale)).to(device)
 

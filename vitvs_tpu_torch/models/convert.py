@@ -24,7 +24,8 @@ port's :class:`~vitvs_tpu_torch.models.quant.QuantViT` on the CPU.
 (an npz of the state dict, the embedding in f32 and the blocks in bf16 as
 two byte planes of their bits, plus ``__config__``, the architecture as
 JSON) with numpy alone: it is how trained weights reach a machine without
-JAX or orbax.  ``vitvs_tpu_torch/assets/ckpt_real518.npz`` is the trained
+JAX or orbax.  ``save_exported`` writes that format from the port, the
+blocks in bf16 or, as the trainer saves them, in f32.  ``vitvs_tpu_torch/assets/ckpt_real518.npz`` is the trained
 ViT-S/14 @ 518 (``artifacts/ckpt_real518``) exported so; the bf16 step and
 the benchmark's cast run exactly these values.
 
@@ -56,6 +57,7 @@ _EXPORTED_FIELDS = ("model_name", "patch_size", "stride", "embed_dim", "depth", 
                     "pos_grid", "use_layerscale")
 # the blocks' bf16 bits as (2, ...) uint8: the high-byte plane, then the low
 _PLANES = 2
+BLOCKS_DTYPES = ("bfloat16", "float32")
 TRAINED_S518 = Path(__file__).resolve().parent.parent / "assets" / "ckpt_real518.npz"
 
 
@@ -121,22 +123,57 @@ def _bf16_from_planes(planes: np.ndarray) -> torch.Tensor:
 
 def load_exported(path: str | os.PathLike) -> tuple[dict[str, torch.Tensor], ViTConfig]:
     """An exported weight file -> (the port's state dict: the embedding in
-    f32, the blocks in bf16; its ViTConfig).  numpy only
-    (``allow_pickle=False``); raises on a missing or unreadable file and on
-    a config that disagrees with its preset."""
+    f32, the blocks in the file's ``blocks_dtype``, bf16 or f32; its
+    ViTConfig).  numpy only (``allow_pickle=False``); raises on a missing or
+    unreadable file and on a config that disagrees with its preset."""
     with np.load(path, allow_pickle=False) as f:
         if EXPORTED_CONFIG_KEY not in f.files:
             raise ValueError(f"{path} has no {EXPORTED_CONFIG_KEY}: not an exported weight file")
         meta = json.loads(str(f[EXPORTED_CONFIG_KEY]))
-        if meta.get("blocks_dtype") != "bfloat16":
-            raise ValueError(f"{path}: blocks_dtype {meta.get('blocks_dtype')!r}, not bfloat16")
-        sd = {k: (_bf16_from_planes(f[k]) if k.startswith("blocks.")
+        blocks_dtype = meta.get("blocks_dtype")
+        if blocks_dtype not in BLOCKS_DTYPES:
+            raise ValueError(f"{path}: blocks_dtype {blocks_dtype!r}, not one of {BLOCKS_DTYPES}")
+        missing = [k for k in _EXPORTED_FIELDS if k not in meta]
+        if missing:
+            raise ValueError(f"{path}: its config lacks {missing}")
+        bf16 = blocks_dtype == "bfloat16"
+        sd = {k: (_bf16_from_planes(f[k]) if bf16 and k.startswith("blocks.")
                   else torch.from_numpy(np.array(f[k], np.float32)))
               for k in f.files if k != EXPORTED_CONFIG_KEY}
     cfg = ViTConfig(**{k: meta[k] for k in _EXPORTED_FIELDS})
     if cfg.model_name in PRESETS and make_config(cfg.model_name, cfg.stride) != cfg:
         raise ValueError(f"{path}: config {meta} does not match preset {cfg.model_name}")
     return sd, cfg
+
+
+def save_exported(path: str | os.PathLike, state_dict: Mapping[str, torch.Tensor],
+                  cfg: ViTConfig, blocks_dtype: str = "float32",
+                  source: str | None = None) -> dict:
+    """Write ``state_dict`` (the port's ViT state dict) as an exported
+    weight file at exactly ``path``, the format of
+    ``scripts/export_port_weights.py``: the embedding in f32, the blocks in
+    ``blocks_dtype`` ('float32', or 'bfloat16' rounded to nearest even and
+    stored as two byte planes of their bits), and ``__config__`` (the
+    architecture, the blocks' dtype and ``source``, when given).  Returns
+    that config."""
+    if blocks_dtype not in BLOCKS_DTYPES:
+        raise ValueError(f"blocks_dtype must be one of {BLOCKS_DTYPES}, got {blocks_dtype!r}")
+    config = {k: getattr(cfg, k) for k in _EXPORTED_FIELDS}
+    config["blocks_dtype"] = blocks_dtype
+    if source is not None:
+        config["source"] = source
+    arrays = {}
+    for k, v in state_dict.items():
+        v = v.detach().cpu()
+        if k.startswith("blocks.") and blocks_dtype == "bfloat16":
+            bits = v.to(torch.bfloat16).view(torch.int16).numpy().view(np.uint16)
+            arrays[k] = np.stack([(bits >> 8).astype(np.uint8), (bits & 0xFF).astype(np.uint8)])
+        else:
+            arrays[k] = v.to(torch.float32).numpy()
+    arrays[EXPORTED_CONFIG_KEY] = np.array(json.dumps(config, sort_keys=True))
+    with open(path, "wb") as fh:                 # a file object: np adds no suffix
+        np.savez_compressed(fh, **arrays)
+    return config
 
 
 def _f32(t: Any) -> torch.Tensor:

@@ -62,6 +62,7 @@ def extract_descriptors(
     hierarchy: int = 1,
     use_kernels: bool = True,
     quantized: bool = False,
+    compute_dtype: torch.dtype | None = None,
 ) -> torch.Tensor:
     """Dense patch descriptors (B, 1, t, d') from (B, H, W, 3) images.
 
@@ -69,14 +70,15 @@ def extract_descriptors(
     reference's permute(0, 2, 3, 1) (per component, then head); bin=True
     multiplies d' by 9 (hierarchy 1).  Descriptors stay in the compute dtype.
     quantized=True runs the int8 W8A8 forward (``models/quant.py``; ``net``
-    is then a ``QuantViT``).
+    is then a ``QuantViT``).  ``compute_dtype`` selects the training
+    forward of :func:`~vitvs_tpu_torch.models.vit.vit_features`.
     """
     if quantized:
         from vitvs_tpu_torch.models.quant import vit_features_quant
 
         feats = vit_features_quant(net, images, layer, facet, use_kernels)
     else:
-        feats = vit_features(net, images, layer, facet, use_kernels)
+        feats = vit_features(net, images, layer, facet, use_kernels, compute_dtype)
     if facet == "token":
         x = feats
     else:

@@ -24,6 +24,14 @@ no-max serving variant ('fast'), each the kernel wrapper of
 its plain version when ``use_kernels`` is off.  Pooled attention
 (``kv_pool > 1``) is plain PyTorch whatever ``attn_impl`` says: the JAX
 package sends it to no Pallas kernel either.
+
+Training (``vitvs_tpu_torch/train``) runs ``vit_features`` with a
+``compute_dtype``: the parameters stay f32 and each block runs on casts of
+them made inside the autograd graph, so the gradients land on the f32
+weights, as the JAX package casts ``params["blocks"]`` inside its traced
+forward.  It runs with ``use_kernels=False``: the kernels have no backward
+and refuse inputs that require grad.  ``ViTConfig.remat_blocks`` then
+recomputes each block in the backward pass (``torch.utils.checkpoint``).
 State-dict names follow torch-hub DINOv2 (``blocks.0.attn.qkv.weight`` ...).
 """
 
@@ -37,6 +45,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from vitvs_tpu_torch.core.image import interpolate_bicubic_scale_factor
 from vitvs_tpu_torch.ops.attention import (mha_attention, mha_attention_fast_plain,
@@ -82,6 +91,9 @@ class ViTConfig:
     kv_pool_where: str = "post"
     # non-overlapping patch embedding: a reshape and one matmul, or a convolution
     patch_embed_impl: str = "reshape"
+    # recompute each block in the backward pass instead of keeping its
+    # activations (a training-memory knob; forwards without grad are unchanged)
+    remat_blocks: bool = False
 
     def __post_init__(self):
         if self.attn_impl not in ATTN_IMPLS:
@@ -304,7 +316,12 @@ class Block(nn.Module):
         self.mlp = Mlp(cfg)
         self.ls2 = LayerScale(cfg.embed_dim)
 
-    def forward(self, x: torch.Tensor, use_kernels: bool) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, use_kernels: bool, facet: str | None = None) -> torch.Tensor:
+        """The block's output, or with ``facet`` ('query' | 'key' | 'value')
+        that projection of its normed input, (B, h, T, hd)."""
+        if facet is not None:
+            qkv = self.attn.qkv_heads(_layernorm(x, self.norm1))     # (3, B, T, h, hd)
+            return qkv[("query", "key", "value").index(facet)].transpose(1, 2)
         x = x + self.ls1.gamma * self.attn(_layernorm(x, self.norm1), use_kernels)
         return x + self.ls2.gamma * self.mlp(_layernorm(x, self.norm2))
 
@@ -383,25 +400,51 @@ def embed_tokens(cfg: ViTConfig, images: torch.Tensor, weight: torch.Tensor,
     return tokens + pos.to(tokens.dtype)
 
 
+def _block_call(blk: Block, x: torch.Tensor, use_kernels: bool, dtype: torch.dtype | None,
+                facet: str | None = None) -> torch.Tensor:
+    """``blk`` on x, in its parameters' dtype, or (``dtype``) on casts of its
+    parameters made here, inside the autograd graph."""
+    if dtype is None:
+        return blk(x, use_kernels, facet)
+    params = {n: p.to(dtype) for n, p in blk.named_parameters()}
+    return torch.func.functional_call(blk, params, (x, use_kernels, facet))
+
+
+def _run_block(net: "ViT", blk: Block, x: torch.Tensor, use_kernels: bool,
+               dtype: torch.dtype | None) -> torch.Tensor:
+    if net.cfg.remat_blocks and torch.is_grad_enabled():
+        # the casts run inside the checkpoint, so the recomputation makes them again
+        return checkpoint(_block_call, blk, x, use_kernels, dtype, use_reentrant=False)
+    return _block_call(blk, x, use_kernels, dtype)
+
+
 def vit_features(net: ViT, images: torch.Tensor, layer: int = 11,
-                 facet: str = "token", use_kernels: bool = True) -> torch.Tensor:
+                 facet: str = "token", use_kernels: bool = True,
+                 compute_dtype: torch.dtype | None = None) -> torch.Tensor:
     """Facet after block ``layer``, running blocks 0..layer only.
 
     facet 'token' -> (B, 1+t, D) block output (with cls);
     'query' | 'key' | 'value' -> (B, h, 1+t, hd) of block ``layer``.
+
+    ``compute_dtype`` (the training forward): the images are rounded to it,
+    the embedding computes in the promoted dtype of the images and its
+    weights, and the blocks run in it on casts of their parameters made in
+    the autograd graph; None runs every parameter in its own dtype.
     """
     if facet not in ("token", "query", "key", "value"):
         raise ValueError(f"unsupported facet {facet!r}")
-    x = net.embed(images).to(net.compute_dtype)
+    if compute_dtype is None:
+        x = net.embed(images).to(net.compute_dtype)
+    else:
+        pe = net.patch_embed.proj
+        x = embed_tokens(net.cfg, images.to(compute_dtype), pe.weight, pe.bias,
+                         net.cls_token, net.pos_embed).to(compute_dtype)
+    last = layer + 1 if facet == "token" else layer
+    for blk in net.blocks[:last]:
+        x = _run_block(net, blk, x, use_kernels, compute_dtype)
     if facet == "token":
-        for blk in net.blocks[: layer + 1]:
-            x = blk(x, use_kernels)
         return x
-    for blk in net.blocks[:layer]:
-        x = blk(x, use_kernels)
-    blk = net.blocks[layer]
-    qkv = blk.attn.qkv_heads(_layernorm(x, blk.norm1))     # (3, B, T, h, hd)
-    return qkv[("query", "key", "value").index(facet)].transpose(1, 2)
+    return _block_call(net.blocks[layer], x, use_kernels, compute_dtype, facet)
 
 
 def _trunc_normal(shape, generator: torch.Generator, std: float = 0.02) -> torch.Tensor:

@@ -140,3 +140,16 @@ def check(err: int, what: str) -> None:
     if err != 0:
         msg = library().vitvs_error_string(err).decode()
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err} ({msg})")
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise when grad is enabled and an input requires it: the hand kernels
+    have no backward, and their output would carry no ``grad_fn`` (their
+    share of the gradient would vanish without a word).  Called before any
+    device check, so CPU tensors take it too."""
+    import torch
+
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{what}: the kernel has no backward; inputs that require grad "
+                           f"take the plain version (the training forward runs "
+                           f"use_kernels=False)")

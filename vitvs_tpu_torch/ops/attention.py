@@ -145,6 +145,7 @@ def mha_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ones (:func:`mha_attention_f32`), or an error; CPU tensors:
     :func:`mha_attention_plain`.
     """
+    _build.refuse_grad("mha_attention", q, k, v)
     if fast:
         return mha_attention_fast(q, k, v)
     if q.device.type == "cpu":
@@ -163,6 +164,7 @@ def mha_attention_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torc
     CUDA tensors: the f32 kernel (f32, d = 64, contiguous), or an error;
     CPU tensors: :func:`mha_attention_plain`.
     """
+    _build.refuse_grad("mha_attention_f32", q, k, v)
     if q.device.type == "cpu":
         return mha_attention_plain(q, k, v)
     _check(q, k, v, torch.float32)
@@ -177,6 +179,7 @@ def mha_attention_fast(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tor
     CUDA tensors: the no-max kernel on Q pre-scaled by d^-0.5 log2(e), or an
     error; CPU tensors: :func:`mha_attention_fast_plain`.
     """
+    _build.refuse_grad("mha_attention_fast", q, k, v)
     if q.device.type == "cpu":
         return mha_attention_fast_plain(q, k, v)
     _check(q, k, v)

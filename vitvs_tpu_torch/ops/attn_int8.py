@@ -139,6 +139,7 @@ def fused_int8_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (bf16, hd = 64), or an error.  CPU tensors:
     :func:`fused_int8_attention_plain`.
     """
+    _build.refuse_grad("fused_int8_attention", q, k, v)
     if q.device.type == "cpu":
         return fused_int8_attention_plain(q, k, v, heads)
     _check(q, k, v, heads)

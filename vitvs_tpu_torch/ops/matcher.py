@@ -173,6 +173,7 @@ def dual_argmax_cosine(desc1: torch.Tensor, desc2: torch.Tensor):
     chunk; a cast first for other float dtypes), or an error.  CPU tensors:
     the plain version.
     """
+    _build.refuse_grad("dual_argmax_cosine", desc1, desc2)
     if desc1.device.type == "cpu":
         return dual_argmax_cosine_plain(desc1, desc2)
     _check(desc1, desc2)
@@ -211,6 +212,7 @@ def dual_argmax_cosine_bf16(desc1: torch.Tensor, desc2: torch.Tensor):
     launch for the chunk), or an error.  CPU tensors: the plain version
     (any float dtype).
     """
+    _build.refuse_grad("dual_argmax_cosine_bf16", desc1, desc2)
     if desc1.device.type == "cpu":
         return dual_argmax_cosine_bf16_plain(desc1, desc2)
     _check(desc1, desc2)
