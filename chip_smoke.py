@@ -2,10 +2,12 @@
 """Smoke run of the PyTorch/CUDA port (vitvs_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py              # the smoke run below
-    python3 chip_smoke.py --profile [bf16|f32|F|N|loop|loop518|int8loop|sift|orb|akaze|harris|train]
+    python3 chip_smoke.py --profile [bf16|f32|F|N|none|nomax3|pv|qk+pv|relu|loop|loop518|int8loop|sift|orb|akaze|harris|train]
                           [--trace trace.json]
                           [--chunk B]  # only: device-time breakdown of servo steps
-                                       # of the bf16 or f32 path or an int8 serving variant,
+                                       # of the bf16 or f32 path or an int8 serving variant
+                                       # (F, N; static: none, nomax3, pv, qk+pv), or of
+                                       # relu at 518 (trained),
                                        # or of closed-loop steps (at 308, or on the trained
                                        # ViT-S/14 @ 518 in bf16 or, int8loop, at run AD's
                                        # int8 settings; or a classical method's closed
@@ -23,6 +25,17 @@
                                        # quality, writes chiprun_out/train_sS_N.json and the
                                        # weights (bf16 blocks) beside it; --train 3000 at 308
                                        # is held to steps 2976-3000 <= 2.2, patch-acc >= 0.70
+    python3 chip_smoke.py --cotrain relu|sqrelu [--budget-s T]
+                                       # only: the campaign's co-train of the score
+                                       # (train_servo --resume ckpt_real518 --size 518
+                                       # --steps 2000 --attn-score S, the real poster; files
+                                       # under .train/), the co-trained weights' matching
+                                       # quality, then episodes 0 to 63 of the 500-episode
+                                       # stream at chunk 8 with them (.replay/replay_s518_S_0_64.*),
+                                       # held to at least 62 converged; T (1500 s) bounds it
+                                       # all; writes chiprun_out/
+                                       # train_s518_2000_real_resumed_S.json,
+                                       # the weights (bf16 blocks) and replay_s518_S_0_64.json
     python3 chip_smoke.py --replay A:B [--method M] [--int8] [--perturbed] [--chunk C]
                           [--checkpoint F] [--budget-s S]
                                        # only: episodes [A, B) of the 500-episode seed-41
@@ -163,6 +176,25 @@ Phases, each announced with a flushed, timestamped start/done line:
    plain, each at least (0.95, 0.90), then 25 steps at most 1.9; (d) save,
    load and one servo step on the trained weights, kernels on; ms a train
    step, busy share, device activities a step and peak memory at 308 and 518;
+3j. the relu / sqrelu attention scores and the int8-probability modes (plain
+   PyTorch, as the reference's are plain XLA: no attention kernel): (a) relu
+   and sqrelu at configs/real_s518_relu.yaml's settings on ckpt_real518's
+   weights, goal + 5 bf16 steps through the kernels and plain as 3e (no
+   attention launch, the bf16 matcher a launch a step), and relu with 2 x 2
+   K/V pooling (real_s518_relupool.yaml) on seeded weights; (b) the int8
+   products of 'qk+pv' and 'pv' at (1, 1370, 12, 64) and (1, 1370, 6, 64)
+   bit for bit against the int64 product; the int8 serving step in 'none',
+   'nomax3', 'pv' and 'qk+pv' at ViT-B/14 @ 518 (seeded) as phase 3b and at
+   the trained ViT-S/14 @ 518 as 3e, twists beside each other logged, and
+   block 0 of 'pv' and 'qk+pv' on the card against the CPU on the same input
+   (max |diff| / max |ref| within 1e-2); (c) relu on the int8 static path
+   (calibrated through the scores), logged beside the float relu step; (d)
+   the zero-shot fidelity of relu and sqrelu on ckpt_real518 against softmax
+   (patch IoU, relative velocity change; informative); (e) one relu train
+   step at 308 from ckpt_real518's weights, card against the card machine's
+   CPU: in f32 as 3i(a) holds bf16 (loss within 1e-2 relative, every
+   gradient's cosine at least 0.99), in bf16 the loss likewise and every
+   gradient finite, each gradient's cosine to the f64 one logged for both;
 4. times on the card (CUDA events / synchronized host clock) beside each
    kernel's bound and the PyTorch library call for the same function (the
    exact kernels at T = 485 and T = 1370; the int8 kernel from the bf16
@@ -174,7 +206,11 @@ Phases, each announced with a flushed, timestamped start/done line:
    AD's settings (ms a chunk-step, episode-steps a second, card-seconds an
    episode at the 1500 cap), and the int8 chunk's pooled 'nomax3'
    attention at (8, 1370, 362 keys, 6 heads) beside SDPA; the classical
-   chunk-step of each method at B = 1 and 8.  The
+   chunk-step of each method at B = 1 and 8; the relu and sqrelu bf16 steps
+   at 518 beside softmax's, the int8 steps in 'none', 'nomax3', 'pv' and
+   'qk+pv' at ViT-B/14 @ 518, the int8 products' ms beside their bound, the
+   relu closed-loop chunk step at B = 1 and 8 beside softmax's, and relu
+   train steps at 518 (batch 8) with their peak memory.  The
    f32 attention kernel is held to the tensor-core bound of f32-accurate
    work (three TF32 passes), its f32 FMA bound logged beside it.
 
@@ -222,9 +258,10 @@ from vitvs_tpu_torch.harness.samplers import (DESIRED_ORIENTATION, DESIRED_POSIT
 from vitvs_tpu_torch.io_bridge.config import VSConfig
 from vitvs_tpu_torch.match.binned import QuantizedBinned
 from vitvs_tpu_torch.models.convert import TRAINED_S518, load_exported, save_exported
-from vitvs_tpu_torch.models.quant import _nomax_attention
+from vitvs_tpu_torch.models.quant import _block_q, _nomax_attention
 from vitvs_tpu_torch.models.vit import ViT, init_vit
 from vitvs_tpu_torch.ops import _build, attention, attn_int8, matcher
+from vitvs_tpu_torch.ops.int_mm import int8_bmm
 from vitvs_tpu_torch.sim.env import observe
 from vitvs_tpu_torch.sim.scene import Scene, load_poster_scene
 from vitvs_tpu_torch.train import train_servo
@@ -365,6 +402,34 @@ TRAIN_EVAL_VIEWS = 8
 # --train 3000 at 308 from scratch: steps 2976-3000 at most 2.2, patch-acc at least 0.70
 TRAIN_FINAL_MAX = 2.2
 TRAIN_PATCH_ACC_MIN = 0.70
+# phase 3j, the relu / sqrelu scores (configs/real_s518_relu.yaml, real_s518_relupool.yaml)
+# and the int8-probability modes; the int8 serving variants beside them: (quant_attn,
+# attn_impl) and the kernel the path launches ('none' exact attention; the others none)
+SCORES = ("relu", "sqrelu")
+PROB_VARIANTS = {"none": ("none", "xla", "attention"), "nomax3": ("nomax3", "xla", None),
+                 "pv": ("pv", "xla", None), "qk+pv": ("qk+pv", "xla", None)}
+# one int8 block, card against the card machine's CPU on the same bf16 input: max |diff|
+# / max |ref| within about one int8 step of a token's largest output (1/127); the int8
+# products are exact on both, the bf16 GEMMs and exp round otherwise and may flip an
+# int8 probability or activation by one step
+INT8_BLOCK_TOL = 1e-2
+# the zero-shot fidelity of the scores on the softmax-trained ckpt_real518 (the campaign's
+# diagnostic, scripts/diag_attn_variant.py: 4 seed-41 start views, patch-grid pair IoU
+# and relative velocity change against softmax), logged beside its CPU JAX numbers
+# (artifacts/attn_variant_fid.json; informative, not a gate)
+FID_VIEWS = 4
+JAX_FIDELITY = {"relu": (0.016, 0.93), "sqrelu": (0.017, 0.66)}
+# --cotrain: the campaign's co-train and gate (docs/CAMPAIGN_ATTN_REDESIGN.md:41-47):
+# 2000 steps at 518 resumed from ckpt_real518 (train_servo's defaults: batch 8, lr 3e-4,
+# warm-up 100, seed 0, the real poster), then episodes 0 to 63 of the seed-41
+# 500-episode stream, chunk 8, bf16 with kernels; bound, written before the run: at
+# least 62 of 64 converged (the softmax ckpt_real518 converged 64 of 64 there, run Z)
+COTRAIN_STEPS = 2000
+COTRAIN_EPISODES = (0, 64)
+COTRAIN_MIN_CONVERGED = 62
+SOFTMAX_PATCH_ACC = 0.975             # ckpt_real518's final matching quality (JAX)
+COTRAIN_BUDGET_S = 1500.0             # --cotrain's default budget, training and replay
+COTRAIN_TRAIN_SHARE = 0.65            # the part of it training may take
 EPISODE_CAP = 1500                    # the ladder's max_iterations: card-seconds an episode
 TIMING_ROUNDS = 7                     # alternating rounds, closed-loop step and bare step
 # the reference's npz: its 22 arrays and the run time
@@ -881,9 +946,10 @@ def f32_step(cfg: VSConfig, device):
 
 
 def serving_model(cfg: VSConfig, variant: str, device, vit=None) -> ServoModel:
-    """The int8 serving model of a variant (F or N), kernels on; ``vit``
-    replaces the configuration's ViT (a tiny one in the CPU tests)."""
-    quant_attn, attn_impl, _ = VARIANTS[variant]
+    """The int8 serving model of a variant (F or N, or one of
+    PROB_VARIANTS), kernels on; ``vit`` replaces the configuration's ViT (a
+    tiny one in the CPU tests)."""
+    quant_attn, attn_impl, _ = {**VARIANTS, **PROB_VARIANTS}[variant]
     if vit is None:
         return ServoModel.create(cfg, device=device, quantized=True, attn_impl=attn_impl,
                                  quant_attn=quant_attn)
@@ -1092,7 +1158,7 @@ def load_trained(model: ServoModel, path: Path = TRAINED_S518):
     sd, vcfg = load_exported(path)
     run_fields = {k: getattr(model.vit, k) for k in (
         "gelu_approx", "attn_impl", "quant_attn", "nomax_clamp", "kv_pool", "kv_pool_impl",
-        "kv_pool_where", "patch_embed_impl")}
+        "kv_pool_where", "patch_embed_impl", "attn_score")}
     if dataclasses.replace(vcfg, **run_fields) != model.vit:
         raise ValueError(f"{path} holds a {vcfg}, the model runs a {model.vit}")
     net = ViT(model.vit)
@@ -1128,8 +1194,9 @@ def run_trained_step(net, cfg: VSConfig, model: ServoModel, scene: Scene,
 
 
 def run_trained_int8(fnet, cfg: VSConfig, device, scene: Scene, bf16_steps, vit=None,
-                     offsets=TRAINED_STEP_OFFSETS, calib_offsets=TRAINED_CALIB_OFFSETS) -> dict:
-    """The int8 serving variants F and N of the trained ViT (static scales
+                     offsets=TRAINED_STEP_OFFSETS, calib_offsets=TRAINED_CALIB_OFFSETS,
+                     variants=tuple(VARIANTS)) -> dict:
+    """The int8 serving ``variants`` (F and N) of the trained ViT (static scales
     calibrated on the goal view and the views of ``calib_offsets``, as
     phase 3b) on phase 3e's views, kernels against plain, and beside the
     bf16 step's kernel run: pairs that agree and the largest twist
@@ -1138,7 +1205,7 @@ def run_trained_int8(fnet, cfg: VSConfig, device, scene: Scene, bf16_steps, vit=
     phase 2 holds the kernels themselves at these shapes); the launch
     counts are held by the caller."""
     out = {}
-    for variant in VARIANTS:
+    for variant in variants:
         model = serving_model(cfg, variant, device, vit)
         goal, rgbs, depths = render_views(model, scene, offsets)
         _, calib, _ = render_views(model, scene, calib_offsets)
@@ -1701,6 +1768,69 @@ def check_train_grads(device, size: int = 308, seed: int = 0, batch: int = 2, vi
             "cpu_s": cpu_s}
 
 
+def check_score_train_grads(device, state_dict, score: str = "relu", size: int = 308,
+                            batch: int = 2, vit=None) -> dict:
+    """3j(e): one train step with the ``score`` attention from
+    ``state_dict``'s weights on one servo pair batch built on the CPU, on
+    the card and on the card machine's CPU.  In f32 as 3i(a) holds bf16:
+    loss within TRAIN_LOSS_RTOL relative, every gradient's cosine card
+    against CPU at least TRAIN_GRAD_COS_MIN.  In bf16, the step co-training
+    runs: the loss likewise and every gradient finite; each gradient's
+    cosine to the f64 one (the CPU's) is logged for the card and the CPU,
+    not held: at ckpt_real518's weights the relu gradients of the q and k
+    columns are noise-dominated in bf16 on some batches in any
+    implementation (scripts/port_score_grad_noise.py reads them over
+    several batches; PERF.md).  ``vit`` replaces the ViT (the CPU tests'
+    tiny one)."""
+    vit = dataclasses.replace(vit or train_model(size, "cpu").vit, attn_score=score)
+    base = train_model(size, "cpu", vit=vit)
+    goal, data = make_servo_pair_batch(base, load_poster_scene(device="cpu"),
+                                       torch.Generator().manual_seed(1), batch)
+
+    def step(dtype, dev):
+        wdt = torch.float64 if dtype == torch.float64 else torch.float32
+        net = ViT(vit)
+        net.load_state_dict(state_dict)
+        net = net.to(dev, wdt)
+        cast = lambda t: t.to(dev, wdt) if t.is_floating_point() else t.to(dev)
+        loss = _servo_batch_loss(net, dataclasses.replace(base, compute_dtype=dtype, device=dev),
+                                 cast(goal), {k: cast(v) for k, v in data.items()})
+        loss.backward()
+        return loss.item(), {n: p.grad.double().cpu().flatten() for n, p in net.named_parameters()}
+
+    def cos(a, b):
+        na, nb = a.norm().item(), b.norm().item()
+        return 1.0 if na == nb == 0.0 else (a @ b).item() / max(na * nb, 1e-300)
+
+    out = {}
+    _, g64 = step(torch.float64, "cpu")
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        (lc, gc), (lp, gp) = step(dtype, device), step(dtype, "cpu")
+        rel = abs(lc - lp) / abs(lp)
+        if not rel <= TRAIN_LOSS_RTOL:
+            raise AssertionError(f"{score} {name} train loss card {lc} vs CPU {lp}: relative "
+                                 f"{rel} > {TRAIN_LOSS_RTOL}")
+        bad = [n for n in gc if not bool(torch.isfinite(gc[n]).all())]
+        if bad:
+            raise AssertionError(f"{score} {name}: non-finite gradients on the card: {bad}")
+        pair = {n: cos(gc[n], gp[n]) for n in gc}
+        card64 = {n: cos(gc[n], g64[n]) for n in gc}
+        cpu64 = {n: cos(gp[n], g64[n]) for n in gc}
+        gap = {n: cpu64[n] - card64[n] for n in gc}
+        worst, wcard, wcpu = (min(d, key=d.get) for d in (pair, card64, cpu64))
+        wgap = max(gap, key=gap.get)
+        out[name] = {"loss_card": lc, "loss_cpu": lp, "loss_rel_err": rel,
+                     "grad_cos_min": pair[worst], "grad_cos_min_param": worst,
+                     "f64_cos_min_card": card64[wcard], "f64_cos_min_card_param": wcard,
+                     "f64_cos_min_cpu": cpu64[wcpu], "f64_cos_min_cpu_param": wcpu,
+                     "f64_cos_gap_max": gap[wgap], "f64_cos_gap_max_param": wgap}
+        if name == "f32" and not pair[worst] >= TRAIN_GRAD_COS_MIN:
+            raise AssertionError(f"{score} f32 gradient of {worst}: cosine card vs CPU "
+                                 f"{pair[worst]} < {TRAIN_GRAD_COS_MIN}")
+    out["params"] = len(g64)
+    return out
+
+
 def run_train_steps(state, model: ServoModel, scene: Scene, steps: int, generator,
                     batch: int = TRAIN_BATCH, chain: int = TRAIN_CHAIN) -> tuple:
     """``steps`` servo train steps in chains of ``chain``, the launch
@@ -1840,7 +1970,8 @@ def run_training(device, scene: Scene, steps: int = TRAIN_SMOKE_STEPS,
 
 
 def run_train_command(steps: int, size: int, resume: Path | None, budget_s: float | None,
-                      here: Path, device, poster: str = TRAIN_POSTER, extra_argv=()) -> dict:
+                      here: Path, device, poster: str = TRAIN_POSTER, extra_argv=(),
+                      attn_score: str = "softmax") -> dict:
     """--train: ``python -m vitvs_tpu_torch.train.train_servo`` with the JAX
     run's arguments (its defaults and ``poster``, by default the synthetic
     one the JAX run trained on, 'real' for the real one; ``steps`` steps at
@@ -1851,9 +1982,13 @@ def run_train_command(steps: int, size: int, resume: Path | None, budget_s: floa
     weights with bf16 blocks beside it.  For the JAX run itself (3000 steps
     at 308 from scratch on the synthetic poster) it holds the last window and the final patch-acc
     to TRAIN_FINAL_MAX and TRAIN_PATCH_ACC_MIN.  ``extra_argv``: more
-    train_servo flags (the CPU tests' short chains)."""
+    train_servo flags (the CPU tests' short chains); ``attn_score``: the
+    score to co-train (train_servo --attn-score).  Every run's summary has
+    its 25-step loss means; the JAX run's windows stand beside them only for
+    runs from scratch, the runs they describe."""
     name = (f"train_s{size}_{steps}" + ("" if poster == TRAIN_POSTER else f"_{poster}")
-            + ("_resumed" if resume else ""))
+            + ("_resumed" if resume else "")
+            + ("" if attn_score == "softmax" else f"_{attn_score}"))
     out = here / ".train" / f"{name}.npz"
     out.parent.mkdir(parents=True, exist_ok=True)
     argv = ["--out", str(out), "--steps", str(steps), "--size", str(size), "--device", str(device)]
@@ -1861,14 +1996,19 @@ def run_train_command(steps: int, size: int, resume: Path | None, budget_s: floa
         argv += ["--poster", poster]
     if resume is not None:
         argv += ["--resume", str(resume)]
+    if attn_score != "softmax":
+        argv += ["--attn-score", attn_score]
     argv += list(extra_argv)
     res = train_servo.train(train_servo.parse_args(argv), budget_s=budget_s, log=log)
     loss = res["loss"]
-    summary = {"steps": steps, "size": size, "poster": poster,
-               "resume": None if resume is None else str(resume),
+    summary = {"name": name, "steps": steps, "size": size, "poster": poster,
+               "resume": None if resume is None else str(resume), "attn_score": attn_score,
                "finished": res["finished"], "done": res["done"],
-               "windows": {f"{lo}-{hi}": {"port": window(loss, lo, hi), "jax": jax}
+               "windows": {f"{lo}-{hi}": {"port": window(loss, lo, hi),
+                                          "jax": jax if resume is None else None}
                            for (lo, hi), jax in JAX_LOSS_WINDOWS.items() if hi <= len(loss)},
+               "windows_25": [window(loss, lo + 1, lo + TRAIN_CHAIN)
+                              for lo in range(0, len(loss) - TRAIN_CHAIN + 1, TRAIN_CHAIN)],
                "init_matching": res["init_matching"], "final_matching": res["final_matching"],
                "jax_final_matching": JAX_FINAL_MATCHING, "ms_per_step": res["ms_per_step"]}
     if (steps, size, resume, poster) == (TRAIN_STEPS, 308, None, TRAIN_POSTER) and res["finished"]:
@@ -1883,6 +2023,232 @@ def run_train_command(steps: int, size: int, resume: Path | None, budget_s: floa
         sd, vcfg = load_exported(out)
         save_exported(out_dir / f"{name}_bf16.npz", sd, vcfg, "bfloat16", source=name)
     return summary
+
+
+# ---------------------------------------------------------------------------
+# phase 3j: the relu / sqrelu scores and the int8-probability modes
+# ---------------------------------------------------------------------------
+
+
+def score_config(score: str, kv_pool: int = 1) -> VSConfig:
+    """configs/real_s518_relu.yaml's settings (with ``kv_pool`` 2
+    real_s518_relupool.yaml's), built in code, on the 500-episode stream as
+    :func:`trained_config`."""
+    return dataclasses.replace(trained_config(), attn_score=score, kv_pool=kv_pool)
+
+
+def run_score_step(score: str, device, scene: Scene, kv_pool: int = 1, seeded: bool = False):
+    """3j(a): goal_descriptors + 5 bf16 servo_steps at ViT-S/14 @ 518 with
+    the ``score`` attention, on ckpt_real518's weights (or seeded ones),
+    through the kernels and plain, the plain step teacher-forced, as phase
+    3e.  No attention kernel may launch (the scores are plain PyTorch, as
+    the reference's are plain XLA), the bf16 matcher a launch a step.
+    Returns (summary, the kernel run's steps, the ViT, the model)."""
+    cfg = score_config(score, kv_pool)
+    model = ServoModel.create(cfg, device=device)
+    if seeded:
+        net = init_vit(model.vit, torch.Generator().manual_seed(0), device=device,
+                       layerscale=1.0).cast_blocks(model.compute_dtype).eval()
+    else:
+        net = load_trained(model)[0].cast_blocks(model.compute_dtype)
+    summary = run_trained_step(net, cfg, model, scene)
+    steps = summary.pop("steps")
+    want = {name: 0 for name in _counters()}
+    want["matcher_bf16"] = N_STEPS
+    if summary["launches"] != want:
+        raise AssertionError(f"{score} step (kv_pool {kv_pool}): launch counts "
+                             f"{summary['launches']} != {want}")
+    return summary, steps, net, model
+
+
+def int8_operands(shape, seed: int, device) -> dict:
+    """int8 operands of the 'pv' / 'qk+pv' products at ``shape`` (B, T, h,
+    hd): Q (B, h, T, hd) against K^T, and the probabilities (B, h, T, T) in
+    [0, 127] against V (B, h, T, hd); seeded, with -127 / 127 in every row."""
+    B, T, H, hd = shape
+    g = torch.Generator(device=device).manual_seed(seed)
+    rnd = lambda lo, hi, sz: torch.randint(lo, hi, sz, generator=g, device=device,
+                                           dtype=torch.int8)
+    q, k, v = (rnd(-127, 128, sz) for sz in ((B, H, T, hd), (B, H, hd, T), (B, H, T, hd)))
+    p = rnd(0, 128, (B, H, T, T))
+    q[..., 0], k[..., 0, :], p[..., 0], v[..., 0, :] = 127, -127, 127, -127
+    return {"qk": (q, k), "pv": (p, v)}
+
+
+def check_int8_products(device, shape=SERVE_ATTN_SHAPE, seed: int = 31, rows: int = 16) -> dict:
+    """3j(b): the int8 batched products of 'qk+pv' (Q K^T) and 'pv' (P V)
+    at ``shape`` on the card (ops/int_mm.int8_bmm: f32 products over
+    1024-deep chunks) bit for bit against the int64 product: an f64 GEMM on
+    the card, exact (every partial sum an integer below 2^53), itself held
+    bit for bit against an int64 broadcast sum on ``rows`` rows."""
+    out = {}
+    for name, (a, b) in int8_operands(shape, seed, device).items():
+        got = int8_bmm(a, b)
+        want = torch.matmul(a.double(), b.double()).to(torch.int64)
+        sub = (a[..., :rows, :, None].long() * b[..., None, :, :].long()).sum(-2)
+        if not torch.equal(want[..., :rows, :], sub):
+            raise AssertionError(f"{name}: the f64 product is not the int64 product")
+        if got.dtype != torch.int32 or not torch.equal(got.long(), want):
+            bad = int((got.long() != want).sum())
+            raise AssertionError(f"{name}: {bad} int32 products differ from the int64 product")
+        out[name] = {"shape": [tuple(a.shape), tuple(b.shape)], "depth": a.shape[-1],
+                     "max_abs": int(want.abs().max())}
+    return out
+
+
+def check_int8_block(qnet, model: ServoModel, frame, tol: float = INT8_BLOCK_TOL) -> dict:
+    """3j(b): block 0 of the int8 ViT on the card and on the card machine's
+    CPU (a copy of the block), on the same bf16 input (the card's embedding
+    of ``frame``): max |diff| / max |ref| within ``tol``; the least cosine
+    of a token logged."""
+    with torch.inference_mode():
+        x = qnet.embed(preprocess(model, frame)[None])
+        blk = qnet.blocks[0]
+        out = _block_q(x, blk, model.vit, True).float().cpu()
+        ref = _block_q(x.cpu(), copy.deepcopy(blk).cpu(), model.vit, True).float()
+    rel = ((out - ref).abs().max() / ref.abs().max()).item()
+    cos = torch.nn.functional.cosine_similarity(out[0], ref[0], dim=-1).min().item()
+    if not rel <= tol:
+        raise AssertionError(f"int8 block ({model.vit.quant_attn}) card vs CPU: max |diff| / "
+                             f"max |ref| {rel} > {tol}")
+    return {"rel_err": rel, "token_cos_min": cos, "shape": list(out.shape)}
+
+
+def twist_gaps(summaries: dict, against=("none", "nomax3")) -> dict:
+    """The largest twist difference of each variant's steps from those of
+    ``against``'s variants (their kernel runs)."""
+    tw = {k: np.array(v["body_twists"]) for k, v in summaries.items()}
+    return {f"{a}-{b}": float(np.abs(tw[a] - tw[b]).max())
+            for a in tw for b in against if b in tw and a != b}
+
+
+def run_prob_variants(fnet, cfg: VSConfig, device) -> dict:
+    """3j(b) at ViT-B/14 @ 518 (seeded): the int8 serving step in each of
+    PROB_VARIANTS (static scales on the goal and 7 shifted frames), through
+    the kernels and plain as phase 3b, the launches held (exact attention
+    for 'none', no hand kernel for the others); 'pv' and 'qk+pv' block 0
+    held card against CPU.  Returns {variant: (summary, ViT, model)}."""
+    out = {}
+    for variant, (_, _, kernel) in PROB_VARIANTS.items():
+        ssum, qnet, smodel = run_serving_path(fnet, cfg, variant, device)
+        want = {name: 0 for name in _counters()}
+        if kernel is not None:
+            want[kernel] = (cfg.layer + 1) * (1 + N_STEPS)
+        if ssum["launches"] != want:
+            raise AssertionError(f"int8 {variant}: launch counts {ssum['launches']} != {want}")
+        if variant in ("pv", "qk+pv"):
+            goal, _, _ = make_frames(cfg)
+            ssum["block_card_vs_cpu"] = check_int8_block(qnet, smodel, goal)
+        out[variant] = (ssum, qnet, smodel)
+    return out
+
+
+def score_fidelity(net32, device, scene: Scene, views: int = FID_VIEWS) -> dict:
+    """3j(d): the campaign's zero-shot diagnostic on the softmax-trained
+    weights ``net32`` (f32, served in bf16 with kernels): for each of the
+    first ``views`` start views of the seed-41 stream, one servo_step from
+    rest with each score and with softmax on the same pair scores; the
+    patch-grid IoU of their valid pairs (pixels rounded to 14 px) and
+    |v - v_softmax| / |v_softmax|, averaged over the views."""
+    positions, quats, _ = generate_episode_starts(trained_config())
+    models = {s: ServoModel.create(score_config(s), device=device) for s in ("softmax", *SCORES)}
+    nets = {s: m.load_vit(net32.state_dict()) for s, m in models.items()}
+    base = models["softmax"]
+    goal_rgb = observe(scene, base.camera, *goal_pose(device))[0]
+    goals = {s: goal_descriptors(nets[s], m, goal_rgb) for s, m in models.items()}
+    t = base.grid()[0] * base.grid()[1]
+
+    def pairs(r):
+        return {(tuple(torch.round(u / 14.0).long().tolist()),
+                 tuple(torch.round(g / 14.0).long().tolist()))
+                for u, g, v in zip(r.s_uv.cpu(), r.s_uv_star.cpu(), r.valid.cpu()) if v}
+
+    sums = {s: {"patch_iou": 0.0, "vel_rel": 0.0} for s in SCORES}
+    for i in range(views):
+        p = torch.tensor(positions[i], dtype=torch.float32, device=device)
+        q = torch.tensor(quats[i], dtype=torch.float32, device=device)
+        rgb, depth = observe(scene, base.camera, p, q)
+        scores = torch.rand(t, generator=torch.Generator().manual_seed(1000 + i)).to(device)
+        res = {s: servo_step(nets[s], m, goals[s], rgb, depth, EmaState.init(device=device),
+                             torch.zeros(6, device=device), scores=scores)
+               for s, m in models.items()}
+        pb, vb = pairs(res["softmax"]), res["softmax"].v_c
+        for s in SCORES:
+            pa = pairs(res[s])
+            sums[s]["patch_iou"] += len(pb & pa) / max(len(pb | pa), 1) / views
+            vel = (res[s].v_c - vb).norm() / vb.norm().clamp(min=1e-9)
+            sums[s]["vel_rel"] += vel.item() / views
+    return {s: {**v, "jax_cpu": dict(zip(("patch_iou", "vel_rel"), JAX_FIDELITY[s]))}
+            for s, v in sums.items()}
+
+
+def int8_product_times(device, shape=SERVE_ATTN_SHAPE, seed: int = 32) -> dict:
+    """Phase 4: int8_bmm's two products at ``shape`` (ms by CUDA events),
+    beside the bound of the same work at the int8 tensor-core peak."""
+    B, T, H, hd = shape
+    out = {}
+    for name, (a, b) in int8_operands(shape, seed, device).items():
+        ops = 2.0 * a.numel() * b.shape[-1]
+        nbytes = a.numel() + b.numel() + 4.0 * a.numel() // a.shape[-1] * b.shape[-1]
+        bound, by = _bound(ops / PEAK_INT8_OPS, nbytes / PEAK_BYTES)
+        out[name] = {"ms": cuda_ms(lambda: int8_bmm(a, b), iters=50), "bound_ms": bound,
+                     "bound_by": by}
+    return out
+
+
+def score_train_step(net32, device, scene: Scene, score: str = "relu", steps: int = 10,
+                     chain: int = 5) -> dict:
+    """Phase 4: ``steps`` train steps (batch 8, bf16 over f32 weights) at
+    518 with the ``score`` attention from ``net32``'s weights: ms a step and
+    the peak memory allocated."""
+    model = ServoModel.create(VSConfig(dino_input_size=518, attn_score=score),
+                              compute_dtype=torch.bfloat16, device=device)
+    net = ViT(model.vit)
+    net.load_state_dict(net32.state_dict())
+    state = init_train_state(net.to(device), train_schedule(steps=TRAIN_RESUME_SCHEDULE))
+    _, losses, ms, peak = run_train_steps(state, model, scene, steps,
+                                          torch.Generator().manual_seed(TRAIN_SEED + 1),
+                                          TRAIN_BATCH, chain)
+    return {"ms_per_step": ms, "peak_bytes": peak, "losses": losses}
+
+
+def run_cotrain(score: str, here: Path, device, budget_s: float | None) -> dict:
+    """--cotrain: the campaign's co-train (train_servo --resume ckpt_real518
+    --size 518 --steps 2000 --attn-score ``score``, the real poster) within
+    COTRAIN_TRAIN_SHARE of ``budget_s``, the matching quality of the
+    co-trained weights (with kernels and plain), then episodes 0 to 63 of
+    the 500-episode stream at chunk 8 with them in the rest of the budget,
+    held to COTRAIN_MIN_CONVERGED.  Writes chiprun_out/<the trainer's
+    name>.json and the replay's JSON."""
+    budget = COTRAIN_BUDGET_S if budget_s is None else budget_s
+    t0 = time.perf_counter()
+    train = run_train_command(COTRAIN_STEPS, 518, TRAINED_S518, budget * COTRAIN_TRAIN_SHARE,
+                              here, device, poster="real", attn_score=score)
+    out = {"score": score, "train": train, "bound": COTRAIN_MIN_CONVERGED,
+           "episodes": list(COTRAIN_EPISODES)}
+    if not train["finished"]:
+        out["bound_met"] = False
+        out["why"] = f"training stopped by its budget at step {train['done']}"
+        return out
+    weights = here / ".train" / f"{train['name']}.npz"
+    qmodel = ServoModel.create(VSConfig(dino_input_size=518, attn_score=score), device=device)
+    out["quality"] = quality_both(load_trained(qmodel, weights)[0], qmodel,
+                                  load_poster_scene(device=device))
+    out["softmax_patch_acc"] = SOFTMAX_PATCH_ACC
+    lo, hi = COTRAIN_EPISODES
+    name = replay_name(lo, hi, attn_score=score)
+    ckpt = here / ".replay" / f"{name}.ckpt"
+    rep = run_replay(lo, hi, ckpt, budget - (time.perf_counter() - t0), ckpt.parent, device,
+                     chunk=CHUNK, path=weights, attn_score=score)
+    out_dir = here / "chiprun_out"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / f"{name}.json").write_text(json.dumps(rep))
+    out["replay"] = {k: v for k, v in rep.items() if not isinstance(v, list)
+                     or k == "not_converged"}
+    out["converged"] = rep["converged"]
+    out["bound_met"] = rep["finished"] and rep["converged"] >= COTRAIN_MIN_CONVERGED
+    out["wall_s"] = time.perf_counter() - t0
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2205,17 +2571,19 @@ class BudgetSpent(Exception):
 
 
 def replay_name(lo: int, hi: int, int8: bool = False, perturbed: bool = False,
-                method: str = "dino") -> str:
+                method: str = "dino", attn_score: str = "softmax") -> str:
     """The replay's file stem: its checkpoint, npz and JSON."""
     pert = "_pert" if perturbed else ""
     if method != "dino":
         return f"replay_{method}{pert}_{lo}_{hi}"
-    return f"replay_s518{'_int8' if int8 else ''}{pert}_{lo}_{hi}"
+    score = "" if attn_score == "softmax" else f"_{attn_score}"
+    return f"replay_s518{score}{'_int8' if int8 else ''}{pert}_{lo}_{hi}"
 
 
 def run_replay(lo: int, hi: int, checkpoint: Path, budget_s: float, out_dir: Path,
                device, chunk: int = CHUNK, path: Path = TRAINED_S518,
-               int8: bool = False, perturbed: bool = False, method: str = "dino") -> dict:
+               int8: bool = False, perturbed: bool = False, method: str = "dino",
+               attn_score: str = "softmax") -> dict:
     """run_benchmark on episodes [lo, hi) of the 500-episode seed-41 stream
     (runs Z and AA's) at configs/real_s518.yaml's other settings on the
     trained ViT-S/14 @ 518 (cast whole to bf16, rotation search on),
@@ -2227,7 +2595,9 @@ def run_replay(lo: int, hi: int, checkpoint: Path, budget_s: float, out_dir: Pat
     ``method`` ('sift', 'orb', 'akaze', 'harris') runs
     run_classical_benchmark instead, on episodes [lo, hi) of the 64-episode
     stream at configs/real64.yaml's settings (runs J, K and AN's), with the
-    method's default keypoints.  Each of these runs has its own checkpoint
+    method's default keypoints.  ``attn_score`` serves the weights of
+    ``path`` with that score (configs/real_s518_relu.yaml's setting; the
+    weights co-trained for it).  Each of these runs has its own checkpoint
     fingerprint, so none resumes another's file.  When ``budget_s`` seconds
     have passed the chunk in flight is dropped (it reruns, bit for bit, on
     resume).  Returns the checkpoint's episodes summarized and this call's
@@ -2236,7 +2606,8 @@ def run_replay(lo: int, hi: int, checkpoint: Path, budget_s: float, out_dir: Pat
     if classical:
         cfg, net, info = real64_config(), None, {"file": None}
     else:
-        cfg = ad_config() if int8 else trained_config()
+        cfg = dataclasses.replace(ad_config() if int8 else trained_config(),
+                                  attn_score=attn_score)
         model = ServoModel.create(cfg, device=device)
         net, info = load_trained(model, path)
     checkpoint.parent.mkdir(parents=True, exist_ok=True)
@@ -2253,7 +2624,8 @@ def run_replay(lo: int, hi: int, checkpoint: Path, budget_s: float, out_dir: Pat
             raise BudgetSpent
 
     common = dict(episode_indices=range(lo, hi), checkpoint_path=str(checkpoint), chunk=chunk,
-                  out_dir=str(out_dir), config_name=replay_name(lo, hi, int8, perturbed, method),
+                  out_dir=str(out_dir),
+                  config_name=replay_name(lo, hi, int8, perturbed, method, attn_score),
                   device=device, on_step=on_step, perturbation=perturbed)
     try:
         if classical:
@@ -2276,7 +2648,7 @@ def run_replay(lo: int, hi: int, checkpoint: Path, budget_s: float, out_dir: Pat
         "total_execution_time": wall_s})
     done_now = len(episodes) - before
     return {"episodes": [lo, hi], "method": method, "weights": info["file"], "int8": int8,
-            "perturbed": perturbed, "chunk": chunk,
+            "perturbed": perturbed, "chunk": chunk, "attn_score": attn_score,
             "finished": finished,
             "episodes_done": len(episodes), "episodes_this_call": done_now,
             "converged": int(sum(flags)), "not_converged": [lo + i for i, f in enumerate(flags)
@@ -2299,10 +2671,12 @@ def run_replay(lo: int, hi: int, checkpoint: Path, budget_s: float, out_dir: Pat
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", nargs="?", const="bf16",
-                    choices=["bf16", "f32", *VARIANTS, "loop", "loop518", "int8loop", *CLASSICAL,
-                             "train"],
+                    choices=["bf16", "f32", *VARIANTS, *PROB_VARIANTS, "relu", "loop",
+                             "loop518", "int8loop", *CLASSICAL, "train"],
                     help="build, then only profile servo steps of the bf16 path (default), "
-                         "the f32 path or an int8 serving variant, or closed-loop steps at "
+                         "the f32 path or an int8 serving variant (F, N, none, nomax3, pv, "
+                         "qk+pv at ViT-B/14 @ 518, static scales but F and N), or the relu bf16 step on the trained ViT-S/14 @ 518 (with "
+                         "--chunk B its closed-loop chunk-step), or closed-loop steps at "
                          "308 (seeded) or 518 (trained; int8loop: the int8 closed loop at "
                          "run AD's settings), or a classical method's closed loop at 640x480, "
                          "or (train) train steps of ViT-S/14 @ 308 at batch 8 (no checks, no "
@@ -2340,6 +2714,11 @@ def main() -> int:
                          "or the real poster (train_servo's default today)")
     ap.add_argument("--resume", type=Path, default=None,
                     help="with --train: start from these weights (exported .npz or .pth)")
+    ap.add_argument("--cotrain", default=None, choices=list(SCORES),
+                    help="build, then only co-train ckpt_real518 for the score (the campaign's "
+                         "2000 steps at 518) and run episodes 0 to 63 at chunk 8 with it, "
+                         f"held to at least {COTRAIN_MIN_CONVERGED} converged; --budget-s "
+                         f"bounds both (default {COTRAIN_BUDGET_S:.0f} s)")
     ap.add_argument("--chunk", type=int, default=None,
                     help=f"with --replay: episodes a chunk (default {CHUNK}); with --profile "
                          f"loop, loop518 or int8loop: profile chunk-steps of this many episodes")
@@ -2474,6 +2853,34 @@ def main() -> int:
                                                  "count": torch.cuda.device_count()}}), flush=True)
         return 0
 
+    if args.cotrain:
+        with phase(f"cotrain {args.cotrain}"):
+            res = run_cotrain(args.cotrain, here, device, args.budget_s)
+        tr = res["train"]
+        log(f"[{card}] cotrain {args.cotrain}: {tr['done']} steps at 518 from ckpt_real518, "
+            f"{tr['ms_per_step']:.1f} ms a step; 25-step loss means "
+            f"{json.dumps([round(x, 4) for x in tr['windows_25']])}; matching before "
+            f"{tr['init_matching']}, after {tr['final_matching']}")
+        if "quality" in res:
+            log(f"[{card}] cotrain {args.cotrain}: matching quality kernels "
+                f"{res['quality']['kernels']}, plain {res['quality']['plain']} (softmax "
+                f"ckpt_real518: patch-acc {SOFTMAX_PATCH_ACC}); episodes {res['episodes']}: "
+                f"{res['converged']} converged, not converged "
+                f"{res['replay']['not_converged']}, bound at least {COTRAIN_MIN_CONVERGED}: "
+                f"{'met' if res['bound_met'] else 'missed'}")
+        print(json.dumps({"cotrain": {k: v for k, v in res.items() if k != "train"},
+                          "train": {k: v for k, v in tr.items() if k != "windows_25"}}),
+              flush=True)
+        if not res["bound_met"]:
+            print(f"cotrain: bound missed: {res.get('why', res.get('converged'))}",
+                  file=sys.stderr)
+            return 1
+        print(card, flush=True)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                 "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+
     if args.train:
         with phase(f"train {args.train} at {args.size}"):
             res = run_train_command(args.train, args.size, args.resume, args.budget_s, here,
@@ -2526,6 +2933,14 @@ def main() -> int:
                        if args.chunk is None else chunk_runner(lnet, lmodel, lscene, args.chunk))
                 log(f"profile: closed-loop {args.profile}, a chunk of {args.chunk or 1} "
                     f"episodes a step")
+                profile_run(run, trace_path=args.trace)
+            elif args.profile == "relu":
+                rmodel = ServoModel.create(score_config("relu"), device=device)
+                rnet = load_trained(rmodel)[0].cast_blocks(rmodel.compute_dtype)
+                run = (step_runner(rnet, rmodel) if args.chunk is None else
+                       chunk_runner(rnet, rmodel, load_poster_scene(device=device), args.chunk))
+                log(f"profile: relu bf16, trained ViT-S/14 @ 518, "
+                    f"{'a servo step' if args.chunk is None else f'chunk-steps of {args.chunk}'}")
                 profile_run(run, trace_path=args.trace)
             elif args.profile == "bf16":
                 profile_run(step_runner(net, model), trace_path=args.trace)
@@ -2780,6 +3195,69 @@ def main() -> int:
                 f"{prof['activities_per_step']:.0f} device activities a step, peak "
                 f"{part['peak_bytes'] / 2 ** 30:.3f} GiB allocated")
 
+    with phase("3j attention-scores"):
+        sc = {}
+        for score in SCORES:
+            summ, steps, snet, smodel_s = run_score_step(score, device, scene)
+            sc[score] = (steps, snet, smodel_s)
+            log(f"(a) {score} bf16 step, ViT-S/14 @ 518 on ckpt_real518: {json.dumps(summ)}")
+            log(f"(a) {score}: {sum(1 for f in summ['differing_pairs'] if f)} of {N_STEPS} "
+                f"steps with pair flips; twists within {summ['twist_max_abs_err']:.3e} on the "
+                f"{summ['steps_compared']} others (tol {TWIST_TOL}); launches "
+                f"{json.dumps(summ['launches'])}")
+            launches["matcher_bf16"] += N_STEPS
+        summ, _, _, _ = run_score_step("relu", device, scene, kv_pool=2, seeded=True)
+        log(f"(a) relupool (relu, 2 x 2 K/V pooling) bf16 step, seeded weights: "
+            f"{json.dumps(summ)}")
+        launches["matcher_bf16"] += N_STEPS
+        prods = check_int8_products(device)
+        log(f"(b) int8 products of 'qk+pv' and 'pv' at {SERVE_ATTN_SHAPE}: bit for bit the "
+            f"int64 product on the card: {json.dumps(prods)}")
+        prods = check_int8_products(device, shape=TRAINED_ATTN_SHAPE, seed=33)
+        log(f"(b) the same at {TRAINED_ATTN_SHAPE}: {json.dumps(prods)}")
+        prob = run_prob_variants(fnet, scfg, device)
+        for variant, (ssum, _, _) in prob.items():
+            log(f"(b) int8 {variant}, ViT-B/14 @ 518 (seeded): {json.dumps(ssum)}")
+        launches["attention"] += prob["none"][0]["launches"]["attention"]
+        log(f"(b) ViT-B/14 @ 518 twist gaps between the int8 variants: "
+            f"{json.dumps(twist_gaps({k: v[0] for k, v in prob.items()}))}")
+        tprob = run_trained_int8(tnet32, tcfg, device, scene, tsteps, variants=tuple(PROB_VARIANTS))
+        for variant, g in tprob.items():
+            kernel = PROB_VARIANTS[variant][2]
+            want = {name: 0 for name in _counters()}
+            if kernel is not None:
+                want[kernel] = (tcfg.layer + 1) * (1 + N_STEPS)
+            if g["summary"]["launches"] != want:
+                raise AssertionError(f"trained int8 {variant}: launch counts "
+                                     f"{g['summary']['launches']} != {want}")
+            if kernel is not None:
+                launches[kernel] += want[kernel]
+            log(f"(b) trained ViT-S/14 @ 518 int8 {variant} (logged): "
+                f"{json.dumps(g['summary'])}; vs the bf16 softmax step: pairs agreeing "
+                f"{g['pairs_agreeing_with_bf16']} of {g['pairs']}, max |twist diff| "
+                f"{g['twist_gap_to_bf16']:.4e}")
+        log(f"(b) trained twist gaps between the int8 variants: "
+            f"{json.dumps(twist_gaps({k: g['summary'] for k, g in tprob.items()}))}")
+        rsteps, rnet, rmodel = sc["relu"]
+        rint8 = run_trained_int8(tnet32, score_config("relu"), device, scene, rsteps,
+                                 variants=("nomax3",))["nomax3"]
+        if any(rint8["summary"]["launches"].values()):
+            raise AssertionError(f"relu int8: hand kernels launched {rint8['summary']['launches']}")
+        log(f"(c) relu on the int8 static path (calibrated through the scores, nomax3 "
+            f"superseded): {json.dumps(rint8['summary'])}; vs the float relu step: pairs "
+            f"agreeing {rint8['pairs_agreeing_with_bf16']} of {rint8['pairs']}, max |twist "
+            f"diff| {rint8['twist_gap_to_bf16']:.4e}")
+        fid = score_fidelity(tnet32, device, scene)
+        log(f"(d) zero-shot fidelity on ckpt_real518 against softmax, {FID_VIEWS} start views "
+            f"(informative, not a gate): {json.dumps(fid)}")
+        # from ckpt_real518's weights: a seeded init's LayerScale of 1e-5 would leave
+        # the attention, and so the scores, almost out of the loss
+        rg = check_score_train_grads(device, {k: v.cpu() for k, v in tnet32.state_dict().items()})
+        log(f"(e) one relu train step at 308, batch 2, from ckpt_real518, card against the "
+            f"card machine's CPU, f32 and bf16 (bf16 gradients beside the f64 ones, "
+            f"logged, not held): "
+            f"{json.dumps(rg)}")
+
     with phase("4 times"):
         step_ms = time_run(step_runner(net, model))
         log(f"[{card}] servo_step median {step_ms:.3f} ms (ViT-S/14 @ 308, bf16, kernels)")
@@ -2791,6 +3269,39 @@ def main() -> int:
             ms = time_run(step_runner(qnet, smodel))
             log(f"[{card}] servo_step median {ms:.3f} ms (ViT-B/14 @ 518, int8 W8A8, "
                 f"variant {variant}, kernels)")
+        # the scores and the int8-probability modes (phase 3j), in alternating rounds
+        runners = {f"int8 {v}": step_runner(q, m) for v, (_, q, m) in prob.items()}
+        for score in SCORES:
+            runners[f"{score} bf16"] = step_runner(sc[score][1], sc[score][2])
+        runners["softmax bf16"] = step_runner(tnet, tmodel)
+        rounds = [{k: time_run(r) for k, r in runners.items()} for _ in range(TIMING_ROUNDS)]
+        for k in runners:
+            what = ("ViT-B/14 @ 518, int8 W8A8 static" if k.startswith("int8") else
+                    "ViT-S/14 @ 518, trained weights")
+            got = [r[k] for r in rounds]
+            log(f"[{card}] servo_step median {statistics.median(got):.3f} ms ({k}, {what}; "
+                f"spread {min(got):.3f} to {max(got):.3f} over {TIMING_ROUNDS} rounds: "
+                f"{[round(x, 3) for x in got]})")
+        for name, tm in int8_product_times(device).items():
+            log(f"[{card}] int8_bmm '{name}' product at {SERVE_ATTN_SHAPE} (f32 products over "
+                f"1024-deep chunks, exact): {tm['ms']:.4f} ms, bound {tm['bound_ms']:.5f} ms "
+                f"({tm['bound_by']}, int8 peak)")
+        rrun = {b: chunk_runner(rnet, rmodel, scene, b) for b in (1, CHUNK)}
+        rrun.update({("softmax", b): chunk_runner(tnet, tmodel, scene, b) for b in (1, CHUNK)})
+        rounds = [{k: time_run(r) for k, r in rrun.items()} for _ in range(TIMING_ROUNDS)]
+        for k in rrun:
+            b = k if isinstance(k, int) else k[1]
+            got = [r[k] for r in rounds]
+            ms = statistics.median(got)
+            log(f"[{card}] closed-loop chunk step, B = {b} (ViT-S/14 @ 518, "
+                f"{'relu' if isinstance(k, int) else 'softmax'} bf16, kernels): median "
+                f"{ms:.3f} ms (spread {min(got):.3f} to {max(got):.3f} over {TIMING_ROUNDS} "
+                f"rounds: {[round(x, 3) for x in got]}), "
+                f"{ms * EPISODE_CAP / b / 1e3:.3f} card-s an episode at {EPISODE_CAP} steps")
+        rt = score_train_step(tnet32, device, scene)
+        log(f"[{card}] relu train step at 518, batch {TRAIN_BATCH} (from ckpt_real518): "
+            f"{rt['ms_per_step']:.3f} ms a step, peak {rt['peak_bytes'] / 2 ** 30:.3f} GiB "
+            f"allocated; losses {json.dumps([round(x, 4) for x in rt['losses']])}")
         times = time_kernels(device)
         bounds = {"attention": attention_bound_ms(),
                   "attention_f32": attention_bound_ms(f32=True, tensor_cores=True),

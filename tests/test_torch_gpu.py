@@ -19,7 +19,7 @@ from chip_smoke import (ATTN_F32_T, ATTN_F32_TOL, ATTN_T, FAST_ATTN_T, LARGE_LOG
                         underflow_qkv)
 from vitvs_tpu_torch.match.correspondence import cosine_similarity_matrix
 from vitvs_tpu_torch.ops import _build, attention, attn_int8, matcher
-from vitvs_tpu_torch.ops.int_mm import int8_matmul_nt
+from vitvs_tpu_torch.ops.int_mm import int8_bmm, int8_matmul_nt
 
 pytestmark = pytest.mark.gpu
 
@@ -729,3 +729,49 @@ def test_kernel_entries_refuse_grad_on_the_card(cuda):
     with torch.no_grad():
         attention.mha_attention(q, k, v)
     assert attention.mha_attention.launches == n + 1
+
+
+@pytest.mark.parametrize("shape", [(1, 1370, 12, 64), (1, 1370, 6, 64), (2, 65, 3, 64)])
+def test_int8_prob_products_are_exact(cuda, shape):
+    """The int8 products of 'qk+pv' (Q K^T) and 'pv' (P V) on the card
+    (ops/int_mm.int8_bmm) bit for bit against the int64 product
+    (chip_smoke.check_int8_products: an exact f64 GEMM, itself held to an
+    int64 sum on 16 rows); and one pair against the CPU's int64 matmul."""
+    out = chip_smoke.check_int8_products(cuda, shape=shape, seed=sum(shape))
+    assert out["pv"]["depth"] == shape[1] and out["qk"]["depth"] == shape[3]
+    a, b = chip_smoke.int8_operands((1, 300, 2, 64), 3, cuda)["pv"]
+    got = int8_bmm(a, b)
+    assert torch.equal(got.cpu().long(), a.cpu().long() @ b.cpu().long())
+
+
+@pytest.mark.parametrize("score", ["relu", "sqrelu"])
+def test_score_step_with_kernels_matches_plain(cuda, score):
+    """Phase 3j(a) on the card: relu / sqrelu at configs/real_s518_relu.yaml's
+    settings on the trained ViT-S/14 @ 518: no attention kernel launches
+    (the scores are plain PyTorch), one bf16-matcher launch a step, and the
+    twists of kernels and plain within 1e-3 where no pair differs."""
+    from vitvs_tpu_torch.sim.scene import load_poster_scene
+
+    s, steps, _, model = chip_smoke.run_score_step(score, "cuda", load_poster_scene(device="cuda"))
+    assert model.vit.attn_score == score and len(steps) == chip_smoke.N_STEPS
+    assert s["launches"]["attention"] == 0 and s["launches"]["matcher_bf16"] == chip_smoke.N_STEPS
+    assert s["twist_max_abs_err"] <= chip_smoke.TWIST_TOL and s["steps_compared"] >= 1
+
+
+@pytest.mark.parametrize("mode", ["pv", "qk+pv"])
+def test_int8_prob_block_on_the_card_matches_the_cpu(cuda, mode):
+    """Block 0 of the int8 ViT-B/14 @ 518 (seeded, static scales) in 'pv' /
+    'qk+pv' on the card against the card machine's CPU on the same input,
+    within chip_smoke.INT8_BLOCK_TOL of the output scale."""
+    from vitvs_tpu_torch.harness.pipeline import ServoModel, quantized_vit
+    from vitvs_tpu_torch.models.vit import init_vit
+
+    cfg = chip_smoke.serving_config()
+    fnet = init_vit(ServoModel.create(cfg, device="cuda").vit, torch.Generator().manual_seed(0),
+                    device="cuda", layerscale=1.0).eval()
+    model = chip_smoke.serving_model(cfg, mode, "cuda")
+    shifts = chip_smoke.SHIFTS + chip_smoke.CALIB_SHIFTS
+    goal, frames, _ = chip_smoke.make_frames(cfg, shifts=shifts)
+    qnet = quantized_vit(fnet, model, [goal, *frames[chip_smoke.N_STEPS:]])
+    b = chip_smoke.check_int8_block(qnet, model, goal)
+    assert b["rel_err"] <= chip_smoke.INT8_BLOCK_TOL

@@ -6,6 +6,7 @@ step) run at tiny size on the CPU (plain versions, which is what the kernel
 wrappers take for CPU tensors)."""
 
 import ast
+import dataclasses
 import json
 from pathlib import Path
 
@@ -531,3 +532,90 @@ def test_chip_smoke_train_command_runs_tiny_on_cpu(tmp_path, one_intra_op_thread
     assert len(saved["loss"]) == 2
     sd, cfg = load_exported(tmp_path / "chiprun_out" / "train_s56_2_bf16.npz")
     assert cfg == tvit.make_config("dinov2_vits14") and sd["blocks.0.attn.qkv.weight"].dtype == torch.bfloat16
+
+
+def test_chip_smoke_score_phase_runs_tiny_on_cpu(one_intra_op_thread):
+    """Phase 3j's functions with tiny models on the CPU: the relu step
+    through the plain versions (no launch), the int8 serving step in each of
+    'none', 'nomax3', 'pv' and 'qk+pv' (kernel and plain runs equal) and
+    their twist gaps, block 0 card against CPU (here CPU against CPU:
+    equal), and the int8 products against the int64 product."""
+    from vitvs_tpu_torch.sim.scene import Scene, make_synthetic_poster
+
+    cfg = VSConfig(u_max=96, v_max=72, f_x=75.0, f_y=75.0, dino_input_size=84, num_pairs=12,
+                   layer=1, model_name="tiny", pinv_mode="dls", attn_score="relu")
+    vcfg = tvit.ViTConfig(patch_size=14, embed_dim=128, depth=2, num_heads=2, pos_grid=5,
+                          gelu_approx=True, model_name="tiny", attn_score="relu")
+    model = ServoModel(vit=vcfg, cfg=cfg, compute_dtype=torch.bfloat16, device="cpu")
+    fnet = tvit.init_vit(vcfg, torch.Generator().manual_seed(0), device="cpu",
+                         layerscale=1.0).eval()
+    net = tvit.init_vit(vcfg, torch.Generator().manual_seed(0), device="cpu",
+                        layerscale=1.0).cast_blocks(torch.bfloat16).eval()
+    scene = Scene.create(make_synthetic_poster(128, seed=3), half_size=0.42, device="cpu")
+    s = chip_smoke.run_trained_step(net, cfg, model, scene)
+    steps = s.pop("steps")
+    assert s["launches"] == dict.fromkeys(s["launches"], 0) and s["twist_max_abs_err"] == 0.0
+    soft = dataclasses.replace(vcfg, attn_score="softmax")
+    gap = chip_smoke.run_trained_int8(fnet, dataclasses.replace(cfg, attn_score="softmax"),
+                                      "cpu", scene, steps, vit=soft,
+                                      variants=tuple(chip_smoke.PROB_VARIANTS))
+    assert sorted(gap) == sorted(chip_smoke.PROB_VARIANTS)
+    for variant, g in gap.items():
+        assert g["summary"]["differing_pairs"] == [0] * chip_smoke.N_STEPS, variant
+        assert g["summary"]["launches"] == dict.fromkeys(g["summary"]["launches"], 0)
+    gaps = chip_smoke.twist_gaps({k: g["summary"] for k, g in gap.items()})
+    assert set(gaps) == {"nomax3-none", "pv-none", "qk+pv-none", "none-nomax3", "pv-nomax3",
+                         "qk+pv-nomax3"} and all(np.isfinite(list(gaps.values())))
+    for variant in ("pv", "qk+pv"):
+        smodel = chip_smoke.serving_model(cfg, variant, "cpu", vit=soft)
+        assert smodel.vit.quant_attn == variant and smodel.vit.attn_score == "softmax"
+        goal, frames, _ = chip_smoke.make_frames(cfg)
+        qnet = chip_smoke.quantized_vit(fnet, smodel, [goal, *frames])
+        b = chip_smoke.check_int8_block(qnet, smodel, goal)
+        assert b["rel_err"] == 0.0 and b["token_cos_min"] > 0.9999
+    relu_int8 = chip_smoke.serving_model(cfg, "nomax3", "cpu", vit=vcfg)
+    assert relu_int8.vit.attn_score == "relu" and relu_int8.vit.quant_attn == "nomax3"
+    prods = chip_smoke.check_int8_products("cpu", shape=(1, 70, 2, 64), rows=4)
+    assert prods["pv"]["depth"] == 70 and prods["qk"]["depth"] == 64
+
+
+def test_chip_smoke_score_configs_are_the_relu_yamls():
+    """3j(a)'s configurations: configs/real_s518_relu.yaml and
+    real_s518_relupool.yaml on the 500-episode stream, and the trained
+    weights load under them (the file holds the architecture; the score is
+    the run's setting)."""
+    for name, pool in (("real_s518_relu", 1), ("real_s518_relupool", 2)):
+        cfg = chip_smoke.score_config("relu", pool)
+        assert cfg == load_config(REPO / "configs" / f"{name}.yaml").replace(num_samples=500)
+    model = ServoModel.create(chip_smoke.score_config("sqrelu"), device="cpu")
+    net, _ = chip_smoke.load_trained(model)
+    assert net.cfg.attn_score == "sqrelu" and net.cfg == model.vit
+    assert chip_smoke.replay_name(0, 64, attn_score="relu") == "replay_s518_relu_0_64"
+    assert chip_smoke.replay_name(0, 64) == "replay_s518_0_64"
+
+
+def test_chip_smoke_cotrain_command_names_its_score(tmp_path, one_intra_op_thread):
+    """--cotrain's training: train_servo with --attn-score at 56 px for 2
+    steps; its files are named for the score and its summary has the 25-step
+    windows the run reached (none here)."""
+    res = chip_smoke.run_train_command(2, 56, None, None, tmp_path, "cpu", attn_score="relu",
+                                       extra_argv=["--chain", "1", "--batch", "1", "--layer",
+                                                   "0", "--kv-pool", "2"])
+    assert res["finished"] and res["name"] == "train_s56_2_relu" and res["attn_score"] == "relu"
+    assert res["windows_25"] == []
+    assert (tmp_path / "chiprun_out" / "train_s56_2_relu.json").exists()
+
+
+def test_chip_smoke_score_train_check_runs_tiny_on_cpu(one_intra_op_thread):
+    """3j(e) with a tiny 2-block ViT (LayerScale 1, so the relu attention
+    carries the loss) on the CPU: card and CPU are the same device here, so
+    the f32 and bf16 steps agree exactly, and the bf16 gradients lie as far
+    from the f64 ones on one side as on the other."""
+    vit = _tiny_train_vit()
+    net = tvit.init_vit(vit, torch.Generator().manual_seed(0), device="cpu", layerscale=1.0)
+    out = chip_smoke.check_score_train_grads("cpu", net.state_dict(), size=56, vit=vit)
+    assert out["params"] == 32
+    for name in ("f32", "bf16"):
+        assert out[name]["loss_rel_err"] == 0.0 and out[name]["grad_cos_min"] > 0.999999
+    assert out["bf16"]["f64_cos_min_card"] == out["bf16"]["f64_cos_min_cpu"]
+    assert out["f32"]["f64_cos_min_card"] > out["bf16"]["f64_cos_min_card"]

@@ -309,6 +309,44 @@ def test_pair_batch_loss_and_grads_match_jitted_reference(dtype_name, one_intra_
     _hold_grads(ref_grads, net, grad_tol, f32_grads)
 
 
+@pytest.mark.parametrize("score,pool", [("relu", 1), ("sqrelu", 1), ("relu", 2), ("sqrelu", 2)])
+def test_servo_loss_and_grads_with_scores_match_jitted_reference(score, pool,
+                                                                 one_intra_op_thread):
+    """Co-training the relu / sqrelu scores (train_servo --attn-score, with
+    --kv-pool 2 on the 8 x 8 grid): the servo InfoNCE and every gradient
+    against jax.jit(jax.value_and_grad) of the reference, f32, within the
+    softmax step's tolerances (loss 1e-6 relative, gradients 1e-5 of max
+    abs).  sqrelu with 2 x 2 pooling is worse conditioned (rows with no
+    positive logit sit on the denominator's floor, and the squares amplify
+    the rest): there the reference's f32 gradients lie up to 7.2e-5 of max
+    abs from the same function in f64 (the port's in f64), the port's f32
+    ones 2.6e-5; so the port is held within 3e-5 of its f64 gradients and
+    within 1e-4 of the reference's."""
+    jm, tm = _parity_models("float32", vit_kw=dict(PARITY_VIT, attn_score=score, kv_pool=pool))
+    params = _parity_params(jm.vit)
+    t = tm.grid()[0] * tm.grid()[1]
+    goal, batch = _servo_batch_np(np.random.default_rng(9), 2, 112, t)
+    (ref_loss, ref_grads), _ = _reference_value_and_grad(
+        lambda p, m: jft._servo_batch_loss(p, m, jnp.asarray(goal),
+                                           jax.tree.map(jnp.asarray, batch)), jm, params)
+    net = _port_net(tm.vit, params)
+    loss = tft._servo_batch_loss(net, tm, torch.from_numpy(goal), _torch_batch(batch))
+    loss.backward()
+    loss_tol, grad_tol = TOL["float32"]
+    assert abs(loss.item() - float(ref_loss)) <= loss_tol * abs(float(ref_loss))
+    if (score, pool) != ("sqrelu", 2):
+        _hold_grads(ref_grads, net, grad_tol)
+        return
+    _hold_grads(ref_grads, net, 1e-4)
+    net64 = _port_net(tm.vit, params).double()
+    batch64 = {k: v.double() if v.is_floating_point() else v
+               for k, v in _torch_batch(batch).items()}
+    tft._servo_batch_loss(net64, dataclasses.replace(tm, compute_dtype=torch.float64),
+                          torch.from_numpy(goal).double(), batch64).backward()
+    for (name, p), p64 in zip(net.named_parameters(), net64.parameters()):
+        assert _grad_err(p.grad, p64.grad.float()) <= 3e-5, name
+
+
 def test_info_nce_loss_and_grads_match_jitted_reference():
     """info_nce_loss alone, its gradient with respect to both descriptor
     sets, and the port's batched form against one pair at a time."""
@@ -634,10 +672,35 @@ def test_train_servo_budget_stop_resumes_exactly(tmp_path, one_intra_op_thread):
 def test_train_servo_refuses_what_it_does_not_run(tmp_path):
     from vitvs_tpu_torch.train import train_servo
 
-    with pytest.raises(NotImplementedError, match="item 3"):
-        train_servo.main(["--out", str(tmp_path / "x.npz"), "--attn-score", "relu",
-                          "--device", "cpu", "--size", "56"])
+    with pytest.raises(SystemExit):
+        train_servo.parse_args(["--out", str(tmp_path / "x.npz"), "--attn-score", "gelu"])
     (tmp_path / "orbax").mkdir()
     with pytest.raises(ValueError, match="export_port_weights"):
         train_servo.main(["--out", str(tmp_path / "x.npz"), "--resume", str(tmp_path / "orbax"),
                           "--device", "cpu", "--size", "56"])
+
+
+@pytest.mark.parametrize("score", ["relu"])
+def test_train_servo_cotrains_the_scores(tmp_path, score, one_intra_op_thread):
+    """train_servo --attn-score relu --kv-pool 2 runs (the campaign's
+    co-train command at a tiny size on the CPU): the model it trains and
+    evaluates carries the score, and no hand kernel launches."""
+    from vitvs_tpu_torch.train import train_servo
+
+    seen = []
+    real = tft.matching_quality
+    monkey = pytest.MonkeyPatch()
+    monkey.setattr(tft, "matching_quality",
+                   lambda net, model, *a, **k: seen.append(model.vit) or real(net, model, *a, **k))
+    before = {f: f.launches for f in (attention.mha_attention, attention.mha_attention_fast,
+                                      matcher.dual_argmax_cosine_bf16)}
+    try:
+        res = train_servo.main(["--out", str(tmp_path / "c.npz"), "--steps", "2", "--batch", "1",
+                                "--chain", "1", "--size", "56", "--poster", "synthetic",
+                                "--device", "cpu", "--warmup", "1", "--layer", "0",
+                                "--attn-score", score, "--kv-pool", "2"])
+    finally:
+        monkey.undo()
+    assert res["finished"] and len(res["loss"]) == 2 and all(np.isfinite(res["loss"]))
+    assert seen and all(v.attn_score == score and v.kv_pool == 2 for v in seen)
+    assert all(f.launches == n for f, n in before.items())

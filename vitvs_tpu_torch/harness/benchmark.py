@@ -101,10 +101,11 @@ def cast_for_benchmark(net: ViT, dtype: torch.dtype) -> ViT:
 def int8_serving(net: ViT, model: ServoModel, scene: Scene, calib_poses=None
                  ) -> tuple[QuantViT, ServoModel]:
     """The int8 serving configuration of ``model`` (the reference
-    benchmark's ``quantized=True``): 'nomax3' attention, the conv patch
-    embedding, the 'default' preprocess resize, W8A8 weights quantized from
-    ``net``'s float weights; with ``calib_poses`` ((N, 3), (N, 4)) static
-    activation scales calibrated on the scene's views from those poses."""
+    benchmark's ``quantized=True``): 'nomax3' attention (which relu / sqrelu
+    scores supersede, calibrated through them), the conv patch embedding,
+    the 'default' preprocess resize, W8A8 weights quantized from ``net``'s
+    float weights; with ``calib_poses`` ((N, 3), (N, 4)) static activation
+    scales calibrated on the scene's views from those poses."""
     model = dataclasses.replace(
         model, pp_precision="default",
         vit=dataclasses.replace(model.vit, quant_attn="nomax3", patch_embed_impl="conv"))

@@ -97,15 +97,13 @@ class ServoModel:
         False for strict torch-parity numerics.  compute_dtype defaults to
         cfg.compute_dtype (bfloat16).  attn_impl and quant_attn go to the
         ViTConfig (quant_attn matters only with quantized=True), and so do
-        cfg's kv_pool, kv_pool_impl and kv_pool_where."""
-        if cfg.attn_score != "softmax":
-            raise NotImplementedError("attn_score relu / sqrelu is not ported "
-                                      "(ROADMAP.md queue 1, item 3)")
+        cfg's attn_score, kv_pool, kv_pool_impl and kv_pool_where."""
         if compute_dtype is None:
             compute_dtype = getattr(torch, cfg.compute_dtype)
         vit = dataclasses.replace(make_config(cfg.model_name, cfg.stride),
                                   gelu_approx=gelu_approx, attn_impl=attn_impl,
-                                  quant_attn=quant_attn, kv_pool=cfg.kv_pool,
+                                  quant_attn=quant_attn, attn_score=cfg.attn_score,
+                                  kv_pool=cfg.kv_pool,
                                   kv_pool_impl=cfg.kv_pool_impl,
                                   kv_pool_where=cfg.kv_pool_where)
         return ServoModel(vit=vit, cfg=cfg, compute_dtype=compute_dtype,

@@ -17,11 +17,18 @@ deferred-normalize softmax, which is plain XLA there and plain PyTorch
 here (logits clamped at ``nomax_clamp`` instead of max-subtracted, the
 1/denominator applied to the P.V output; 'nomax3', the serving mode, folds
 hd^-0.5 log2(e) into Q and keeps logits and probabilities in the compute
-dtype).  K/V pooling (``kv_pool``) runs with every mode but 'fused': after
-the qkv projection ('post') or, with ``kv_pool_where='pre'``, as the K/V
-columns of the int8 qkv product on the pooled normed tokens; pooled
-attention takes no kernel.  'pv', 'qk+pv', ``attn_score`` and the 'attn'
-facet are not ported (ROADMAP.md queue 1, item 3).
+dtype); 'pv' and 'qk+pv' the int8-probability modes (the row-max trick:
+exp(l - m) rounded times 127 is the probabilities' int8 quantization, V is
+quantized per (head, channel), int32 P.V, the 1/denominator on the output;
+'qk+pv' also takes QK^T in int8 with per-(token, head) scales), plain
+PyTorch with exact int8 products (``ops/int_mm.int8_bmm``).  The relu /
+sqrelu scores (``attn_score``) supersede every softmax mode but 'pv' and
+'qk+pv', which they do not compose with, and 'fused', which refuses them:
+``models/vit.score_attention`` at the compute dtype.  K/V pooling
+(``kv_pool``) runs with every mode but 'fused': after the qkv projection
+('post') or, with ``kv_pool_where='pre'``, as the K/V columns of the int8
+qkv product on the pooled normed tokens; pooled attention takes no kernel.
+The 'attn' facet is not ported (ROADMAP.md queue 1, item 3).
 
 Dtype points follow the JAX package: activation scales are f32, the
 inverse scale is rounded to the activation dtype and ``round(x * inv)``
@@ -42,10 +49,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from vitvs_tpu_torch.models.vit import (ViT, ViTConfig, attention_core, embed_tokens, pool_kv,
-                                        pool_matrix, softmax_attention)
-from vitvs_tpu_torch.ops.attn_int8 import (INV127, fused_int8_attention,
+                                        pool_matrix, score_attention, softmax_attention)
+from vitvs_tpu_torch.ops.attn_int8 import (INV127, _quant_th, fused_int8_attention,
                                            fused_int8_attention_plain)
-from vitvs_tpu_torch.ops.int_mm import int8_matmul_nt
+from vitvs_tpu_torch.ops.int_mm import int8_bmm, int8_matmul_nt
 
 _QUANT_KERNELS = ("qkv_kernel", "proj_kernel", "fc1_kernel", "fc2_kernel")
 
@@ -212,15 +219,76 @@ def _nomax_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (pv.float() / denom.transpose(1, 2)[..., None]).to(dt).reshape(B, T, h * hd)
 
 
+INT8_PROB_MODES = ("pv", "qk+pv")
+
+
+def _int8_probs(ls: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The row-max trick on f32 scaled logits (B, h, T, Tk): with the row
+    max subtracted, a row's largest exp is 1, so round(exp * 127) is its
+    int8 quantization.  Returns (int8 probabilities, f32 denominators (B,
+    h, T))."""
+    e = torch.exp(ls - ls.amax(-1, keepdim=True))
+    return torch.round(e * 127.0).to(torch.int8), e.sum(-1)
+
+
+def _quant_v(v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """V (B, Tk, h, hd) quantized per (head, channel) over its tokens:
+    int8 values and f32 scales (B, 1, h, hd), amax times f32(1/127) as the
+    jitted reference computes them."""
+    vs = torch.clamp(v.abs().amax(1, keepdim=True).float(), min=1e-12) * INV127
+    return torch.clamp(torch.round(v * (1.0 / vs).to(v.dtype)), -127, 127).to(torch.int8), vs
+
+
+def _int8_qk_logits(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """'qk+pv': f32 logits (B, h, T, Tk) of the int8 QK^T, Q and K quantized
+    per (token, head) (``ops/attn_int8._quant_th``), dequantized by the
+    outer product of their scales."""
+    (B, T, h, hd), Tk = q.shape, k.shape[1]
+    qq, qs = _quant_th(q.reshape(B, T, h * hd), h)
+    kq, ks = _quant_th(k.reshape(B, Tk, h * hd), h)
+    acc = int8_bmm(qq.reshape(B, T, h, hd).transpose(1, 2),
+                   kq.reshape(B, Tk, h, hd).permute(0, 2, 3, 1))
+    return acc.float() * qs.transpose(1, 2)[..., None] * ks.transpose(1, 2)[:, :, None, :]
+
+
+def _int8_prob_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         cfg: ViTConfig) -> torch.Tensor:
+    """'pv' and 'qk+pv' (the JAX ``_attn_qkv``): q (B, T, h, hd) against
+    (possibly pooled) k, v (B, Tk, h, hd) -> (B, T, h * hd) in q's dtype.
+    The scaled f32 logits (QK^T in q's dtype, or in int8 for 'qk+pv') give
+    int8 probabilities by the row-max trick, V goes int8 per (head,
+    channel), P.V accumulates in int32 and is dequantized as
+    pv * vs / (127 * denominator)."""
+    B, T, h, hd = q.shape
+    if cfg.quant_attn == "qk+pv":
+        logits = _int8_qk_logits(q, k)
+    else:
+        logits = torch.einsum("bqhd,bkhd->bhqk", q, k)
+    p_q, denom = _int8_probs(logits.float() * (1.0 / math.sqrt(hd)))
+    v_q, vs = _quant_v(v)
+    pv = int8_bmm(p_q, v_q.transpose(1, 2)).transpose(1, 2)            # (B, T, h, hd)
+    out = pv.float() * vs / (127.0 * denom.transpose(1, 2)[..., None])
+    return out.to(q.dtype).reshape(B, T, h * hd)
+
+
 def _attn_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg: ViTConfig,
               use_kernels: bool) -> torch.Tensor:
     """Attention of (B, T, h, hd) q against (possibly pooled) k, v -> (B, T,
-    D) for every mode but 'fused': the no-max modes; 'none' the bf16
-    attention (exact softmax, or the no-max kernel under attn_impl='fast'),
-    in plain PyTorch when the keys are pooled."""
+    D) for every mode but 'fused': the relu / sqrelu scores at q's dtype
+    (refusing 'pv' and 'qk+pv'); the no-max modes; 'pv' and 'qk+pv'; 'none'
+    the bf16 attention (exact softmax, or the no-max kernel under
+    attn_impl='fast'), in plain PyTorch when the keys are pooled."""
     B, T, h, hd = q.shape
-    if cfg.quant_attn in NOMAX_MODES:
+    mode = cfg.quant_attn
+    if cfg.attn_score != "softmax":
+        if mode in INT8_PROB_MODES:
+            raise ValueError(f"quant_attn={mode!r} (int8 probs) does not compose with "
+                             f"attn_score={cfg.attn_score!r}")
+        return score_attention(q, k, v, cfg, q.dtype, score_dtype=q.dtype)
+    if mode in NOMAX_MODES:
         return _nomax_attention(q, k, v, cfg)
+    if mode in INT8_PROB_MODES:
+        return _int8_prob_attention(q, k, v, cfg)
     if cfg.kv_pool > 1:
         return softmax_attention(q, k, v)
     return attention_core(q, k, v, use_kernels, cfg.attn_impl).reshape(B, T, h * hd)
@@ -231,8 +299,9 @@ def _block_q(x: torch.Tensor, blk: QuantBlock, cfg: ViTConfig,
     """Pre-norm block with int8 projections (mirrors the JAX ``_block_q``)."""
     B, T, D = x.shape
     h, hd = cfg.num_heads, cfg.head_dim
-    if cfg.quant_attn == "fused" and cfg.kv_pool > 1:
-        raise ValueError("quant_attn='fused' (ops/attn_int8.py) does not compose with kv_pool")
+    if cfg.quant_attn == "fused" and (cfg.attn_score != "softmax" or cfg.kv_pool > 1):
+        raise ValueError("quant_attn='fused' (ops/attn_int8.py) does not compose with "
+                         "attn_score/kv_pool redesigns")
     x_norm = blk.norm1(x)
     if cfg.kv_pool > 1 and cfg.kv_pool_where == "pre":
         # the K/V columns of the int8 qkv product run on the pooled tokens,
@@ -313,8 +382,9 @@ def _collect_act_amax(net: ViT, cfg: ViTConfig, images: torch.Tensor, layer: int
     """|activation| maxima of the four int8 matmul inputs over a calibration
     batch, blocks 0..layer: per channel for the LayerNorm outputs (qkv, fc1
     inputs), per tensor for the attention and GELU outputs (proj, fc2
-    inputs).  Exact softmax in the compute dtype, whatever ``quant_attn``
-    says; with ``kv_pool`` K and V pooled after the projection, whatever
+    inputs).  Exact softmax (f32 scores) whatever ``quant_attn`` says, or
+    the relu / sqrelu scores at the compute dtype, as the int8 ViT serves
+    them; with ``kv_pool`` K and V pooled after the projection, whatever
     ``kv_pool_where`` says (as the JAX package calibrates).  Returns
     ((layer+1, D), (layer+1, D), (layer+1,), (layer+1,))."""
     dt = compute_dtype
@@ -334,8 +404,11 @@ def _collect_act_amax(net: ViT, cfg: ViTConfig, images: torch.Tensor, layer: int
         B, T, _ = x.shape
         n1 = ln(x, blk.norm1)
         q, k, v = lin(blk.attn.qkv, n1).reshape(B, T, 3, h, hd).unbind(2)
-        attn = softmax_attention(q, pool_kv(k, cfg.kv_pool, cfg.kv_pool_impl),
-                                 pool_kv(v, cfg.kv_pool, cfg.kv_pool_impl))
+        k, v = (pool_kv(t, cfg.kv_pool, cfg.kv_pool_impl) for t in (k, v))
+        if cfg.attn_score != "softmax":
+            attn = score_attention(q, k, v, cfg, dt, score_dtype=dt)
+        else:
+            attn = softmax_attention(q, k, v)
         x = x + blk.ls1.gamma.to(dt) * lin(blk.attn.proj, attn)
         n2 = ln(x, blk.norm2)
         act = F.gelu(lin(blk.mlp.fc1, n2), approximate=approximate)

@@ -5,7 +5,8 @@ Covered: patch embedding (a reshape and one matmul when stride == patch
 and ``patch_embed_impl='reshape'``, a convolution otherwise), bicubic
 pos-embed resampling with the DINO "+0.1" scale fudge, pre-norm blocks with
 LayerScale, LayerNorm statistics in f32, exact or tanh GELU, softmax
-attention, K/V pooling (``kv_pool``: the spatial keys and values mean-pooled
+attention or the relu / sqrelu scores (``attn_score``), K/V pooling
+(``kv_pool``: the spatial keys and values mean-pooled
 ``kv_pool`` x ``kv_pool`` over the patch grid, after the qkv projection or,
 with ``kv_pool_where='pre'``, of the normed tokens before the K/V
 projection), and ``vit_features`` up to block ``layer`` for the token /
@@ -22,8 +23,9 @@ Attention goes through one dispatch point, :func:`attention_core`, routed by
 no-max serving variant ('fast'), each the kernel wrapper of
 ``ops.attention`` (CUDA kernel on the card, plain version on the CPU), or
 its plain version when ``use_kernels`` is off.  Pooled attention
-(``kv_pool > 1``) is plain PyTorch whatever ``attn_impl`` says: the JAX
-package sends it to no Pallas kernel either.
+(``kv_pool > 1``) and the relu / sqrelu scores (:func:`score_attention`) are
+plain PyTorch whatever ``attn_impl`` says: the JAX package sends them to no
+Pallas kernel either.
 
 Training (``vitvs_tpu_torch/train``) runs ``vit_features`` with a
 ``compute_dtype``: the parameters stay f32 and each block runs on casts of
@@ -54,9 +56,11 @@ from vitvs_tpu_torch.ops.attention import (mha_attention, mha_attention_fast_pla
 # 'xla', 'pallas' and 'auto' name the JAX package's exact-softmax paths; the
 # port runs them all as exact softmax.  'fast' is the no-max serving kernel.
 ATTN_IMPLS = ("xla", "pallas", "auto", "fast")
-# int8 serving attention modes of models/quant.py that the port runs; 'pv'
-# and 'qk+pv' (int8 probabilities) wait for ROADMAP.md queue 1, item 3
-QUANT_ATTN_MODES = ("none", "fused", "nomax", "nomax2", "nomax3")
+# int8 serving attention modes of models/quant.py
+QUANT_ATTN_MODES = ("none", "fused", "nomax", "nomax2", "nomax3", "pv", "qk+pv")
+# attention scores: exact softmax, or relu / sqrelu with the normalization
+# deferred onto the P.V output (a different model: its weights are co-trained)
+ATTN_SCORES = ("softmax", "relu", "sqrelu")
 KV_POOL_IMPLS = ("window", "matmul")
 KV_POOL_WHERE = ("post", "pre")
 PATCH_EMBED_IMPLS = ("reshape", "conv")
@@ -94,14 +98,19 @@ class ViTConfig:
     # recompute each block in the backward pass instead of keeping its
     # activations (a training-memory knob; forwards without grad are unchanged)
     remat_blocks: bool = False
+    # see ATTN_SCORES; relu and sqrelu take no logit scale (it cancels in the
+    # deferred quotient) and never run an attention kernel
+    attn_score: str = "softmax"
 
     def __post_init__(self):
         if self.attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {self.attn_impl!r}")
         if self.quant_attn not in QUANT_ATTN_MODES:
-            raise NotImplementedError(
-                f"quant_attn={self.quant_attn!r} is not ported (ROADMAP.md queue 1, item 3); "
-                f"the port runs {QUANT_ATTN_MODES}")
+            raise ValueError(f"quant_attn must be one of {QUANT_ATTN_MODES}, "
+                             f"got {self.quant_attn!r}")
+        if self.attn_score not in ATTN_SCORES:
+            raise ValueError(f"unknown attn_score {self.attn_score!r} "
+                             "(expected 'softmax', 'relu' or 'sqrelu')")
         for name, allowed in (("kv_pool_impl", KV_POOL_IMPLS), ("kv_pool_where", KV_POOL_WHERE),
                               ("patch_embed_impl", PATCH_EMBED_IMPLS)):
             if getattr(self, name) not in allowed:
@@ -230,6 +239,29 @@ def softmax_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torc
     return torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(B, T, h * hd)
 
 
+def score_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg: ViTConfig,
+                    out_dtype: torch.dtype, score_dtype: torch.dtype) -> torch.Tensor:
+    """relu / sqrelu scored attention with the normalization deferred
+    (``vitvs_tpu/models/vit.py:_score_attention``): q (B, Tq, h, hd) against
+    (possibly pooled) k, v (B, Tk, h, hd) -> (B, Tq, h * hd) in ``out_dtype``.
+
+    The logits come out of the product in q's dtype and are cast to
+    ``score_dtype``; max(., 0), squared for sqrelu, in that dtype; the denominator sums in f32, floored at 1e-6; P.V takes the
+    scores rounded to ``out_dtype``, and the f32 quotient is rounded to it.
+    No logit scale: it cancels in the quotient.  The float ViT (f32 scores),
+    the int8 ViT and static calibration (scores in the compute dtype) all
+    call here."""
+    B, T, h, hd = q.shape
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k)
+    e = torch.relu(logits.to(score_dtype))
+    if cfg.attn_score == "sqrelu":
+        e = e * e
+    denom = torch.clamp(e.sum(-1, dtype=torch.float32), min=1e-6)          # (B, h, Tq)
+    pv = torch.einsum("bhqk,bkhd->bqhd", e.to(out_dtype), v)
+    out = pv.float() / denom.transpose(1, 2)[..., None]
+    return out.to(out_dtype).reshape(B, T, h * hd)
+
+
 def _layernorm(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
     """LayerNorm with f32 statistics whatever the compute dtype."""
     return F.layer_norm(x.float(), norm.normalized_shape, norm.weight.float(),
@@ -279,17 +311,18 @@ class Attention(nn.Module):
     def forward(self, x_norm: torch.Tensor, use_kernels: bool) -> torch.Tensor:
         B, T, D = x_norm.shape
         cfg = self.cfg
-        if cfg.kv_pool == 1:
-            q, k, v = self.qkv_heads(x_norm).unbind(0)
-            out = attention_core(q, k, v, use_kernels, cfg.attn_impl).reshape(B, T, D)
+        if cfg.kv_pool > 1 and cfg.kv_pool_where == "pre":
+            q, k, v = self.qkv_prepool(x_norm)
         else:
-            if cfg.kv_pool_where == "pre":
-                q, k, v = self.qkv_prepool(x_norm)
-            else:
-                q, k, v = self.qkv_heads(x_norm).unbind(0)
-                k = pool_kv(k, cfg.kv_pool, cfg.kv_pool_impl)
-                v = pool_kv(v, cfg.kv_pool, cfg.kv_pool_impl)
+            q, k, v = self.qkv_heads(x_norm).unbind(0)
+            k = pool_kv(k, cfg.kv_pool, cfg.kv_pool_impl)
+            v = pool_kv(v, cfg.kv_pool, cfg.kv_pool_impl)
+        if cfg.attn_score != "softmax":
+            out = score_attention(q, k, v, cfg, x_norm.dtype, score_dtype=torch.float32)
+        elif cfg.kv_pool > 1:
             out = softmax_attention(q, k, v)
+        else:
+            out = attention_core(q, k, v, use_kernels, cfg.attn_impl).reshape(B, T, D)
         return self.proj(out)
 
 

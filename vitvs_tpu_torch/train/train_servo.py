@@ -59,7 +59,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--resume", default=None,
                     help="weights to start from: an exported .npz or a torch-hub .pth")
     ap.add_argument("--attn-score", default="softmax", choices=["softmax", "relu", "sqrelu"],
-                    help="attention score to co-train for (relu and sqrelu are not ported)")
+                    help="attention score to co-train for (ViTConfig.attn_score)")
     ap.add_argument("--remat", action="store_true",
                     help="recompute each block in the backward pass (ViTConfig.remat_blocks)")
     ap.add_argument("--kv-pool", type=int, default=1,
