@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (vitvs_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py              # the smoke run below
-    python3 chip_smoke.py --profile [bf16|f32|F|N|none|nomax3|pv|qk+pv|relu|loop|loop518|int8loop|sift|orb|akaze|harris|train]
+    python3 chip_smoke.py --profile [bf16|f32|F|N|none|nomax3|pv|qk+pv|relu|loop|loop518|int8loop|sift|orb|akaze|harris|train|vitg|fastbin]
                           [--trace trace.json]
                           [--chunk B]  # only: device-time breakdown of servo steps
                                        # of the bf16 or f32 path or an int8 serving variant
@@ -12,7 +12,9 @@
                                        # ViT-S/14 @ 518 in bf16 or, int8loop, at run AD's
                                        # int8 settings; or a classical method's closed
                                        # loop), a chunk of B episodes a step; or (train)
-                                       # train steps of ViT-S/14 @ 308 at batch 8
+                                       # train steps of ViT-S/14 @ 308 at batch 8; or (vitg,
+                                       # fastbin) the seeded ViT-g/14 @ 518 bf16 step (or
+                                       # chunk-step) with materialized or factorized bins
     python3 chip_smoke.py --train N [--size S] [--poster synthetic|real] [--resume P] [--budget-s T]
                                        # only: python -m vitvs_tpu_torch.train.train_servo
                                        # for N steps at S (308) with the JAX run's arguments
@@ -36,11 +38,13 @@
                                        # all; writes chiprun_out/
                                        # train_s518_2000_real_resumed_S.json,
                                        # the weights (bf16 blocks) and replay_s518_S_0_64.json
-    python3 chip_smoke.py --replay A:B [--method M] [--int8] [--perturbed] [--chunk C]
-                          [--checkpoint F] [--budget-s S]
+    python3 chip_smoke.py --replay A:B [--method M] [--int8] [--fast-binned] [--perturbed]
+                          [--chunk C] [--checkpoint F] [--budget-s S]
                                        # only: episodes [A, B) of the 500-episode seed-41
                                        # stream on the trained ViT-S/14 @ 518 (bf16; --int8:
-                                       # run AD's int8 configuration; --perturbed: each
+                                       # run AD's int8 configuration; --fast-binned: match
+                                       # by the factorized binned similarity, files
+                                       # replay_s518_fast_A_B.*; --perturbed: each
                                        # episode's perturbed texture), C (8) a chunk,
                                        # resumable: an unfinished run leaves its checkpoint
                                        # (.replay/replay_s518[_int8][_pert]_A_B.ckpt) in
@@ -56,7 +60,9 @@ Phases, each announced with a flushed, timestamped start/done line:
 1. card and build: the card's name and power limit (nvidia-smi), then the
    kernels' build, one nvcc per csrc/*.cu started together and one link
    (build seconds and -Xptxas -v lines);
-2. kernels vs plain versions at the main paths' shapes: exact attention at
+2. kernels vs plain versions at the main paths' shapes (ViT-g's since
+   phase 3k: exact attention at (1 and 8, 1370, 24, 64), the bf16 matcher at
+   (1369, 13824) and batched at B = 8, int8 attention at D = 1536): exact attention at
    (1, 485, 6, 64) bf16, at B = 2, 6 heads with T in {1, 63, 64, 65, 127,
    129, 485, 1370}, and rows whose scaled logits are about +-200; the f32
    exact attention likewise in f32 (T in {1, 7, 9, 63, 64, 65, 129, 485,
@@ -195,6 +201,27 @@ Phases, each announced with a flushed, timestamped start/done line:
    CPU: in f32 as 3i(a) holds bf16 (loss within 1e-2 relative, every
    gradient's cosine at least 0.99), in bf16 the loss likewise and every
    gradient finite, each gradient's cosine to the f64 one logged for both;
+3k. DINOv2 ViT-g/14 @ 518 (dinov2_vitg14: 1536 wide, 40 blocks of 24 heads,
+   the SwiGLU FFN), seeded on the card from a generator of the card (init_vit,
+   LayerScale 1.0) at full width and built through build_model: (a) bf16,
+   goal + 5 steps and a chunk of 8 for 5 chunk-steps through the kernels and
+   plain, teacher-forced (twists within 1e-3 where pairs agree), 12
+   exact-attention launches a forward and one matcher launch a step at
+   (1369, 13824); (b) vit_forward, all 40 blocks and the final norm, kernels
+   vs plain (5e-2 relative) and its peak memory; (c) the int8 ViT-g
+   (SwiGLU through the W8A8 products, static scales) in 'fused' (kernel 4 at
+   24 heads) and 'none', block 0 card vs CPU (two int8 steps, 2/127; the
+   qkv product's int8 codes within one step), its attention output kernels
+   vs plain on the card (2e-2), three planted faults each rejected, and the
+   step's twists kernels vs plain; (d) fast_binned_match against the
+   materialized step on the trained ViT-S/14 @ 518 and on ViT-g, float and
+   int8, one frame and a chunk of 8, teacher-forced: pairs flipped counted,
+   twists within 1e-3 where they agree (seeded ViT-g float: the
+   similarities only), no matcher launch, the similarity within 1e-2 (int8
+   5e-2) of the materialized path's and, float, within 1e-4 of log_bin's
+   f32 cosine; (e) the 'attn' facet of both, float and int8, and the float
+   ones' saliency, card vs the card machine's CPU (ATTN_FACET_TOL), rows
+   summing to 1;
 4. times on the card (CUDA events / synchronized host clock) beside each
    kernel's bound and the PyTorch library call for the same function (the
    exact kernels at T = 485 and T = 1370; the int8 kernel from the bf16
@@ -210,7 +237,11 @@ Phases, each announced with a flushed, timestamped start/done line:
    at 518 beside softmax's, the int8 steps in 'none', 'nomax3', 'pv' and
    'qk+pv' at ViT-B/14 @ 518, the int8 products' ms beside their bound, the
    relu closed-loop chunk step at B = 1 and 8 beside softmax's, and relu
-   train steps at 518 (batch 8) with their peak memory.  The
+   train steps at 518 (batch 8) with their peak memory; kernels 1, 2a and 4
+   at ViT-g's shapes beside their bounds, plain versions and library calls,
+   with the factorized path's product (cuBLAS bf16, f32 output) and whole
+   similarity beside 2a, and the ViT-g step and chunk-step of 8,
+   materialized against factorized, in 7 alternating rounds.  The
    f32 attention kernel is held to the tensor-core bound of f32-accurate
    work (three TF32 passes), its f32 FMA bound logged beside it.
 
@@ -247,19 +278,25 @@ from vitvs_tpu_torch.classical.pipeline import (DEFAULT_MAX_CORNERS, METHOD_NORM
                                                 extract_goal_features)
 from vitvs_tpu_torch.control.ibvs import EmaState
 from vitvs_tpu_torch.core.batch import item
-from vitvs_tpu_torch.harness.benchmark import cast_for_benchmark, int8_serving, run_benchmark
+from vitvs_tpu_torch.harness.benchmark import (build_model, cast_for_benchmark, int8_serving,
+                                               run_benchmark)
 from vitvs_tpu_torch.harness.chunks import load_episodes
 from vitvs_tpu_torch.harness.evals import convergence_stats
-from vitvs_tpu_torch.harness.pipeline import (ServoModel, goal_descriptors, preprocess,
-                                              quantized_vit, servo_step)
+from vitvs_tpu_torch.harness.pipeline import (ServoModel, batch_descriptors, goal_descriptors,
+                                              preprocess, quantized_vit, servo_step)
 from vitvs_tpu_torch.harness.rollout import episode_init, goal_pose, rollout_segment
 from vitvs_tpu_torch.harness.samplers import (DESIRED_ORIENTATION, DESIRED_POSITION,
                                               generate_episode_starts)
 from vitvs_tpu_torch.io_bridge.config import VSConfig
-from vitvs_tpu_torch.match.binned import QuantizedBinned
+from vitvs_tpu_torch.match.binned import (QuantizedBinned, binned_cosine_similarity,
+                                          quantize_binned_int8)
+from vitvs_tpu_torch.match.correspondence import cosine_similarity_matrix
 from vitvs_tpu_torch.models.convert import TRAINED_S518, load_exported, save_exported
-from vitvs_tpu_torch.models.quant import _block_q, _nomax_attention
-from vitvs_tpu_torch.models.vit import ViT, init_vit
+from vitvs_tpu_torch.models.extractor import (extract_saliency_maps, log_bin,
+                                              saliency_from_attention)
+from vitvs_tpu_torch.models.quant import (QuantViT, _block_q, _nomax_attention, static_quant_act,
+                                          vit_features_quant)
+from vitvs_tpu_torch.models.vit import ViT, init_vit, vit_features, vit_forward
 from vitvs_tpu_torch.ops import _build, attention, attn_int8, matcher
 from vitvs_tpu_torch.ops.int_mm import int8_bmm
 from vitvs_tpu_torch.sim.env import observe
@@ -369,7 +406,8 @@ POOLED_ATTN_SHAPE = (CHUNK, 1370, POOLED_KEYS, 6, 64)   # (B, T, keys, h, hd) of
 CLASSICAL = ("sift", "orb", "akaze", "harris")
 CLASSICAL_STREAM = 64                 # configs/real64.yaml's 64-episode stream
 CLASSICAL_STEPS = 60
-CLASSICAL_COMPARED = tuple(range(0, CLASSICAL_STEPS, 6))   # chunk-steps held against the CPU
+# chunk-steps held against the CPU
+CLASSICAL_COMPARED = tuple(range(0, CLASSICAL_STEPS, 6))
 CLASSICAL_ALONE_STEPS = 20
 CLASSICAL_TWIST_TOL = 1e-4
 # phase 3i, training at full width: the JAX run held to (artifacts/ckpt_vits308.trainlog.json:
@@ -432,6 +470,40 @@ COTRAIN_BUDGET_S = 1500.0             # --cotrain's default budget, training and
 COTRAIN_TRAIN_SHARE = 0.65            # the part of it training may take
 EPISODE_CAP = 1500                    # the ladder's max_iterations: card-seconds an episode
 TIMING_ROUNDS = 7                     # alternating rounds, closed-loop step and bare step
+# phase 3k, DINOv2 ViT-g/14 (dinov2_vitg14: 1536 wide, 40 blocks of 24 heads, the SwiGLU
+# FFN) at 518, seeded on the card at full width, and factorized binned matching; the
+# kernels at its shapes: exact attention (B, 1370, 24, 64), the bf16 matcher on 9 x 1536
+# binned rows, int8 attention from (1, 1370, 3 x 1536) slices
+VITG_MODEL = "dinov2_vitg14"
+VITG_ATTN_SHAPE = (1, 1370, 24, 64)
+VITG_CHUNK_ATTN_SHAPE = (CHUNK, 1370, 24, 64)
+VITG_MATCH_SHAPE = (1369, 9 * 1536)
+VITG_FAST_SHAPE = (1369, 1536)        # the factorized path's unbinned rows
+VITG_INT8_VARIANTS = ("F", "none")    # 'fused' (kernel 4) and 'none' (kernel 1), static scales
+VITG_TIMING_ITERS = 10                # calls a runner in each of phase 4's ViT-g rounds
+# the chunk's 8 episodes: camera offsets from the goal pose (m), each approaching it
+VITG_CHUNK_OFFSETS = [TRAINED_STEP_OFFSETS[0], *TRAINED_CALIB_OFFSETS]
+# the 'attn' facet card vs CPU: f32 probabilities from bf16 logits (a bf16 ulp of a logit
+# of 10 moves its probability by 6%: the peak of a row, at most about 0.5 here, by 0.03),
+# rows summing to 1 in f32, and the min-max normalized saliency map
+ATTN_FACET_TOL = (5e-2, 1e-4, 1e-1)
+# ViT-g's int8 block 0 card vs CPU: two int8 steps of the block's largest output (3j's
+# 1e-2 is about one): on an H100 the card's plain block lies as far from the CPU's as its
+# kernels' (1.3e-2 on the seeded ViT-g), the gap is the two libraries' bf16 rounding
+# moving static int8 activations, two of which can land on one output of the 4096-deep
+# w3 product
+VITG_INT8_BLOCK_TOL = 2.0 / 127.0
+# the factorized binned similarity against the materialized one on the same unbinned
+# descriptors: float (the materialized arithmetic normalizes the binned rows in bf16:
+# a few bf16 ulps of a cosine), int8 (other rows quantized: a few int8 steps)
+FAST_SIM_TOL = {"float": 1e-2, "int8": 5e-2}
+# and against log_bin's rows' cosine in f32: the same sums in another order. f32
+# association over 13824 products of unit rows moves a cosine by about
+# sqrt(13824) * 2^-24 = 7e-6 (at most 13824 * 2^-24 = 8.2e-4); the nearest other
+# arithmetic, the materialized path's bf16-normalized rows, lies 6e-3 away. The
+# rows' argmaxes equal but where two candidates lie that close
+FAST_SIM_F32_TOL = 1e-4
+FAST_ARGMAX_F32_MIN = 0.99
 # the reference's npz: its 22 arrays and the run time
 NPZ_KEYS = ("initial_positions", "initial_orientations", "final_positions",
             "final_quaternions", "convergence_flags", "position_errors", "orientation_errors",
@@ -785,13 +857,15 @@ def make_frames(cfg: VSConfig, seed=0, shifts=SHIFTS):
 
 
 def drive(net, model: ServoModel, goal, frames, depth, scores, states=None):
-    """goal_descriptors, then one servo_step per frame, carrying the EMA and
-    the previous command, or taking them from ``states`` (one (ema, prev) per
+    """goal_descriptors, then one servo_step per frame (or per chunk of B
+    frames (B, H, W, 3), with (B, t) scores), carrying the EMA and the
+    previous command, or taking them from ``states`` (one (ema, prev) per
     step).  ``depth``: one depth map, or a list of one per frame.  Returns
     (goal descriptors, step results)."""
     goal_desc = goal_descriptors(net, model, goal)
-    ema = EmaState.init(device=model.device)
-    prev = torch.zeros(6, device=model.device)
+    batch = tuple(frames[0].shape[:-3])
+    ema = EmaState.init(device=model.device, batch=batch)
+    prev = torch.zeros(*batch, 6, device=model.device)
     depths = depth if isinstance(depth, list) else [depth] * len(frames)
     results = []
     for i, (frame, s) in enumerate(zip(frames, scores)):
@@ -822,7 +896,7 @@ def check_outputs(model: ServoModel, goal_desc, results) -> None:
         raise AssertionError("goal descriptors are not finite")
     k = model.cfg.num_pairs
     for i, r in enumerate(results):
-        if r.body_twist.shape != (6,) or r.s_uv.shape != (k, 2):
+        if r.body_twist.shape[-1:] != (6,) or r.s_uv.shape[-2:] != (k, 2):
             raise AssertionError(f"step {i}: shapes {tuple(r.body_twist.shape)}, {tuple(r.s_uv.shape)}")
         for name in ("v_c", "body_twist", "s_uv", "s_uv_star"):
             if not bool(torch.isfinite(getattr(r, name)).all()):
@@ -858,17 +932,29 @@ def compare_runs(ref, ker, every_step: bool = False,
     row_cos = torch.nn.functional.cosine_similarity(g_ker, g_ref, dim=-1).min().item()
     if not row_cos >= desc_cos_min:
         raise AssertionError(f"goal descriptors: a row's cosine {row_cos} < {desc_cos_min}")
+    return {"desc_rel_err": desc_rel, "desc_row_cos_min": row_cos,
+            **compare_steps(ref_steps, ker_steps, every_step, twist_tol)}
+
+
+def compare_steps(ref_steps, ker_steps, every_step: bool, twist_tol: float) -> dict:
+    """:func:`compare_runs`' steps: pairs that differ a step, and the twists
+    held within ``twist_tol`` up to the first step whose pairs differ, or
+    (``every_step``) at every step, or every episode of a chunk-step, whose
+    pairs agree."""
     differing, twist_err, compared = [], 0.0, 0
     for r, k in zip(ref_steps, ker_steps):
-        differing.append(int((~same_pairs(r, k)).sum()))
-        if differing[-1] if every_step else any(differing):
+        same = same_pairs(r, k)                                   # (..., pairs)
+        differing.append(int((~same).sum()))
+        if not every_step and any(differing):
             continue
-        compared += 1
-        twist_err = max(twist_err, (r.body_twist - k.body_twist).abs().max().item())
+        agree = same.all(-1) if every_step else torch.ones_like(same[..., 0])
+        if bool(agree.any()):
+            gap = (r.body_twist - k.body_twist).abs().amax(-1)[agree].max().item()
+            twist_err = max(twist_err, gap)
+        compared += int(agree.sum())
     if not twist_err <= twist_tol:
         raise AssertionError(f"body twists differ by {twist_err} > {twist_tol}")
-    return {"desc_rel_err": desc_rel, "desc_row_cos_min": row_cos,
-            "differing_pairs": differing, "twist_max_abs_err": twist_err,
+    return {"differing_pairs": differing, "twist_max_abs_err": twist_err,
             "steps_compared": compared,
             "twist_max_abs": max(k.body_twist.abs().max().item() for k in ker_steps)}
 
@@ -900,16 +986,18 @@ def _counters():
 
 def run_main_path(net, cfg: VSConfig, model_kernels: ServoModel, seed=0, frames=None,
                   every_step: bool = False, tol=(DESC_REL_TOL, DESC_COS_MIN, TWIST_TOL),
-                  keep_steps: bool = False) -> dict:
+                  keep_steps: bool = False, scores=None) -> dict:
     """Both runs of the main path and their checks; the launch counters are
     zeroed just before the kernel run and read just after it.  ``frames``:
     (goal, current frames, depth or depths), by default :func:`make_frames`'.
     ``every_step``: the plain run takes the kernel run's EMA and command at
     each step, and twists are compared at every step whose pairs agree.
     ``tol``: :func:`compare_runs`'.  ``keep_steps``: the kernel run's step
-    results under "steps" (not JSON)."""
+    results under "steps" (not JSON).  ``scores``: each step's pair scores
+    ((B, t) a chunk-step), by default :func:`pair_scores`'."""
     goal, frames, depth = frames or make_frames(cfg, seed)
-    scores = pair_scores(model_kernels, len(frames), seed)
+    if scores is None:
+        scores = pair_scores(model_kernels, len(frames), seed)
     model_plain = dataclasses.replace(model_kernels, use_kernels=False)
 
     for fn in _counters().values():
@@ -918,15 +1006,15 @@ def run_main_path(net, cfg: VSConfig, model_kernels: ServoModel, seed=0, frames=
     launches = {name: fn.launches for name, fn in _counters().items()}
     states = None
     if every_step:
-        states = [(EmaState.init(device=model_kernels.device),
-                   torch.zeros(6, device=model_kernels.device))]
+        states = [(EmaState.init(device=model_kernels.device, batch=ker[1][0].v_c.shape[:-1]),
+                   torch.zeros_like(ker[1][0].v_c))]
         states += [(r.ema, r.v_c) for r in ker[1][:-1]]
     ref = drive(net, model_plain, goal, frames, depth, scores, states)
     for run in (ker, ref):
         check_outputs(model_kernels, *run)
     summary = compare_runs(ref, ker, every_step, tol)
     summary["launches"] = launches
-    summary["num_valid"] = [int(r.num_valid) for r in ker[1]]
+    summary["num_valid"] = [r.num_valid.tolist() for r in ker[1]]
     summary["body_twists"] = [r.body_twist.tolist() for r in ker[1]]
     summary["body_twist_last"] = summary["body_twists"][-1]
     if keep_steps:
@@ -1161,8 +1249,7 @@ def load_trained(model: ServoModel, path: Path = TRAINED_S518):
         "kv_pool_where", "patch_embed_impl", "attn_score")}
     if dataclasses.replace(vcfg, **run_fields) != model.vit:
         raise ValueError(f"{path} holds a {vcfg}, the model runs a {model.vit}")
-    net = ViT(model.vit)
-    net.load_state_dict(sd)
+    net = ViT.from_state_dict(model.vit, sd)
     here, where = Path(__file__).resolve().parent, Path(path).resolve()
     info = {"file": str(where.relative_to(here) if where.is_relative_to(here) else where),
             "bytes": Path(path).stat().st_size, "parameters": sum(v.numel() for v in sd.values()),
@@ -1756,6 +1843,11 @@ def check_train_grads(device, size: int = 308, seed: int = 0, batch: int = 2, vi
                              f"relative {rel} > {TRAIN_LOSS_RTOL}")
     cos = {}
     for (name, p), q in zip(net.named_parameters(), net_cpu.parameters()):
+        if name.startswith("norm."):
+            # the final norm is off the loss's path: no gradient on either device
+            if p.grad is not None or q.grad is not None:
+                raise AssertionError(f"{name} has a gradient: the loss reached the final norm")
+            continue
         a, b = p.grad.double().cpu().flatten(), q.grad.double().flatten()
         na, nb = a.norm().item(), b.norm().item()
         cos[name] = 1.0 if na == nb == 0.0 else (a @ b).item() / max(na * nb, 1e-300)
@@ -1789,14 +1881,14 @@ def check_score_train_grads(device, state_dict, score: str = "relu", size: int =
 
     def step(dtype, dev):
         wdt = torch.float64 if dtype == torch.float64 else torch.float32
-        net = ViT(vit)
-        net.load_state_dict(state_dict)
-        net = net.to(dev, wdt)
+        net = ViT.from_state_dict(vit, state_dict).to(dev, wdt)
         cast = lambda t: t.to(dev, wdt) if t.is_floating_point() else t.to(dev)
         loss = _servo_batch_loss(net, dataclasses.replace(base, compute_dtype=dtype, device=dev),
                                  cast(goal), {k: cast(v) for k, v in data.items()})
         loss.backward()
-        return loss.item(), {n: p.grad.double().cpu().flatten() for n, p in net.named_parameters()}
+        # the final norm is off the loss's path and has no gradient
+        return loss.item(), {n: p.grad.double().cpu().flatten() for n, p in net.named_parameters()
+                             if not n.startswith("norm.")}
 
     def cos(a, b):
         na, nb = a.norm().item(), b.norm().item()
@@ -2097,21 +2189,133 @@ def check_int8_products(device, shape=SERVE_ATTN_SHAPE, seed: int = 31, rows: in
 
 
 def check_int8_block(qnet, model: ServoModel, frame, tol: float = INT8_BLOCK_TOL) -> dict:
-    """3j(b): block 0 of the int8 ViT on the card and on the card machine's
-    CPU (a copy of the block), on the same bf16 input (the card's embedding
-    of ``frame``): max |diff| / max |ref| within ``tol``; the least cosine
-    of a token logged."""
+    """3j(b), 3k(c): block 0 of the int8 ViT on the card and on the card
+    machine's CPU (a copy of the block), on the same bf16 input (the card's
+    embedding of ``frame``): max |diff| / max |ref| within ``tol``; the least
+    cosine of a token, the mean |diff| / max |ref| and the card's plain
+    block against both (where the gap comes from) logged."""
     with torch.inference_mode():
         x = qnet.embed(preprocess(model, frame)[None])
         blk = qnet.blocks[0]
         out = _block_q(x, blk, model.vit, True).float().cpu()
+        plain = _block_q(x, blk, model.vit, False).float().cpu()
         ref = _block_q(x.cpu(), copy.deepcopy(blk).cpu(), model.vit, True).float()
-    rel = ((out - ref).abs().max() / ref.abs().max()).item()
+    scale = ref.abs().max()
+    rel = ((out - ref).abs().max() / scale).item()
     cos = torch.nn.functional.cosine_similarity(out[0], ref[0], dim=-1).min().item()
     if not rel <= tol:
         raise AssertionError(f"int8 block ({model.vit.quant_attn}) card vs CPU: max |diff| / "
                              f"max |ref| {rel} > {tol}")
-    return {"rel_err": rel, "token_cos_min": cos, "shape": list(out.shape)}
+    return {"rel_err": rel, "mean_rel_err": ((out - ref).abs().mean() / scale).item(),
+            "token_cos_min": cos, "shape": list(out.shape),
+            "plain_on_card_rel_err": ((plain - ref).abs().max() / scale).item(),
+            "kernels_vs_plain_on_card_rel_err": ((out - plain).abs().max() / scale).item()}
+
+
+# the static int8 products of an int8 block and the activation scale each quantizes by
+STATIC_PRODUCTS = {"qkv": 0, "fc1": 1, "proj": 2, "fc2": 3}
+
+
+def _plant_low(blk, cfg):
+    """The attention output 5% low (a lost key tile's share of the weights)."""
+    return blk.proj.register_forward_pre_hook(lambda m, a: (a[0] * 0.95, a[1]))
+
+
+def _plant_heads(blk, cfg):
+    """The last third of the heads given the first third's attention output
+    (a head-offset fault; at 24 heads, heads 16-23 read heads 0-7)."""
+    n = cfg.num_heads // 3 * cfg.head_dim
+
+    def hook(m, a):
+        x = a[0].clone()
+        x[..., -n:] = a[0][..., :n]
+        return x, a[1]
+    return blk.proj.register_forward_pre_hook(hook)
+
+
+def _plant_swiglu(blk, cfg):
+    """The SwiGLU halves swapped: silu(x2) * x1."""
+    return blk.fc1.register_forward_hook(lambda m, a, y: torch.cat(y.chunk(2, -1)[::-1], -1))
+
+
+# faults planted by hooks in the card's int8 block 0 (removed after), and the
+# check of check_int8_parts that must reject each: 'cpu' the block's output against the
+# CPU (tol), 'attn' its attention output against the card's plain block
+INT8_PLANTS = {"attention output 5% low": (_plant_low, "attn"),
+               "last third of the heads given the first third's": (_plant_heads, "attn"),
+               "SwiGLU halves swapped": (_plant_swiglu, "cpu")}
+# block 0's attention output (the proj product's input), kernels vs plain on the
+# card from the same qkv product: a few bf16 ulps (2^-8 relative each) of its largest
+INT8_ATTN_OUT_TOL = 2e-2
+
+
+def _int8_block_run(blk, x, cfg, use_kernels: bool, plant=None) -> dict:
+    """Block 0 of an int8 ViT on ``x``: its output, the int8 activation
+    codes of its static products and its attention output, on the CPU;
+    ``plant`` (a hook maker) alters the block first."""
+    got, handles = {}, [plant(blk, cfg)] if plant is not None else []
+    for name, i in STATIC_PRODUCTS.items():
+        def hook(m, a, name=name):
+            got[name] = static_quant_act(a[0], a[1])[0].cpu()
+            if name == "proj":
+                got["attn"] = a[0].float().cpu()
+        handles.append(getattr(blk, name).register_forward_pre_hook(hook))
+    try:
+        got["out"] = _block_q(x, blk, cfg, use_kernels).float().cpu()
+    finally:
+        for h in handles:
+            h.remove()
+    return got
+
+
+def check_int8_parts(qnet, model: ServoModel, frame, tol: float = VITG_INT8_BLOCK_TOL) -> dict:
+    """3k(c): block 0 of the int8 ViT through the kernels and plain on the
+    card and on the card machine's CPU, on the same bf16 input (the card's
+    embedding of ``frame``).  Held: the output card vs CPU within ``tol`` of
+    its largest (check_int8_block's); the qkv product's int8 codes card vs
+    CPU within one step (the same input: LayerNorm's last bit); kernels vs
+    plain on the card, the qkv codes equal and the attention output within
+    INT8_ATTN_OUT_TOL of its largest, which holds the attention kernel apart
+    from the two libraries' rounding; and every fault of INT8_PLANTS,
+    planted in the kernel run, rejected by its check.  Logged: the codes of
+    the four products moved card vs CPU (share and largest step) and each
+    plant's readings."""
+    cfg, blk = model.vit, qnet.blocks[0]
+    with torch.inference_mode():
+        x = qnet.embed(preprocess(model, frame)[None])
+        ref = _int8_block_run(copy.deepcopy(blk).cpu(), x.cpu(), cfg, True)
+        ker = _int8_block_run(blk, x, cfg, True)
+        plain = _int8_block_run(blk, x, cfg, False)
+        plants = {k: _int8_block_run(blk, x, cfg, True, fn) for k, (fn, _) in INT8_PLANTS.items()}
+    scale, ascale = ref["out"].abs().max(), plain["attn"].abs().max()
+
+    def steps(a, b, name):
+        return (a[name].int() - b[name].int()).abs().max().item()
+
+    def readings(run) -> dict:
+        return {"rel_err": ((run["out"] - ref["out"]).abs().max() / scale).item(),
+                "attn_rel_err": ((run["attn"] - plain["attn"]).abs().max() / ascale).item(),
+                "qkv_code_steps_vs_plain": steps(run, plain, "qkv")}
+
+    out = {**readings(ker), "shape": list(ker["out"].shape),
+           "mean_rel_err": ((ker["out"] - ref["out"]).abs().mean() / scale).item(),
+           "plain_on_card_rel_err": ((plain["out"] - ref["out"]).abs().max() / scale).item(),
+           "code_steps_vs_cpu": {k: steps(ker, ref, k) for k in STATIC_PRODUCTS},
+           "codes_moved_vs_cpu": {k: (ker[k] != ref[k]).float().mean().item()
+                                  for k in STATIC_PRODUCTS}}
+    if not (out["rel_err"] <= tol and out["code_steps_vs_cpu"]["qkv"] <= 1
+            and out["qkv_code_steps_vs_plain"] == 0 and out["attn_rel_err"] <= INT8_ATTN_OUT_TOL):
+        raise AssertionError(f"int8 block ({cfg.quant_attn}) (tol {tol}, attention output "
+                             f"{INT8_ATTN_OUT_TOL}): {json.dumps(out)}")
+    out["plants"] = {}
+    for name, (_, check) in INT8_PLANTS.items():
+        r = readings(plants[name])
+        r["rejected"] = r["rel_err"] > tol if check == "cpu" else r["attn_rel_err"] > INT8_ATTN_OUT_TOL
+        out["plants"][name] = r
+        if not r["rejected"]:
+            raise AssertionError(f"int8 block ({cfg.quant_attn}): the planted fault '{name}' "
+                                 f"passed its check ({check}): {json.dumps(r)}")
+    return out
 
 
 def twist_gaps(summaries: dict, against=("none", "nomax3")) -> dict:
@@ -2203,8 +2407,7 @@ def score_train_step(net32, device, scene: Scene, score: str = "relu", steps: in
     the peak memory allocated."""
     model = ServoModel.create(VSConfig(dino_input_size=518, attn_score=score),
                               compute_dtype=torch.bfloat16, device=device)
-    net = ViT(model.vit)
-    net.load_state_dict(net32.state_dict())
+    net = ViT.from_state_dict(model.vit, net32.state_dict())
     state = init_train_state(net.to(device), train_schedule(steps=TRAIN_RESUME_SCHEDULE))
     _, losses, ms, peak = run_train_steps(state, model, scene, steps,
                                           torch.Generator().manual_seed(TRAIN_SEED + 1),
@@ -2248,6 +2451,284 @@ def run_cotrain(score: str, here: Path, device, budget_s: float | None) -> dict:
     out["converged"] = rep["converged"]
     out["bound_met"] = rep["finished"] and rep["converged"] >= COTRAIN_MIN_CONVERGED
     out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 3k: DINOv2 ViT-g/14 at full width, the 'attn' facet, factorized binning
+# ---------------------------------------------------------------------------
+
+
+def vitg_config() -> VSConfig:
+    """phase 3e's settings (configs/real_s518.yaml's, the 500-episode
+    stream) with DINOv2-giant's preset: 1536 wide, 40 blocks of 24 heads,
+    the SwiGLU FFN; the step runs blocks 0 to 11."""
+    return dataclasses.replace(trained_config(), model_name=VITG_MODEL)
+
+
+def seeded_vitg(cfg: VSConfig, device, seed: int = 0) -> tuple[ViT, float]:
+    """ViT-g's seeded f32 weights drawn on the card from a generator of the
+    card (init_vit's distribution; LayerScale 1.0, so that every block's
+    attention and FFN move the descriptors), and the seconds the draw
+    took."""
+    vit = ServoModel.create(cfg, device=device).vit
+    sync(device)
+    t0 = time.perf_counter()
+    net = init_vit(vit, torch.Generator(device).manual_seed(seed), device=device,
+                   layerscale=1.0).eval()
+    sync(device)
+    return net, time.perf_counter() - t0
+
+
+def chunk_views(model: ServoModel, scene: Scene, steps: int = N_STEPS, chunk: int = CHUNK):
+    """The goal view and ``steps`` chunk-steps of ``chunk`` views each:
+    episode j's camera at VITG_CHUNK_OFFSETS[j] from the goal pose, moving
+    toward it by a tenth of that a step.  Returns (goal rgb, [(B, H, W, 3)],
+    [(B, H, W)])."""
+    goal, _, _ = render_views(model, scene, [])
+    frames, depths = [], []
+    for s in range(steps):
+        _, rgbs, ds = render_views(model, scene, [tuple((1.0 - 0.1 * s) * np.asarray(o))
+                                                  for o in VITG_CHUNK_OFFSETS[:chunk]])
+        frames.append(torch.stack(rgbs))
+        depths.append(torch.stack(ds))
+    return goal, frames, depths
+
+
+def chunk_scores(model: ServoModel, steps: int, chunk: int, seed: int = 0) -> list:
+    """(chunk, t) pair scores of each chunk-step, from a seeded generator."""
+    t = model.grid()[0] * model.grid()[1]
+    gen = torch.Generator().manual_seed(seed + 1)
+    return [torch.rand((chunk, t), generator=gen) for _ in range(steps)]
+
+
+def run_vit_forward(net, model: ServoModel, frame, tol: float = DESC_REL_TOL) -> dict:
+    """3k(b): vit_forward (every block and the final LayerNorm) of one view
+    through the kernels and plain: max |diff| / max |ref| within ``tol``,
+    every token's cosine at least DESC_COS_MIN; the launches and the peak
+    memory of the kernel run."""
+    with torch.inference_mode():
+        x = preprocess(model, frame)[None]
+        for fn in _counters().values():
+            fn.launches = 0
+        if model.device != "cpu":
+            torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated() if model.device != "cpu" else 0
+        out = vit_forward(net, x, use_kernels=True)
+        sync(model.device)
+        launches = {k: fn.launches for k, fn in _counters().items()}
+        peak = torch.cuda.max_memory_allocated() - base if model.device != "cpu" else 0
+        ref = vit_forward(net, x, use_kernels=False).float()
+    out = out.float()
+    rel = ((out - ref).abs().max() / ref.abs().max()).item()
+    cos = torch.nn.functional.cosine_similarity(out[0], ref[0], dim=-1).min().item()
+    if not (rel <= tol and cos >= DESC_COS_MIN and bool(torch.isfinite(out).all())):
+        raise AssertionError(f"vit_forward kernels vs plain: max |diff| / max |ref| {rel} "
+                             f"(tol {tol}), least token cosine {cos} (min {DESC_COS_MIN})")
+    return {"shape": list(out.shape), "rel_err": rel, "token_cos_min": cos,
+            "launches": launches, "peak_bytes_over_weights": peak}
+
+
+def check_attn_facet(net, model: ServoModel, frame, tol=ATTN_FACET_TOL) -> dict:
+    """3k(e): the 'attn' facet of block ``cfg.layer`` (blocks before it
+    through the kernels on the card, plain on the CPU), on the card against
+    the port on the card machine's CPU on the same image: probabilities
+    within ``tol[0]``, every row summing to 1 within ``tol[1]``; for a float
+    ViT also the default saliency map within ``tol[2]``."""
+    quantized = isinstance(net, QuantViT)
+    facet = vit_features_quant if quantized else vit_features
+    layer = model.cfg.layer
+    cpu_net = copy.deepcopy(net).cpu()          # the card's weights, bit for bit
+    with torch.inference_mode():
+        x = preprocess(model, frame)[None]
+        probs = facet(net, x, layer, "attn", True).cpu()
+        t0 = time.perf_counter()
+        ref = facet(cpu_net, x.cpu(), layer, "attn", True)
+        cpu_s = time.perf_counter() - t0
+        sal = sal_ref = None
+        if not quantized:
+            sal = extract_saliency_maps(net, x, layer).cpu()
+            sal_ref = saliency_from_attention(ref)        # the CPU's, from its facet
+    out = {"shape": list(probs.shape), "max_abs_err": (probs - ref).abs().max().item(),
+           "row_sum_err": (probs.sum(-1) - 1.0).abs().max().item(),
+           "row_sum_err_cpu": (ref.sum(-1) - 1.0).abs().max().item(),
+           "max_prob": probs.max().item(), "cpu_s": cpu_s}
+    ok = out["max_abs_err"] <= tol[0] and max(out["row_sum_err"], out["row_sum_err_cpu"]) <= tol[1]
+    if sal is not None:
+        out["saliency_max_abs_err"] = (sal - sal_ref).abs().max().item()
+        out["saliency_range"] = [sal.min().item(), sal.max().item()]
+        ok = ok and out["saliency_max_abs_err"] <= tol[2] and out["saliency_range"] == [0.0, 1.0]
+    if not ok:
+        raise AssertionError(f"'attn' facet card vs CPU (tol {tol}): {json.dumps(out)}")
+    return out
+
+
+def run_fast_binned(net, model: ServoModel, views, scores, twists: bool = True) -> dict:
+    """3k(d): the step on ``views`` (goal, frames or chunks, depths) with
+    materialized bins, then with fast_binned_match on the same frames and
+    scores, teacher-forced (the materialized run's EMA and command): pairs
+    that differ a step, twists within TWIST_TOL where an episode's pairs
+    agree, and with ``twists`` at least one such step (else the leg only
+    holds the similarities); the launch counters of the factorized run (no
+    matcher).  Then the two similarities on the first step's descriptors:
+    within FAST_SIM_TOL of the materialized path's, and for a float model
+    within FAST_SIM_F32_TOL of log_bin's rows' cosine in f32 with at least
+    FAST_ARGMAX_F32_MIN of the rows' argmaxes equal."""
+    fast = dataclasses.replace(model, fast_binned_match=True)
+    goal, frames, depths = views
+    _, mat = drive(net, model, goal, frames, depths, scores)
+    for fn in _counters().values():
+        fn.launches = 0
+    states = [(EmaState.init(device=model.device, batch=mat[0].v_c.shape[:-1]),
+               torch.zeros_like(mat[0].v_c))] + [(r.ema, r.v_c) for r in mat[:-1]]
+    fgoal, fst = drive(net, fast, goal, frames, depths, scores, states)
+    launches = {k: fn.launches for k, fn in _counters().items()}
+    check_outputs(fast, fgoal, fst)
+    out = compare_steps(mat, fst, True, TWIST_TOL)
+    if twists and not out["steps_compared"]:
+        raise AssertionError(f"factorized vs materialized: no step's pairs agree, so no twist "
+                             f"was held (pairs differing a step: {out['differing_pairs']})")
+    out["launches"] = launches
+    out["pairs"] = sum(int(r.valid.numel()) for r in fst)
+    if launches["matcher"] or launches["matcher_bf16"]:
+        raise AssertionError(f"the factorized path launched a matcher kernel: {launches}")
+    # the two similarities on the first step's unbinned descriptors
+    first = frames[0] if torch.as_tensor(frames[0]).dim() == 4 else frames[0][None]
+    fd = batch_descriptors(net, fast, first)                         # (A, t, D)
+    with torch.inference_mode():
+        sim_fast = binned_cosine_similarity(fgoal, fd, fast.grid(), int8=fast.quantized)
+        sim_mat = materialized_similarity(fast, fgoal, fd)
+        sim_f32 = None if fast.quantized else materialized_similarity(fast, fgoal, fd, f32=True)
+    kind = "int8" if fast.quantized else "float"
+    out["sim_max_abs_diff"] = (sim_fast - sim_mat).abs().max().item()
+    out["row_argmax_agree"] = (sim_fast.argmax(-1) == sim_mat.argmax(-1)).float().mean().item()
+    ok = out["sim_max_abs_diff"] <= FAST_SIM_TOL[kind]
+    if sim_f32 is not None:
+        out["sim_f32_max_abs_diff"] = (sim_fast - sim_f32).abs().max().item()
+        out["row_argmax_agree_f32"] = (sim_fast.argmax(-1) ==
+                                       sim_f32.argmax(-1)).float().mean().item()
+        ok = ok and (out["sim_f32_max_abs_diff"] <= FAST_SIM_F32_TOL
+                     and out["row_argmax_agree_f32"] >= FAST_ARGMAX_F32_MIN)
+    if not ok:
+        raise AssertionError(f"factorized vs materialized {kind} similarity (tol "
+                             f"{FAST_SIM_TOL[kind]}; f32 {FAST_SIM_F32_TOL}, argmaxes "
+                             f"{FAST_ARGMAX_F32_MIN}): {json.dumps(out)}")
+    return out
+
+
+def materialized_similarity(model: ServoModel, goal, frames, f32: bool = False) -> torch.Tensor:
+    """The materialized binned path's similarity of unbinned goal (t, D)
+    and frame (A, t, D) descriptors -> (A, t, t): log_bin and the bf16 mode's
+    cosine, or, on the int8 path, the source-quantized bins' int8 cosine;
+    ``f32``: log_bin of the descriptors upcast to f32 and the f32 cosine
+    (the same similarity as the factorized one up to f32 association)."""
+    grid = model.grid()
+    if model.quantized:
+        gq, fq = quantize_binned_int8(goal, grid), quantize_binned_int8(frames, grid)
+        return torch.stack([cosine_similarity_matrix(gq, item(fq, i)) for i in range(len(frames))])
+    if f32:
+        goal, frames = goal.float(), frames.float()
+    g9, f9 = log_bin(goal[None], grid)[0], log_bin(frames, grid)
+    return torch.stack([cosine_similarity_matrix(g9, f9[i]) for i in range(len(frames))])
+
+
+def run_vitg_phase(device, scene: Scene, tnet, tnet32, tmodel: ServoModel) -> dict:
+    """Phase 3k, every part held (a failed check raises): (a) ViT-g/14 @
+    518 bf16 (seeded on the card, built through build_model): goal + 5
+    steps and a chunk of 8 for 5 chunk-steps through the kernels and
+    plain, teacher-forced, the launches held; (b) vit_forward of all 40
+    blocks, kernels vs plain; (c) the int8 ViT-g ('fused', kernel 4, and
+    'none', kernel 1; static scales), block 0 card vs CPU and its step
+    kernels vs plain; (d) fast_binned_match against the materialized path
+    on the trained ViT-S/14 and ViT-g, float and int8, one frame and a
+    chunk of 8, no matcher launched; (e) the 'attn' facet (and the
+    saliency of the float ViTs) card vs CPU, at block ``cfg.layer``.
+    Returns the launches at ViT-g's shapes and the nets phase 4 times."""
+    gcfg = vitg_config()
+    gnet32, draw_s = seeded_vitg(gcfg, device)
+    gnet, gmodel = build_model(gcfg, net=copy.deepcopy(gnet32).cast_blocks(torch.bfloat16),
+                               device=device)
+    n_params = sum(p.numel() for p in gnet32.parameters())
+    log(f"(a) ViT-g/14 @ 518 ({gcfg.model_name}: {n_params} parameters, hidden "
+        f"{gmodel.vit.hidden_dim}, SwiGLU), seeded on the card in {draw_s:.2f} s, "
+        f"bf16 blocks")
+    out = {"launches": {"attention": 0, "matcher_bf16": 0, "attn_int8": 0}, "gnet": gnet,
+           "gmodel": gmodel}
+    want = {name: 0 for name in _counters()}
+    want.update(attention=(gcfg.layer + 1) * (1 + N_STEPS), matcher_bf16=N_STEPS)
+    torch.cuda.reset_peak_memory_stats()
+    gsum = run_trained_step(gnet, gcfg, gmodel, scene)
+    gsum.pop("steps")
+    log(f"(a) ViT-g step, goal + {N_STEPS} steps, kernels vs plain (teacher-forced): "
+        f"{json.dumps(gsum)}; peak {torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
+    if gsum["launches"] != want:
+        raise AssertionError(f"ViT-g step: launch counts {gsum['launches']} != {want}")
+    views = chunk_views(gmodel, scene)
+    torch.cuda.reset_peak_memory_stats()
+    csum = run_main_path(gnet, gcfg, gmodel, frames=views, every_step=True,
+                         scores=chunk_scores(gmodel, N_STEPS, CHUNK))
+    log(f"(a) ViT-g chunk of {CHUNK}, goal + {N_STEPS} chunk-steps, kernels vs plain "
+        f"(teacher-forced): {json.dumps({k: v for k, v in csum.items() if k != 'body_twists'})}; "
+        f"peak {torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
+    if csum["launches"] != want:
+        raise AssertionError(f"ViT-g chunk: launch counts {csum['launches']} != {want}")
+    for k in ("attention", "matcher_bf16"):
+        out["launches"][k] += gsum["launches"][k] + csum["launches"][k]
+
+    goal, rgbs, depths = render_views(gmodel, scene, TRAINED_STEP_OFFSETS)
+    fwd = run_vit_forward(gnet, gmodel, goal)
+    log(f"(b) vit_forward of ViT-g, {gcfg.model_name} all {gmodel.vit.depth} blocks and the "
+        f"final norm at 518, kernels vs plain (tol {DESC_REL_TOL}): {json.dumps(fwd)}")
+    if fwd["launches"]["attention"] != gmodel.vit.depth or sum(fwd["launches"].values()) != \
+            gmodel.vit.depth:
+        raise AssertionError(f"vit_forward: launch counts {fwd['launches']}")
+    out["launches"]["attention"] += fwd["launches"]["attention"]
+
+    _, calib, _ = render_views(gmodel, scene, TRAINED_CALIB_OFFSETS)
+    qnets = {}
+    for variant in VITG_INT8_VARIANTS:
+        # the descriptors are logged: static int8 activations amplify the
+        # kernels' bf16 ulps through 12 blocks (block 0 is held card vs CPU)
+        ssum, qnet, smodel = run_serving_path(gnet32, gcfg, variant, device,
+                                              frames=(goal, rgbs, calib, depths),
+                                              tol=(math.inf, -math.inf, TWIST_TOL))
+        kernel = {**VARIANTS, **PROB_VARIANTS}[variant][2]
+        want = {name: 0 for name in _counters()}
+        want[kernel] = (gcfg.layer + 1) * (1 + N_STEPS)
+        if ssum["launches"] != want:
+            raise AssertionError(f"ViT-g int8 {variant}: launch counts {ssum['launches']} != {want}")
+        blk = check_int8_parts(qnet, smodel, goal)
+        log(f"(c) ViT-g int8 {variant} ({smodel.vit.quant_attn}), static scales: "
+            f"{json.dumps(ssum)}; block 0 card vs CPU and kernels vs plain, with planted "
+            f"faults {json.dumps(blk)} (tol {VITG_INT8_BLOCK_TOL}, attention output "
+            f"{INT8_ATTN_OUT_TOL})")
+        out["launches"][kernel] += want[kernel]
+        qnets[variant] = (qnet, smodel)
+
+    _, tcalib, _ = render_views(tmodel, scene, TRAINED_CALIB_OFFSETS)
+    tgoal, _, _ = render_views(tmodel, scene, [])
+    tq_model = serving_model(tmodel.cfg, "none", device)
+    tq = quantized_vit(tnet32, tq_model, [tgoal, *tcalib])
+    cases = [("ViT-S/14 float", tnet, tmodel), ("ViT-S/14 int8", tq, tq_model),
+             ("ViT-g/14 float", gnet, gmodel), ("ViT-g/14 int8", *qnets["none"])]
+    for name, net, model in cases:
+        single = render_views(model, scene, TRAINED_STEP_OFFSETS)
+        for shape, views, scores in (
+                ("one frame", single, pair_scores(model, N_STEPS)),
+                (f"chunk of {CHUNK}", chunk_views(model, scene),
+                 chunk_scores(model, N_STEPS, CHUNK))):
+            # seeded ViT-g's float similarities are flat: the materialized path's
+            # bf16-normalized rows move a pair on every step, so that leg holds
+            # the similarities (f32 and bf16) and no twist
+            twists = name != "ViT-g/14 float"
+            r = run_fast_binned(net, model, views, scores, twists=twists)
+            log(f"(d) fast_binned_match vs materialized, {name}, {shape} (teacher-forced"
+                f"{'' if twists else '; similarities only'}): {json.dumps(r)}")
+
+    for name, net, model in cases:
+        f = check_attn_facet(net, model, goal if "ViT-g" in name else tgoal)
+        log(f"(e) 'attn' facet{' and saliency' if 'float' in name else ''}, {name}, block "
+            f"{model.cfg.layer}, card vs CPU (tol {ATTN_FACET_TOL}): {json.dumps(f)}")
     return out
 
 
@@ -2492,6 +2973,64 @@ def time_chunk_kernels(device) -> dict:
     return out
 
 
+def time_vitg_kernels(device) -> dict:
+    """Kernels 1, 2a and 4 at ViT-g/14 @ 518's shapes, each alone, its plain
+    version and the library call (SDPA; cuBLAS bf16 + max/argmax), with the
+    bound; beside the matcher, the factorized path's product (cuBLAS bf16
+    with an f32 output) and its whole similarity, one frame and a chunk."""
+    rs = np.random.default_rng(46)
+    bf16 = lambda shape: _normal(device, shape, rs, torch.bfloat16)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {}
+    for name, shape in (("attention_vitg", VITG_ATTN_SHAPE),
+                        ("attention_vitg_chunk", VITG_CHUNK_ATTN_SHAPE)):
+        q, k, v = (bf16(shape) for _ in range(3))
+        qh, kh, vh = [x.transpose(1, 2).contiguous() for x in (q, k, v)]
+        out[name] = {"shape": shape, "ms": cuda_ms(lambda: attention.mha_attention(q, k, v)),
+                     "plain_ms": cuda_ms(lambda: attention.mha_attention_plain(q, k, v),
+                                         iters=10),
+                     "library_ms": cuda_ms(lambda: sdpa(qh, kh, vh)),
+                     **dict(zip(("bound_ms", "bound_by"), attention_bound_ms(shape)))}
+    t, d = VITG_MATCH_SHAPE
+    a, b = bf16((t, d)), bf16((CHUNK, t, d))
+    ua, ub = matcher.bf16_unit_rows(a), matcher.bf16_unit_rows(b)
+
+    def library_match_bf16(n):
+        sim = torch.matmul(ua, ub[:n].mT)
+        return sim.max(-1), sim.max(-2)
+
+    for name, n in (("matcher_bf16_vitg", 1), ("matcher_bf16_vitg_batched", CHUNK)):
+        out[name] = {
+            "shape": (n, t, t, d), "ms": cuda_ms(lambda: matcher._launch_bf16(ua, ub[:n])),
+            "plain_ms": cuda_ms(lambda: matcher.dual_argmax_cosine_bf16_plain(a, b[:n]),
+                                iters=10),
+            "library_ms": cuda_ms(lambda: library_match_bf16(n)),
+            **dict(zip(("bound_ms", "bound_by"),
+                       matcher_bound_ms(VITG_MATCH_SHAPE, bf16=True, nb=n)))}
+    t, D = VITG_FAST_SHAPE
+    g, f = bf16((t, D)), bf16((CHUNK, t, D))
+    grid = (37, 37)
+    for name, n in (("matcher_bf16_vitg", 1), ("matcher_bf16_vitg_batched", CHUNK)):
+        rows = f[:n].reshape(n * t, D)
+        out[name]["factorized_product_ms"] = cuda_ms(
+            lambda: torch.mm(rows, g.T, out_dtype=torch.float32))
+        out[name]["factorized_similarity_ms"] = cuda_ms(
+            lambda: binned_cosine_similarity(g, f[:n], grid), iters=20)
+        out[name]["factorized_product_bound_ms"] = _bound(
+            2.0 * n * t * t * D / PEAK_BF16_FLOPS,
+            ((1 + n) * t * D * 2 + n * t * t * 4) / PEAK_BYTES)[0]
+    B, T, H, hd = VITG_ATTN_SHAPE
+    qkv = bf16((B, T, 3 * H * hd))
+    D = H * hd
+    iq, ik, iv = qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
+    out["attn_int8_vitg"] = {
+        "shape": (B, T, D), "ms": cuda_ms(lambda: attn_int8._launch(iq, ik, iv, H)),
+        "plain_ms": cuda_ms(lambda: attn_int8.fused_int8_attention_plain(iq, ik, iv, H), iters=20),
+        "library_ms": None,
+        **dict(zip(("bound_ms", "bound_by"), int8_attention_bound_ms(VITG_ATTN_SHAPE)))}
+    return out
+
+
 def time_pooled_attention(device, vit) -> dict:
     """The int8 chunk's pooled 'nomax3' attention (plain PyTorch) at
     POOLED_ATTN_SHAPE in bf16, beside SDPA (exact softmax) on the same
@@ -2571,19 +3110,21 @@ class BudgetSpent(Exception):
 
 
 def replay_name(lo: int, hi: int, int8: bool = False, perturbed: bool = False,
-                method: str = "dino", attn_score: str = "softmax") -> str:
+                method: str = "dino", attn_score: str = "softmax",
+                fast_binned: bool = False) -> str:
     """The replay's file stem: its checkpoint, npz and JSON."""
     pert = "_pert" if perturbed else ""
     if method != "dino":
         return f"replay_{method}{pert}_{lo}_{hi}"
     score = "" if attn_score == "softmax" else f"_{attn_score}"
-    return f"replay_s518{score}{'_int8' if int8 else ''}{pert}_{lo}_{hi}"
+    fast = "_fast" if fast_binned else ""
+    return f"replay_s518{score}{'_int8' if int8 else ''}{fast}{pert}_{lo}_{hi}"
 
 
 def run_replay(lo: int, hi: int, checkpoint: Path, budget_s: float, out_dir: Path,
                device, chunk: int = CHUNK, path: Path = TRAINED_S518,
                int8: bool = False, perturbed: bool = False, method: str = "dino",
-               attn_score: str = "softmax") -> dict:
+               attn_score: str = "softmax", fast_binned: bool = False) -> dict:
     """run_benchmark on episodes [lo, hi) of the 500-episode seed-41 stream
     (runs Z and AA's) at configs/real_s518.yaml's other settings on the
     trained ViT-S/14 @ 518 (cast whole to bf16, rotation search on),
@@ -2597,7 +3138,8 @@ def run_replay(lo: int, hi: int, checkpoint: Path, budget_s: float, out_dir: Pat
     stream at configs/real64.yaml's settings (runs J, K and AN's), with the
     method's default keypoints.  ``attn_score`` serves the weights of
     ``path`` with that score (configs/real_s518_relu.yaml's setting; the
-    weights co-trained for it).  Each of these runs has its own checkpoint
+    weights co-trained for it).  ``fast_binned`` matches by the factorized
+    binned similarity (ServoModel.fast_binned_match).  Each of these runs has its own checkpoint
     fingerprint, so none resumes another's file.  When ``budget_s`` seconds
     have passed the chunk in flight is dropped (it reruns, bit for bit, on
     resume).  Returns the checkpoint's episodes summarized and this call's
@@ -2610,6 +3152,7 @@ def run_replay(lo: int, hi: int, checkpoint: Path, budget_s: float, out_dir: Pat
                                   attn_score=attn_score)
         model = ServoModel.create(cfg, device=device)
         net, info = load_trained(model, path)
+        model = dataclasses.replace(model, fast_binned_match=fast_binned)
     checkpoint.parent.mkdir(parents=True, exist_ok=True)
     out_dir.mkdir(parents=True, exist_ok=True)
     before = len(load_episodes(str(checkpoint), "replay", verbose=False)[0])
@@ -2625,7 +3168,8 @@ def run_replay(lo: int, hi: int, checkpoint: Path, budget_s: float, out_dir: Pat
 
     common = dict(episode_indices=range(lo, hi), checkpoint_path=str(checkpoint), chunk=chunk,
                   out_dir=str(out_dir),
-                  config_name=replay_name(lo, hi, int8, perturbed, method, attn_score),
+                  config_name=replay_name(lo, hi, int8, perturbed, method, attn_score,
+                                          fast_binned),
                   device=device, on_step=on_step, perturbation=perturbed)
     try:
         if classical:
@@ -2649,6 +3193,7 @@ def run_replay(lo: int, hi: int, checkpoint: Path, budget_s: float, out_dir: Pat
     done_now = len(episodes) - before
     return {"episodes": [lo, hi], "method": method, "weights": info["file"], "int8": int8,
             "perturbed": perturbed, "chunk": chunk, "attn_score": attn_score,
+            "fast_binned": fast_binned,
             "finished": finished,
             "episodes_done": len(episodes), "episodes_this_call": done_now,
             "converged": int(sum(flags)), "not_converged": [lo + i for i, f in enumerate(flags)
@@ -2672,15 +3217,17 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", nargs="?", const="bf16",
                     choices=["bf16", "f32", *VARIANTS, *PROB_VARIANTS, "relu", "loop",
-                             "loop518", "int8loop", *CLASSICAL, "train"],
+                             "loop518", "int8loop", *CLASSICAL, "train", "vitg", "fastbin"],
                     help="build, then only profile servo steps of the bf16 path (default), "
                          "the f32 path or an int8 serving variant (F, N, none, nomax3, pv, "
                          "qk+pv at ViT-B/14 @ 518, static scales but F and N), or the relu bf16 step on the trained ViT-S/14 @ 518 (with "
                          "--chunk B its closed-loop chunk-step), or closed-loop steps at "
                          "308 (seeded) or 518 (trained; int8loop: the int8 closed loop at "
                          "run AD's settings), or a classical method's closed loop at 640x480, "
-                         "or (train) train steps of ViT-S/14 @ 308 at batch 8 (no checks, no "
-                         "result line)")
+                         "or (train) train steps of ViT-S/14 @ 308 at batch 8, or (vitg, "
+                         "fastbin) the seeded ViT-g/14 @ 518 bf16 step with materialized or "
+                         "factorized binning (with --chunk B its closed-loop chunk-step) (no "
+                         "checks, no result line)")
     ap.add_argument("--trace", type=Path, default=None,
                     help="with --profile: write the profiler's chrome trace here")
     ap.add_argument("--replay", default=None, metavar="A:B",
@@ -2693,6 +3240,9 @@ def main() -> int:
     ap.add_argument("--method", default="dino", choices=["dino", *CLASSICAL],
                     help="with --replay: a classical baseline on the 64-episode stream "
                          "(configs/real64.yaml, runs J, K and AN's) instead of dino")
+    ap.add_argument("--fast-binned", action="store_true",
+                    help="with --replay: match by the factorized binned similarity "
+                         "(ServoModel.fast_binned_match) instead of binned descriptors")
     ap.add_argument("--perturbed", action="store_true",
                     help="with --replay: each episode on its perturbed texture (run AM's "
                          "protocol) instead of the standard one")
@@ -2812,23 +3362,43 @@ def main() -> int:
             err = check_attention(device, shape=shape, ts=(), seed=seed)
             log(f"attention {shape} bf16 (the chunk's batch): max abs err {err:.3e} "
                 f"(tol {ATTN_TOL}), two launches bit for bit")
+        # ViT-g/14 @ 518's shapes (phase 3k): 24 heads, binned rows 13824 deep, D = 1536
+        errs["attention_vitg"] = max(check_attention(device, shape=shape, ts=(), seed=seed)
+                                     for shape, seed in ((VITG_ATTN_SHAPE, 41),
+                                                         (VITG_CHUNK_ATTN_SHAPE, 42)))
+        log(f"attention {VITG_ATTN_SHAPE} and {VITG_CHUNK_ATTN_SHAPE} bf16 (ViT-g/14 @ 518): "
+            f"max abs err {errs['attention_vitg']:.3e} (tol {ATTN_TOL}), two launches bit for bit")
+        t, d = VITG_MATCH_SHAPE
+        errs["matcher_bf16_vitg"] = check_matcher_bf16(device, shapes=[(t, t, d)], seed=43)
+        berrs = check_matcher_batched(device, t, d, [CHUNK], seed=44)
+        log(f"bf16 matcher {(t, t, d)} (ViT-g/14 @ 518): max abs err "
+            f"{errs['matcher_bf16_vitg']:.3e} (tol {MATCH_VAL_TOL}), argmax ok, first-index ties "
+            f"ok; batched at B = {CHUNK}, both modes, each item bit for bit a launch alone: "
+            f"{json.dumps({k: float(f'{v:.3e}') for k, v in berrs.items()})}")
+        errs["attn_int8_vitg"] = check_int8_attention(device, shape=VITG_ATTN_SHAPE, ts=(),
+                                                      seed=45)
+        log(f"int8 attention {VITG_ATTN_SHAPE} (D = 1536): max abs err "
+            f"{errs['attn_int8_vitg']:.3e} (tol {ATTN_TOL}), padded columns ok")
 
     if args.replay:
         lo, hi = (int(x) for x in args.replay.split(":"))
-        if args.int8 and args.method != "dino":
-            ap.error("--int8 applies to --method dino only")
-        name = replay_name(lo, hi, args.int8, args.perturbed, args.method)
+        if (args.int8 or args.fast_binned) and args.method != "dino":
+            ap.error("--int8 and --fast-binned apply to --method dino only")
+        name = replay_name(lo, hi, args.int8, args.perturbed, args.method,
+                           fast_binned=args.fast_binned)
         ckpt = args.checkpoint or here / ".replay" / f"{name}.ckpt"
         out_dir = here / "chiprun_out"
         with phase(f"replay {lo}:{hi} {args.method}{' int8' if args.int8 else ''}"
-                   f"{' perturbed' if args.perturbed else ''}"):
+                   f"{' perturbed' if args.perturbed else ''}"
+                   f"{' fast-binned' if args.fast_binned else ''}"):
             # the npz and the checkpoint of hundreds of episodes' histories stay
             # beside the checkpoint (chiprun_out/ is kept to 64 MiB at most);
             # an unfinished run's checkpoint is copied out to be resumed
             budget = 480.0 if args.budget_s is None else args.budget_s
             rep_out = run_replay(lo, hi, ckpt, budget, ckpt.parent, device,
                                  chunk=args.chunk or CHUNK, int8=args.int8,
-                                 perturbed=args.perturbed, method=args.method)
+                                 perturbed=args.perturbed, method=args.method,
+                                 fast_binned=args.fast_binned)
             out_dir.mkdir(parents=True, exist_ok=True)
             if not rep_out["finished"]:
                 shutil.copy(ckpt, out_dir / ckpt.name)
@@ -2940,6 +3510,18 @@ def main() -> int:
                 run = (step_runner(rnet, rmodel) if args.chunk is None else
                        chunk_runner(rnet, rmodel, load_poster_scene(device=device), args.chunk))
                 log(f"profile: relu bf16, trained ViT-S/14 @ 518, "
+                    f"{'a servo step' if args.chunk is None else f'chunk-steps of {args.chunk}'}")
+                profile_run(run, trace_path=args.trace)
+            elif args.profile in ("vitg", "fastbin"):
+                gcfg = vitg_config()
+                gnet32, draw_s = seeded_vitg(gcfg, device)
+                gnet, gmodel = build_model(gcfg, net=gnet32.cast_blocks(torch.bfloat16),
+                                           device=device)
+                gmodel = dataclasses.replace(gmodel, fast_binned_match=args.profile == "fastbin")
+                run = (step_runner(gnet, gmodel) if args.chunk is None else
+                       chunk_runner(gnet, gmodel, load_poster_scene(device=device), args.chunk))
+                log(f"profile: ViT-g/14 @ 518 bf16 (seeded on the card in {draw_s:.2f} s), "
+                    f"{'factorized' if gmodel.fast_binned_match else 'materialized'} binning, "
                     f"{'a servo step' if args.chunk is None else f'chunk-steps of {args.chunk}'}")
                 profile_run(run, trace_path=args.trace)
             elif args.profile == "bf16":
@@ -3258,6 +3840,11 @@ def main() -> int:
             f"logged, not held): "
             f"{json.dumps(rg)}")
 
+    with phase("3k vitg-attn-fastbin"):
+        vg = run_vitg_phase(device, scene, tnet, tnet32, tmodel)
+        gnet, gmodel = vg["gnet"], vg["gmodel"]
+        vitg_launches = vg["launches"]
+
     with phase("4 times"):
         step_ms = time_run(step_runner(net, model))
         log(f"[{card}] servo_step median {step_ms:.3f} ms (ViT-S/14 @ 308, bf16, kernels)")
@@ -3356,6 +3943,30 @@ def main() -> int:
         log(f"[{card}] pooled nomax3 attention at (B, T, keys, h, hd) = {POOLED_ATTN_SHAPE} "
             f"(the int8 chunk's, plain PyTorch: no hand kernel on this path): "
             f"{json.dumps(pooled)}")
+        vt = time_vitg_kernels(device)
+        for name, tm in vt.items():
+            extra = {k: v for k, v in tm.items() if k.endswith("_ms") and k not in
+                     ("ms", "plain_ms", "library_ms", "bound_ms")}
+            lib_ms = "none" if tm["library_ms"] is None else f"{tm['library_ms']:.4f} ms"
+            log(f"[{card}] {name} at {tm['shape']} (ViT-g/14 @ 518): kernel {tm['ms']:.4f} ms, "
+                f"plain {tm['plain_ms']:.4f} ms, library {lib_ms}, bound {tm['bound_ms']:.5f} ms "
+                f"({tm['bound_by']}) " + " ".join(f"{k} {v:.4f} ms" for k, v in extra.items()))
+        for name in ("attention_vitg", "matcher_bf16_vitg", "attn_int8_vitg"):
+            times[name] = vt[name]
+            bounds[name] = (vt[name]["bound_ms"], vt[name]["bound_by"])
+        # the ViT-g step and chunk-step, materialized against factorized binning
+        gfast = dataclasses.replace(gmodel, fast_binned_match=True)
+        runners = {"step, materialized": step_runner(gnet, gmodel),
+                   "step, factorized": step_runner(gnet, gfast),
+                   f"chunk-step of {CHUNK}, materialized": chunk_runner(gnet, gmodel, scene, CHUNK),
+                   f"chunk-step of {CHUNK}, factorized": chunk_runner(gnet, gfast, scene, CHUNK)}
+        rounds = [{k: time_run(r, iters=VITG_TIMING_ITERS) for k, r in runners.items()}
+                  for _ in range(TIMING_ROUNDS)]
+        for k in runners:
+            got = [r[k] for r in rounds]
+            log(f"[{card}] ViT-g/14 @ 518 bf16 {k}: median {statistics.median(got):.3f} ms "
+                f"(spread {min(got):.3f} to {max(got):.3f} over {TIMING_ROUNDS} rounds: "
+                f"{[round(x, 3) for x in got]})")
         f32_bounds = [attention_bound_ms(shape, f32=True, tensor_cores=tc)[0]
                       for tc in (True, False) for shape in (ATTN_SHAPE, SERVE_ATTN_SHAPE)]
         log(f"[{card}] attention_f32 bounds at T = 485 and 1370: tensor cores "
@@ -3372,7 +3983,15 @@ def main() -> int:
                "attn_int8": ("vitvs_tpu_torch/csrc/attn_int8.cu", "vitvs_tpu/ops/attn_int8.py:80"),
                # the bf16 matcher with its batch axis, at the chunk's (8, 1369, 1369, 3456)
                "matcher_bf16_batched": ("vitvs_tpu_torch/csrc/matcher.cu",
-                                        "vitvs_tpu/ops/matcher.py:39")}
+                                        "vitvs_tpu/ops/matcher.py:39"),
+               # kernels 1, 2a and 4 at ViT-g/14 @ 518's shapes (phase 3k)
+               "attention_vitg": ("vitvs_tpu_torch/csrc/attention.cu",
+                                  "vitvs_tpu/ops/attention.py:42"),
+               "matcher_bf16_vitg": ("vitvs_tpu_torch/csrc/matcher.cu",
+                                     "vitvs_tpu/ops/matcher.py:39"),
+               "attn_int8_vitg": ("vitvs_tpu_torch/csrc/attn_int8.cu",
+                                  "vitvs_tpu/ops/attn_int8.py:80")}
+    launches.update({f"{k}_vitg": v for k, v in vitg_launches.items()})
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": errs[name],

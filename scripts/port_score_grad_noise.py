@@ -71,9 +71,7 @@ def main() -> int:
         goal, data = make_servo_pair_batch(base, scene, torch.Generator().manual_seed(seed),
                                            args.batch)
         wdt = torch.float64 if dtype == torch.float64 else torch.float32
-        net = V.ViT(vit)
-        net.load_state_dict(state_dict)
-        net = net.to(device, wdt)
+        net = V.ViT.from_state_dict(vit, state_dict).to(device, wdt)
         cast = lambda t: t.to(device, wdt) if t.is_floating_point() else t.to(device)
         V.score_attention = attention
         try:

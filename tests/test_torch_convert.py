@@ -40,6 +40,10 @@ def test_exported_weights_equal_the_orbax_checkpoint_bit_for_bit():
     assert cfg == tvit.make_config("dinov2_vits14")
     ref = tconvert.from_jax_params(jax.tree.map(
         np.asarray, jconvert.load_params(os.path.join(REPO, "artifacts", "ckpt_real518"))))
+    # the file holds the facet path's weights: not the final norm, which
+    # from_jax_params carries (vit_forward reads it)
+    assert {k for k in ref if k not in sd} == {"norm.weight", "norm.bias"}
+    ref = {k: v for k, v in ref.items() if k in sd}
     assert sorted(sd) == sorted(ref) and len(sd) == 172
     for k, v in ref.items():
         want = v.to(torch.bfloat16) if k.startswith("blocks.") else v
@@ -143,6 +147,9 @@ def test_from_torch_file_unwraps_model_and_module_prefixes(tmp_path):
 
 
 def test_infer_config_checks_presets_and_refuses_swiglu():
+    """A preset is checked against the shapes, the FFN's family among them:
+    a SwiGLU state dict is refused as a GELU preset and read as SwiGLU
+    otherwise (its hidden width from mlp.w3)."""
     hub = _hub_state_dict()
     with pytest.raises(ValueError, match="do not match preset dinov2_vits14"):
         tconvert.infer_config(hub, "dinov2_vits14")
@@ -150,8 +157,12 @@ def test_infer_config_checks_presets_and_refuses_swiglu():
     small = TorchViT(patch=14, dim=384, depth=12, heads=6, pos_grid=37).state_dict()
     assert tconvert.infer_config(small, "dinov2_vits14") == tvit.make_config("dinov2_vits14")
     swiglu = TorchViT(patch=14, dim=96, depth=1, heads=3, pos_grid=5, swiglu=True).state_dict()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 4"):
-        tconvert.from_torch_state_dict(swiglu)
+    _, cfg = tconvert.from_torch_state_dict(swiglu)
+    assert (cfg.ffn, cfg.ffn_hidden) == ("swiglu", 256)
+    small_g = {k.replace("mlp.fc1", "mlp.w12").replace("mlp.fc2", "mlp.w3"): v
+               for k, v in small.items()}
+    with pytest.raises(ValueError, match="do not match preset dinov2_vits14"):
+        tconvert.infer_config(small_g, "dinov2_vits14")
 
 
 @pytest.mark.parametrize("bin", [False, True], ids=["token", "binned"])

@@ -277,17 +277,19 @@ def test_quantized_vit_lives_in_the_compute_dtype():
 
 
 def test_unported_modes_raise():
-    """What queue 1 item 3 still holds: the 'attn' facet; 'fused' takes no
-    pooled keys.  The int8-probability modes and the relu / sqrelu scores
-    build (tests/test_torch_attn_variants.py holds them)."""
+    """'fused' takes no pooled keys and an unknown attn_impl raises.  The
+    int8-probability modes, the relu / sqrelu scores
+    (tests/test_torch_attn_variants.py holds them) and the 'attn' facet
+    (tests/test_torch_vitg.py holds it) build and run."""
     for mode in ("pv", "qk+pv"):
         assert tvit.ViTConfig(**VIT, quant_attn=mode).quant_attn == mode
     for score in ("relu", "sqrelu"):
         assert ServoModel.create(VSConfig(attn_score=score), device="cpu").vit.attn_score == score
     _, tcfg = _cfgs()
     qnet = tq.quantize_vit_params(_float_net(_params(), tcfg), compute_dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tq.vit_features_quant(qnet, torch.from_numpy(_images(1)), layer=1, facet="attn")
+    with torch.no_grad():
+        probs = tq.vit_features_quant(qnet, torch.from_numpy(_images(1)), layer=1, facet="attn")
+    assert probs.shape == (1, 2, 26, 26) and probs.dtype == torch.float32
     with pytest.raises(ValueError):
         dataclasses.replace(tcfg, attn_impl="flash")
     fused = dataclasses.replace(tcfg, quant_attn="fused", kv_pool=2)

@@ -36,8 +36,17 @@ def optical_twist_to_body(v_c: torch.Tensor) -> torch.Tensor:
     return torch.cat([v_c[..., :3] @ r.T, v_c[..., 3:6] @ r.T], dim=-1)
 
 
+def quat_identity(device="cuda") -> torch.Tensor:
+    """The identity rotation [0, 0, 0, 1], f32 on ``device``."""
+    return torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=torch.float32, device=device)
+
+
 def quat_normalize(q: torch.Tensor) -> torch.Tensor:
     return q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+
+
+# the reference's name for scalar-first [w, x, y, z] quaternions: the same division
+quat_normalize_wxyz = quat_normalize
 
 
 def quat_conjugate(q: torch.Tensor) -> torch.Tensor:

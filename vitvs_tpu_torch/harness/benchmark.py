@@ -251,7 +251,8 @@ def run_benchmark(
         dtype=str(model.compute_dtype), abs_idx=tuple(int(i) for i in abs_idx),
         starts=starts, seed=int(seed), perturbation=bool(perturbation),
         perturb_seed=int(perturb_seed), rotation_search=bool(rotation_search), T=int(T),
-        quantized=bool(model.quantized), int8_static=bool(int8_static))
+        quantized=bool(model.quantized), int8_static=bool(int8_static),
+        fast_binned_match=bool(model.fast_binned_match))
     episodes, ckpt_extra = chunks.load_episodes(checkpoint_path, "bench", verbose,
                                                 meta=ckpt_meta)
 

@@ -24,6 +24,12 @@ descriptors at the source (``fused_bin_quant``, ``match/binned.py``) and
 matches them with an int8 matmul, a chunk of B frames in one product;
 ``use_kernels`` then selects the attention kernels or their plain versions,
 and never a matcher kernel.
+
+``ServoModel.fast_binned_match`` takes the binned similarity from the
+unbinned descriptors (``match/binned.binned_cosine_similarity``: one product
+a frame or a chunk, then 9 shifted sums), float or int8; the match reduces
+it with plain max / argmax and the refinement fits on it, and no matcher
+kernel runs (the reference reduces it in XLA).
 """
 
 from __future__ import annotations
@@ -40,8 +46,8 @@ from vitvs_tpu_torch.core import image as image_ops
 from vitvs_tpu_torch.core.batch import item
 from vitvs_tpu_torch.core.camera import CameraIntrinsics
 from vitvs_tpu_torch.io_bridge.config import VSConfig
-from vitvs_tpu_torch.match.binned import quantize_binned_int8
-from vitvs_tpu_torch.match.correspondence import (find_correspondences,
+from vitvs_tpu_torch.match.binned import binned_cosine_similarity, quantize_binned_int8
+from vitvs_tpu_torch.match.correspondence import (MatchResult, find_correspondences,
                                                   match_points_to_pixels,
                                                   refine_matches_subpixel)
 from vitvs_tpu_torch.models.extractor import extract_descriptors
@@ -79,13 +85,17 @@ class ServoModel:
     # matmul precision of the preprocess resize (core/image.resize):
     # 'highest' the f32 parity default, 'default' one TF32 pass on the card
     pp_precision: str = "highest"
+    # factorized binned matching (match/binned.py): the binned similarity
+    # from the UNBINNED descriptors by the shift identity, 9x fewer matmul
+    # FLOPs and no 9d descriptor tensors (equal up to float association)
+    fast_binned_match: bool = False
 
     def __post_init__(self):
         image_ops.set_f32_matmul_precision()
 
     @property
     def source_quantized_bins(self) -> bool:
-        return self.quantized and self.binned and self.fused_bin_quant
+        return self.quantized and self.materialize_bins and self.fused_bin_quant
 
     @staticmethod
     def create(cfg: VSConfig, compute_dtype: torch.dtype | None = None,
@@ -112,16 +122,20 @@ class ServoModel:
 
     def load_vit(self, state_dict: dict[str, torch.Tensor]) -> ViT:
         """A ViT with these weights, blocks in the compute dtype, on the device."""
-        net = ViT(self.vit)
-        net.load_state_dict(state_dict)
+        net = ViT.from_state_dict(self.vit, state_dict)
         return net.cast_blocks(self.compute_dtype).to(self.device).eval()
 
     @property
     def binned(self) -> bool:
         return self.cfg.use_feature_binning
 
+    @property
+    def materialize_bins(self) -> bool:
+        """The descriptors themselves are binned (not the factorized path)."""
+        return self.binned and not self.fast_binned_match
+
     def desc_dim(self) -> int:
-        return self.vit.embed_dim * (9 if self.binned else 1)
+        return self.vit.embed_dim * (9 if self.materialize_bins else 1)
 
     @property
     def camera(self) -> CameraIntrinsics:
@@ -202,7 +216,7 @@ def _descriptors(net: ViT | QuantViT, model: ServoModel, rgb):
     batched = x.ndim == 4
     src_q = model.source_quantized_bins
     desc = extract_descriptors(net, x if batched else x[None], layer=model.cfg.layer,
-                               facet=model.cfg.facet, bin=model.binned and not src_q,
+                               facet=model.cfg.facet, bin=model.materialize_bins and not src_q,
                                use_kernels=model.use_kernels, quantized=model.quantized)[:, 0]
     if src_q:
         desc = quantize_binned_int8(desc, model.grid())
@@ -222,6 +236,25 @@ def batch_descriptors(net: ViT | QuantViT, model: ServoModel, frames):
     ViT forward (the rotation search's views); a ``QuantizedBinned`` on the
     source-quantized int8 path."""
     return _descriptors(net, model, frames)
+
+
+def match_frames(model: ServoModel, goal_desc, cur_desc, num_pairs: int, scores: torch.Tensor,
+                 distance_threshold: float = 1.0
+                 ) -> tuple[MatchResult, torch.Tensor | None]:
+    """The goal's descriptors against one frame's (t, d) or a chunk's
+    (B, t, d) on the model's matching path: the matcher kernel (float) or
+    one int8 product, or under ``fast_binned_match`` the factorized binned
+    similarity (float or int8), reduced without a kernel.  Returns the match
+    and that similarity (None off the factorized path)."""
+    sim = None
+    if model.binned and model.fast_binned_match:
+        sim = binned_cosine_similarity(goal_desc, cur_desc, model.grid(), int8=model.quantized)
+    match = find_correspondences(goal_desc, cur_desc, model.grid(), num_pairs, scores,
+                                 distance_threshold=distance_threshold,
+                                 use_kernel=model.use_kernels and not model.quantized and sim is None,
+                                 int8=model.quantized, use_match_kernel=model.use_match_kernel,
+                                 sim_matrix=sim)
+    return match, sim
 
 
 @torch.inference_mode()
@@ -261,13 +294,10 @@ def servo_step(
     if scores is None:
         scores = torch.rand((nb, grid[0] * grid[1]), generator=generator, device=model.device)
     scores = scores.to(model.device)
-    # int8 serving matches with an int8 matmul, never a matcher kernel
-    match = find_correspondences(goal_desc, cur_desc, grid, k, scores,
-                                 distance_threshold=cfg.thresh_filter_keypoints,
-                                 use_kernel=model.use_kernels and not model.quantized,
-                                 int8=model.quantized, use_match_kernel=model.use_match_kernel)
+    match, sim = match_frames(model, goal_desc, cur_desc, k, scores,
+                              distance_threshold=cfg.thresh_filter_keypoints)
     if cfg.subpixel_matching:
-        match = refine_matches_subpixel(goal_desc, cur_desc, match, grid)
+        match = refine_matches_subpixel(goal_desc, cur_desc, match, grid, sim_matrix=sim)
 
     round_px = not cfg.subpixel_matching
     size_uv = (cfg.u_max, cfg.v_max)

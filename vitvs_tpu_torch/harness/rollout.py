@@ -21,7 +21,8 @@ Kept from the JAX package:
 * the rotation-compensation search over 4 optical-axis spins, scored by the
   mean similarity of its matches at ``num_pairs`` 48, the chunk's 4B views
   rendered together and matched from one batched ViT forward (on the int8
-  serving path source-quantized and matched in one int8 product).
+  serving path source-quantized and matched in one int8 product; under
+  ``fast_binned_match`` scored on the factorized binned similarity).
 
 Pair scores are the one random stream torch cannot reproduce: JAX draws
 ``jax.random.uniform(sub, (t,))`` each step.  Here each episode draws (t,) a
@@ -43,9 +44,9 @@ from vitvs_tpu_torch.control.convergence import (ConvergenceState, convergence_i
 from vitvs_tpu_torch.control.ibvs import EmaState
 from vitvs_tpu_torch.core import se3
 from vitvs_tpu_torch.core.batch import item, select
-from vitvs_tpu_torch.harness.pipeline import ServoModel, StepResult, batch_descriptors, servo_step
+from vitvs_tpu_torch.harness.pipeline import (ServoModel, StepResult, batch_descriptors,
+                                              match_frames, servo_step)
 from vitvs_tpu_torch.harness.samplers import DESIRED_ORIENTATION, DESIRED_POSITION
-from vitvs_tpu_torch.match.correspondence import find_correspondences
 from vitvs_tpu_torch.sim.env import env_step, observe
 from vitvs_tpu_torch.sim.scene import Scene
 
@@ -299,10 +300,7 @@ def find_best_start_pose(net, model: ServoModel, scene: Scene, goal_desc, positi
         gens = _generators(generator) or [None] * nb
         scores = torch.stack([torch.rand((na, _num_tokens(model)), generator=g, device=dev)
                               for g in gens])
-    m = find_correspondences(goal_desc, descs, model.grid(), SEARCH_PAIRS,
-                             scores.to(dev).flatten(0, 1),
-                             use_kernel=model.use_kernels and not model.quantized,
-                             int8=model.quantized, use_match_kernel=model.use_match_kernel)
+    m, _ = match_frames(model, goal_desc, descs, SEARCH_PAIRS, scores.to(dev).flatten(0, 1))
     total = torch.where(m.valid, m.sim, torch.zeros_like(m.sim)).sum(-1)
     mean = total / torch.clamp(m.num_valid, min=1)
     mean_sims = torch.where(m.num_valid > 0, mean, torch.full_like(mean, -math.inf))

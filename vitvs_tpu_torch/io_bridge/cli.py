@@ -41,8 +41,8 @@ def load_checkpoint(path: str, cfg, device):
                          f"export it for the port with scripts/export_port_weights.py "
                          f"--ckpt {path} and pass the .npz it writes")
     sd, _ = load_exported(path) if path.endswith(".npz") else from_torch_file(path, cfg.model_name)
-    net = ViT(ServoModel.create(cfg, device=device).vit)
-    net.load_state_dict({k: v.to(torch.float32) for k, v in sd.items()})
+    net = ViT.from_state_dict(ServoModel.create(cfg, device=device).vit,
+                              {k: v.to(torch.float32) for k, v in sd.items()})
     return net.to(device).eval()
 
 

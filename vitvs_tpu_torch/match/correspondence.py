@@ -12,7 +12,10 @@ CPU tensors always take the plain version.  int8 matching (``int8=True``, or
 source-quantized :class:`QuantizedBinned` descriptors) takes its similarity
 from :func:`cosine_similarity_matrix`, one int8 matmul of a chunk's B frames'
 rows (B t, d) against the goal's, then each frame's row and column
-max/argmax; it never goes through a matcher kernel.
+max/argmax; it never goes through a matcher kernel.  A given similarity
+(``sim_matrix``: the factorized binned path, ``match/binned.py``) is reduced
+by plain max / argmax as the reference reduces it in XLA, and the subpixel
+refinement then fits its parabola on that landscape.
 
 Kept from the JAX package: first-index argmax ties; the float32
 ``(d - min) / (max(d - min) + 1e-8) >= threshold`` eligibility, plus perfect
@@ -108,6 +111,7 @@ def find_correspondences(
     use_kernel: bool = True,
     int8: bool = False,
     use_match_kernel: bool = False,
+    sim_matrix: torch.Tensor | None = None,
 ) -> MatchResult:
     """Mutual-NN correspondences via cyclical consistency.
 
@@ -123,6 +127,9 @@ def find_correspondences(
     which is an int8 matmul, as in the JAX package.
     use_match_kernel: the reference's flag: match in the TPU kernel's f32
     arithmetic instead of its default (see the module docstring).
+    sim_matrix: the similarity to match on, (t, t) goal against frame, or
+    (B, t, t) for a chunk; reduced by max / argmax (first index on ties),
+    with no kernel (``use_kernel`` raises).
     A frame is the chunk of one: every reduction is per frame.
     """
     gh, gw = num_patches
@@ -138,7 +145,13 @@ def find_correspondences(
         raise ValueError(f"{t} descriptors / scores {tuple(scores.shape)} "
                          f"do not fit the {gh}x{gw} grid")
     dev = rows.device
-    if int8 or quantized:
+    if sim_matrix is not None:
+        if use_kernel:
+            raise ValueError("use_kernel does not compose with a given sim_matrix: the matcher "
+                             "kernels take descriptors")
+        sim = (sim_matrix[None] if single else sim_matrix).float()     # (B, t1, t2)
+        sim_1, nn_1, nn_2 = sim.amax(2), sim.argmax(2), sim.argmax(1)
+    elif int8 or quantized:
         if use_kernel:
             raise ValueError("use_kernel does not compose with int8 matching: the "
                              "matcher kernels compute a float similarity")
@@ -194,10 +207,13 @@ def refine_matches_subpixel(
     desc2: torch.Tensor,
     match: MatchResult,
     num_patches: tuple[int, int],
+    sim_matrix: torch.Tensor | None = None,
 ) -> MatchResult:
     """Sub-patch refinement of the matched positions in image 2: a 1-D
     parabola peak fit per axis of the cosine similarity between each goal
-    token and the 3x3 neighbourhood of its match.  Offsets are clipped to
+    token and the 3x3 neighbourhood of its match, or, given the
+    ``sim_matrix`` the match was made on ((t, t), or (B, t, t) for a chunk),
+    of that similarity there.  Offsets are clipped to
     +-0.5 patch and zeroed on grid borders, for invalid slots and under the
     same-image shortcut; goal points stay at patch centres.  ``desc2`` and
     ``match``: one frame's, or a chunk's (B, t, d) and (B, k, ...).
@@ -209,6 +225,7 @@ def refine_matches_subpixel(
     single = desc2.dim() == 2
     if single:
         desc2, match = desc2[None], item(match, None)
+        sim_matrix = None if sim_matrix is None else sim_matrix[None]
 
     def unit_f32(x):
         x = x.float()
@@ -220,11 +237,15 @@ def refine_matches_subpixel(
     rr = (r2[..., None] + dr).clamp(0, gh - 1)                 # (B, k, 3)
     cc = (c2[..., None] + dr).clamp(0, gw - 1)
     nidx = rr[..., :, None] * gw + cc[..., None, :]            # (B, k, 3, 3)
-    # gather first, normalize after: only k + 9k rows a frame are needed
-    q = unit_f32(desc1[r1 * gw + c1])                          # (B, k, d)
     frame = torch.arange(desc2.shape[0], device=desc2.device)[:, None]
-    nb = unit_f32(desc2[frame, nidx.flatten(1)]).reshape(*nidx.shape, -1)
-    s = torch.einsum("bkd,bkrcd->bkrc", q, nb)
+    if sim_matrix is not None:
+        # the neighbourhood on the similarity the match was made on
+        s = sim_matrix[frame[..., None, None], (r1 * gw + c1)[..., None, None], nidx].float()
+    else:
+        # gather first, normalize after: only k + 9k rows a frame are needed
+        q = unit_f32(desc1[r1 * gw + c1])                      # (B, k, d)
+        nb = unit_f32(desc2[frame, nidx.flatten(1)]).reshape(*nidx.shape, -1)
+        s = torch.einsum("bkd,bkrcd->bkrc", q, nb)
 
     def axis_offset(s_m, s0, s_p, at_border):
         den = s_m + s_p - 2.0 * s0

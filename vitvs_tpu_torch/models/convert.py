@@ -10,9 +10,10 @@ state dict for :class:`vitvs_tpu_torch.models.vit.ViT`:
     qkv_kernel (L, D, 3, h, hd) or the legacy flat (L, D, 3D)
                                          -> blocks.<i>.attn.qkv.weight (3D, D)
     *_kernel (L, in, out)                -> Linear weights (out, in)
-
-The final ``norm_scale`` / ``norm_bias`` are not on the facet path and are
-not carried.
+    fc1_* / fc2_*                        -> mlp.fc1 / mlp.fc2, or for SwiGLU
+                                            (fc1 2H wide, H = fc2's input)
+                                            mlp.w12 / mlp.w3
+    norm_scale, norm_bias (the final norm, when present) -> norm.weight, norm.bias
 
 ``from_jax_quant_params`` takes the int8 ``QuantParams`` pytree of
 ``vitvs_tpu.models.quant.quantize_vit_params`` (numpy leaves: int8 kernels
@@ -32,8 +33,10 @@ the benchmark's cast run exactly these values.
 ``infer_config``, ``from_torch_state_dict`` and ``from_torch_file`` take a
 torch-hub DINO / DINOv2 state dict that the user supplies (nothing is
 downloaded) and map it straight to the port's state dict: the port keeps
-torch-hub's names, so the map drops what the facet path never reads
-(``norm``, ``mask_token``, ``register_tokens``, heads), reads LayerScale
+torch-hub's names, so the map keeps the final ``norm`` where the state
+dict has one, drops what no forward reads (``mask_token``,
+``register_tokens``, heads), reads the GELU MLP (``mlp.fc1``, ``mlp.fc2``)
+or the SwiGLU FFN (``mlp.w12``, ``mlp.w3``: dinov2_vitg14), LayerScale
 from ``ls1.gamma`` or the legacy ``gamma_1`` (ones where there is none) and
 casts to f32.
 """
@@ -52,9 +55,11 @@ from vitvs_tpu_torch.models.quant import QuantViT
 from vitvs_tpu_torch.models.vit import PRESETS, ViTConfig, make_config
 
 EXPORTED_CONFIG_KEY = "__config__"
-# the architecture fields an exported file's config carries
+# the architecture fields an exported file's config carries; a field at its
+# default below may be absent (files written before SwiGLU load as the MLP)
 _EXPORTED_FIELDS = ("model_name", "patch_size", "stride", "embed_dim", "depth", "num_heads",
-                    "pos_grid", "use_layerscale")
+                    "pos_grid", "use_layerscale", "ffn", "ffn_hidden")
+_EXPORTED_DEFAULTS = {"ffn": "mlp", "ffn_hidden": None}
 # the blocks' bf16 bits as (2, ...) uint8: the high-byte plane, then the low
 _PLANES = 2
 BLOCKS_DTYPES = ("bfloat16", "float32")
@@ -62,6 +67,8 @@ TRAINED_S518 = Path(__file__).resolve().parent.parent / "assets" / "ckpt_real518
 
 
 def from_jax_params(params_np: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """The FFN's family comes from the shapes: fc1 twice as wide as fc2's
+    input is SwiGLU's fused w12."""
     def t(a) -> torch.Tensor:
         return torch.tensor(np.asarray(a, dtype=np.float32))
 
@@ -73,8 +80,13 @@ def from_jax_params(params_np: Mapping[str, Any]) -> dict[str, torch.Tensor]:
         "cls_token": t(params_np["cls_token"]).reshape(1, 1, D),
         "pos_embed": t(params_np["pos_embed"]).reshape(1, -1, D),
     }
+    if "norm_scale" in params_np:
+        sd["norm.weight"] = t(params_np["norm_scale"])
+        sd["norm.bias"] = t(params_np["norm_bias"])
     bp = {k: np.asarray(v) for k, v in params_np["blocks"].items()}
     L = bp["norm1_scale"].shape[0]
+    swiglu = bp["fc1_kernel"].shape[-1] == 2 * bp["fc2_kernel"].shape[-2]
+    fc1, fc2 = ("mlp.w12", "mlp.w3") if swiglu else ("mlp.fc1", "mlp.fc2")
     for i in range(L):
         pre = f"blocks.{i}."
         sd.update({
@@ -87,10 +99,10 @@ def from_jax_params(params_np: Mapping[str, Any]) -> dict[str, torch.Tensor]:
             pre + "ls1.gamma": t(bp["ls1"][i]),
             pre + "norm2.weight": t(bp["norm2_scale"][i]),
             pre + "norm2.bias": t(bp["norm2_bias"][i]),
-            pre + "mlp.fc1.weight": t(bp["fc1_kernel"][i].T),
-            pre + "mlp.fc1.bias": t(bp["fc1_bias"][i]),
-            pre + "mlp.fc2.weight": t(bp["fc2_kernel"][i].T),
-            pre + "mlp.fc2.bias": t(bp["fc2_bias"][i]),
+            pre + fc1 + ".weight": t(bp["fc1_kernel"][i].T),
+            pre + fc1 + ".bias": t(bp["fc1_bias"][i]),
+            pre + fc2 + ".weight": t(bp["fc2_kernel"][i].T),
+            pre + fc2 + ".bias": t(bp["fc2_bias"][i]),
             pre + "ls2.gamma": t(bp["ls2"][i]),
         })
         if "qkv_bias" in bp:
@@ -133,6 +145,7 @@ def load_exported(path: str | os.PathLike) -> tuple[dict[str, torch.Tensor], ViT
         blocks_dtype = meta.get("blocks_dtype")
         if blocks_dtype not in BLOCKS_DTYPES:
             raise ValueError(f"{path}: blocks_dtype {blocks_dtype!r}, not one of {BLOCKS_DTYPES}")
+        meta = {**_EXPORTED_DEFAULTS, **meta}
         missing = [k for k in _EXPORTED_FIELDS if k not in meta]
         if missing:
             raise ValueError(f"{path}: its config lacks {missing}")
@@ -158,7 +171,8 @@ def save_exported(path: str | os.PathLike, state_dict: Mapping[str, torch.Tensor
     that config."""
     if blocks_dtype not in BLOCKS_DTYPES:
         raise ValueError(f"blocks_dtype must be one of {BLOCKS_DTYPES}, got {blocks_dtype!r}")
-    config = {k: getattr(cfg, k) for k in _EXPORTED_FIELDS}
+    config = {k: getattr(cfg, k) for k in _EXPORTED_FIELDS
+              if k not in _EXPORTED_DEFAULTS or getattr(cfg, k) != _EXPORTED_DEFAULTS[k]}
     config["blocks_dtype"] = blocks_dtype
     if source is not None:
         config["source"] = source
@@ -186,31 +200,33 @@ def infer_config(state_dict: Mapping[str, Any], model_name: str | None = None,
                  stride: int | None = None) -> ViTConfig:
     """The architecture of a torch-hub state dict from its shapes
     (``vitvs_tpu/models/convert.py:infer_config``); a preset ``model_name``
-    is checked against them.  SwiGLU checkpoints (``mlp.w12``, dinov2_vitg14)
-    raise: the port's ViT has a GELU MLP only."""
-    if "blocks.0.mlp.w12.weight" in state_dict:
-        raise NotImplementedError("SwiGLU FFN checkpoints (dinov2_vitg14) are not ported "
-                                  "(ROADMAP.md queue 1, item 4)")
+    is checked against them.  ``mlp.w12`` marks the SwiGLU FFN
+    (dinov2_vitg14), its hidden width read from ``mlp.w3``."""
     d, _, p, _ = tuple(state_dict["patch_embed.proj.weight"].shape)
+    swiglu = "blocks.0.mlp.w12.weight" in state_dict
     depth = 1 + max(int(k.split(".")[1]) for k in state_dict if k.startswith("blocks."))
     n = tuple(state_dict["pos_embed"].shape)[1] - 1
     if model_name is not None and model_name in PRESETS:
         cfg = make_config(model_name, stride)
-        if (cfg.embed_dim, cfg.depth, cfg.patch_size) != (d, depth, p):
-            raise ValueError(f"checkpoint shapes (d={d}, depth={depth}, patch={p}) do not "
-                             f"match preset {model_name}")
+        if (cfg.embed_dim, cfg.depth, cfg.patch_size, cfg.ffn == "swiglu") != (d, depth, p, swiglu):
+            raise ValueError(f"checkpoint shapes (d={d}, depth={depth}, patch={p}, "
+                             f"swiglu={swiglu}) do not match preset {model_name}")
         return cfg
     use_ls = "blocks.0.ls1.gamma" in state_dict or "blocks.0.gamma_1" in state_dict
     heads = {384: 6, 768: 12, 1024: 16, 1536: 24}.get(d, max(1, d // 64))
     return ViTConfig(patch_size=p, embed_dim=d, depth=depth, num_heads=heads,
                      pos_grid=int(round(np.sqrt(n))), use_layerscale=use_ls,
                      stride=stride if stride is not None else p,
+                     ffn="swiglu" if swiglu else "mlp",
+                     ffn_hidden=(tuple(state_dict["blocks.0.mlp.w3.weight"].shape)[1]
+                                 if swiglu else None),
                      model_name=model_name or f"custom_vit_d{d}_p{p}")
 
 
 _BLOCK_PARAMS = ("norm1.weight", "norm1.bias", "attn.qkv.weight", "attn.qkv.bias",
-                 "attn.proj.weight", "attn.proj.bias", "norm2.weight", "norm2.bias",
-                 "mlp.fc1.weight", "mlp.fc1.bias", "mlp.fc2.weight", "mlp.fc2.bias")
+                 "attn.proj.weight", "attn.proj.bias", "norm2.weight", "norm2.bias")
+_FFN_PARAMS = {"mlp": ("mlp.fc1.weight", "mlp.fc1.bias", "mlp.fc2.weight", "mlp.fc2.bias"),
+               "swiglu": ("mlp.w12.weight", "mlp.w12.bias", "mlp.w3.weight", "mlp.w3.bias")}
 
 
 def from_torch_state_dict(state_dict: Mapping[str, Any], model_name: str | None = None,
@@ -218,16 +234,20 @@ def from_torch_state_dict(state_dict: Mapping[str, Any], model_name: str | None 
                           ) -> tuple[dict[str, torch.Tensor], ViTConfig]:
     """A torch-hub DINO / DINOv2 state dict -> (the port's state dict in
     f32, its ViTConfig) (``vitvs_tpu/models/convert.py:from_torch_state_dict``).
-    A missing key of the facet path raises ``KeyError``."""
+    A missing key of the facet path raises ``KeyError``; a state dict
+    without the final norm gives weights without one."""
     cfg = infer_config(state_dict, model_name, stride)
     D = cfg.embed_dim
     sd = {"patch_embed.proj.weight": _f32(state_dict["patch_embed.proj.weight"]),
           "patch_embed.proj.bias": _f32(state_dict["patch_embed.proj.bias"]),
           "cls_token": _f32(state_dict["cls_token"]).reshape(1, 1, D),
           "pos_embed": _f32(state_dict["pos_embed"]).reshape(1, -1, D)}
+    if "norm.weight" in state_dict:
+        sd.update({k: _f32(state_dict[k]) for k in ("norm.weight", "norm.bias")})
     for i in range(cfg.depth):
         pre = f"blocks.{i}."
-        sd.update({pre + k: _f32(state_dict[pre + k]) for k in _BLOCK_PARAMS})
+        sd.update({pre + k: _f32(state_dict[pre + k])
+                   for k in _BLOCK_PARAMS + _FFN_PARAMS[cfg.ffn]})
         for n in (1, 2):
             gamma = next((state_dict[pre + k] for k in (f"ls{n}.gamma", f"gamma_{n}")
                           if pre + k in state_dict), None)

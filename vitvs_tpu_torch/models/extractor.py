@@ -1,4 +1,5 @@
-"""Dense patch descriptors: facets plus log-binning
+"""Dense patch descriptors: facets plus log-binning, CLS-attention
+saliency, and the stateful :class:`DescriptorExtractor`
 (``vitvs_tpu/models/extractor.py``).
 
 ``log_bin`` is a fixed set of edge-clamped spatial shifts of average-pooled
@@ -8,10 +9,14 @@ feature maps; bin order and edge clamping match the reference's
 
 from __future__ import annotations
 
+import dataclasses
+from typing import Sequence
+
 import torch
 import torch.nn.functional as F
 
-from vitvs_tpu_torch.models.vit import ViT, vit_features
+from vitvs_tpu_torch.core import image as image_ops
+from vitvs_tpu_torch.models.vit import ViT, ViTConfig, init_vit, make_config, vit_features
 
 
 def _avg_pool_same(x: torch.Tensor, win: int) -> torch.Tensor:
@@ -73,6 +78,9 @@ def extract_descriptors(
     is then a ``QuantViT``).  ``compute_dtype`` selects the training
     forward of :func:`~vitvs_tpu_torch.models.vit.vit_features`.
     """
+    if facet not in ("token", "query", "key", "value"):
+        raise ValueError(f"descriptors come from the token, query, key or value facet, "
+                         f"not {facet!r}")
     if quantized:
         from vitvs_tpu_torch.models.quant import vit_features_quant
 
@@ -93,3 +101,72 @@ def extract_descriptors(
     if bin:
         x = log_bin(x, net.cfg.num_patches(images.shape[-3], images.shape[-2]), hierarchy)
     return x[:, None]
+
+
+def extract_saliency_maps(net: ViT, images: torch.Tensor, layer: int | None = None,
+                          head_idxs: Sequence[int] = (0, 2, 4, 5),
+                          use_kernels: bool = True) -> torch.Tensor:
+    """[0, 1]-normalized CLS-attention saliency (B, t): the mean over the
+    heads ``head_idxs`` of the CLS query's f32 attention to each patch at
+    block ``layer`` (the last by default), min-max normalized per image."""
+    layer = net.cfg.depth - 1 if layer is None else layer
+    return saliency_from_attention(vit_features(net, images, layer, "attn", use_kernels),
+                                   head_idxs)
+
+
+def saliency_from_attention(attn: torch.Tensor,
+                            head_idxs: Sequence[int] = (0, 2, 4, 5)) -> torch.Tensor:
+    """:func:`extract_saliency_maps` of the 'attn' facet's (B, h, 1+t, 1+t)
+    probabilities -> (B, t)."""
+    cls_attn = attn[:, list(head_idxs), 0, 1:].mean(1)                 # (B, t)
+    lo = cls_attn.amin(1, keepdim=True)
+    hi = cls_attn.amax(1, keepdim=True)
+    return (cls_attn - lo) / (hi - lo)
+
+
+@dataclasses.dataclass
+class DescriptorExtractor:
+    """A ViT with its config, compute dtype and device, the reference's
+    ``ViTExtractor`` API (model name, stride): ``preprocess`` a camera frame,
+    then ``extract_descriptors``.  The blocks run in ``compute_dtype`` (cast
+    here), the embedding in f32."""
+
+    net: ViT
+    cfg: ViTConfig
+    compute_dtype: torch.dtype = torch.float32
+    device: str = "cuda"
+
+    def __post_init__(self):
+        self.net = self.net.cast_blocks(self.compute_dtype).to(self.device).eval()
+
+    @classmethod
+    def random_init(cls, model_name: str = "dinov2_vits14", stride: int | None = None,
+                    seed: int = 0, compute_dtype: torch.dtype = torch.float32,
+                    device: str = "cuda") -> "DescriptorExtractor":
+        """Seeded random weights (``init_vit`` from a CPU generator)."""
+        cfg = make_config(model_name, stride)
+        net = init_vit(cfg, torch.Generator().manual_seed(seed), device=device)
+        return cls(net=net, cfg=cfg, compute_dtype=compute_dtype, device=device)
+
+    @property
+    def mean(self):
+        return image_ops.IMAGENET_MEAN if "dino" in self.cfg.model_name else image_ops.HALF_MEAN
+
+    @property
+    def std(self):
+        return image_ops.IMAGENET_STD if "dino" in self.cfg.model_name else image_ops.HALF_STD
+
+    def preprocess(self, rgb: torch.Tensor, input_size: int) -> torch.Tensor:
+        """Camera frame(s) (..., H, W, 3), uint8 or float in [0, 1] -> the
+        normalized (..., S, S, 3) f32 input on the device."""
+        return image_ops.preprocess_frame(torch.as_tensor(rgb).to(self.device), input_size,
+                                          self.mean, self.std)
+
+    @torch.inference_mode()
+    def extract_descriptors(self, images: torch.Tensor, layer: int = 11, facet: str = "token",
+                            bin: bool = False, include_cls: bool = False,
+                            use_kernels: bool = True) -> torch.Tensor:
+        """(B, 1, t, d') descriptors of preprocessed images (B, S, S, 3)
+        (:func:`extract_descriptors`)."""
+        return extract_descriptors(self.net, torch.as_tensor(images).to(self.device), layer,
+                                   facet, bin, include_cls, use_kernels=use_kernels)

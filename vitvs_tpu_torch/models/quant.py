@@ -28,7 +28,10 @@ sqrelu scores (``attn_score``) supersede every softmax mode but 'pv' and
 (``kv_pool``) runs with every mode but 'fused': after the qkv projection
 ('post') or, with ``kv_pool_where='pre'``, as the K/V columns of the int8
 qkv product on the pooled normed tokens; pooled attention takes no kernel.
-The 'attn' facet is not ported (ROADMAP.md queue 1, item 3).
+The FFN follows ``ViTConfig.ffn``: fc1 and fc2 through the W8A8 products
+around GELU, or for SwiGLU (ViT-g) the fused w12 and w3 products around
+silu(x1) * x2, the fc2 input's static scale calibrated on that product.
+The 'attn' facet is the f32 softmax of the int8 qkv product's q and k.
 
 Dtype points follow the JAX package: activation scales are f32, the
 inverse scale is rounded to the activation dtype and ``round(x * inv)``
@@ -48,7 +51,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from vitvs_tpu_torch.models.vit import (ViT, ViTConfig, attention_core, embed_tokens, pool_kv,
+from vitvs_tpu_torch.models.vit import (FACETS, ViT, ViTConfig, attention_core,
+                                        attention_probs, embed_tokens, ffn_activation, pool_kv,
                                         pool_matrix, score_attention, softmax_attention)
 from vitvs_tpu_torch.ops.attn_int8 import (INV127, _quant_th, fused_int8_attention,
                                            fused_int8_attention_plain)
@@ -74,6 +78,15 @@ def _dyn_quant_act(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return torch.clamp(torch.round(x * inv), -127, 127).to(torch.int8), scale
 
 
+def static_quant_act(x: torch.Tensor, act_scale: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Activations on a calibrated static per-tensor grid: int8 codes
+    round(x * (1 / scale)), the inverse scale and the product in x's dtype,
+    and the (1, 1, 1) f32 scale."""
+    x_scale = act_scale.reshape(1, 1, 1).float()
+    inv = (1.0 / x_scale).to(x.dtype)
+    return torch.clamp(torch.round(x * inv), -127, 127).to(torch.int8), x_scale
+
+
 def _q_matmul(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
               bias: torch.Tensor | None, out_dtype,
               act_scale: torch.Tensor | None = None) -> torch.Tensor:
@@ -84,9 +97,7 @@ def _q_matmul(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
     if act_scale is None:
         x_q, x_scale = _dyn_quant_act(x)
     else:
-        x_scale = act_scale.reshape(1, 1, 1).float()
-        inv = (1.0 / x_scale).to(x.dtype)
-        x_q = torch.clamp(torch.round(x * inv), -127, 127).to(torch.int8)
+        x_q, x_scale = static_quant_act(x, act_scale)
     B, T, D = x.shape
     acc = int8_matmul_nt(x_q.reshape(B * T, D), w_q).reshape(B, T, -1)
     out = acc.float() * x_scale                                 # (B,T,E)*(B,T,1)
@@ -325,19 +336,17 @@ def _block_q(x: torch.Tensor, blk: QuantBlock, cfg: ViTConfig,
             v = pool_kv(v, cfg.kv_pool, cfg.kv_pool_impl)
             attn = _attn_qkv(q, k, v, cfg, use_kernels)
     x = x + blk.ls1 * blk.proj(attn.to(x.dtype), blk.act(2))
-    mid = blk.fc1(blk.norm2(x), blk.act(1))
-    mid = F.gelu(mid, approximate="tanh" if cfg.gelu_approx else "none")
+    mid = ffn_activation(blk.fc1(blk.norm2(x), blk.act(1)), cfg)
     return x + blk.ls2 * blk.fc2(mid, blk.act(3))
 
 
 def vit_features_quant(qnet: QuantViT, images: torch.Tensor, layer: int = 11,
                        facet: str = "token", use_kernels: bool = True) -> torch.Tensor:
     """int8 facet forward, the contract of ``vit.vit_features``:
-    'token' -> (B, 1+t, D); 'query' | 'key' | 'value' -> (B, h, 1+t, hd)."""
-    if facet == "attn":
-        raise NotImplementedError("the 'attn' facet of the int8 path is not ported "
-                                  "(ROADMAP.md queue 1, item 3)")
-    if facet not in ("token", "query", "key", "value"):
+    'token' -> (B, 1+t, D); 'query' | 'key' | 'value' -> (B, h, 1+t, hd);
+    'attn' -> (B, h, 1+t, 1+t) f32 softmax probabilities of the int8 qkv
+    product's q and k (``vitvs_tpu/models/quant.py:514-518``)."""
+    if facet not in FACETS:
         raise ValueError(f"unsupported facet {facet!r}")
     cfg = qnet.cfg
     x = qnet.embed(images)
@@ -351,6 +360,8 @@ def vit_features_quant(qnet: QuantViT, images: torch.Tensor, layer: int = 11,
     B, T, _ = x.shape
     qkv = blk.qkv(blk.norm1(x), blk.act(0))
     qkv = qkv.reshape(B, T, 3, cfg.num_heads, cfg.head_dim).permute(2, 0, 3, 1, 4)
+    if facet == "attn":
+        return attention_probs(qkv[0], qkv[1])
     return qkv[("query", "key", "value").index(facet)]
 
 
@@ -361,15 +372,18 @@ def vit_features_quant(qnet: QuantViT, images: torch.Tensor, layer: int = 11,
 
 def _stacked_blocks(net: ViT) -> dict[str, torch.Tensor]:
     """The float blocks of ``net`` as f32 arrays stacked on depth, in the
-    JAX layout: kernels (L, in, out), qkv on the flat (L, D, 3D) view."""
+    JAX layout: kernels (L, in, out), qkv on the flat (L, D, 3D) view; the
+    FFN's two products (SwiGLU's w12 and w3) as fc1 and fc2."""
     get = {
         "norm1_scale": lambda b: b.norm1.weight, "norm1_bias": lambda b: b.norm1.bias,
         "qkv_kernel": lambda b: b.attn.qkv.weight.T, "qkv_bias": lambda b: b.attn.qkv.bias,
         "proj_kernel": lambda b: b.attn.proj.weight.T, "proj_bias": lambda b: b.attn.proj.bias,
         "ls1": lambda b: b.ls1.gamma,
         "norm2_scale": lambda b: b.norm2.weight, "norm2_bias": lambda b: b.norm2.bias,
-        "fc1_kernel": lambda b: b.mlp.fc1.weight.T, "fc1_bias": lambda b: b.mlp.fc1.bias,
-        "fc2_kernel": lambda b: b.mlp.fc2.weight.T, "fc2_bias": lambda b: b.mlp.fc2.bias,
+        "fc1_kernel": lambda b: b.mlp.linears()[0].weight.T,
+        "fc1_bias": lambda b: b.mlp.linears()[0].bias,
+        "fc2_kernel": lambda b: b.mlp.linears()[1].weight.T,
+        "fc2_bias": lambda b: b.mlp.linears()[1].bias,
         "ls2": lambda b: b.ls2.gamma,
     }
     with torch.no_grad():
@@ -381,8 +395,8 @@ def _collect_act_amax(net: ViT, cfg: ViTConfig, images: torch.Tensor, layer: int
                       compute_dtype: torch.dtype):
     """|activation| maxima of the four int8 matmul inputs over a calibration
     batch, blocks 0..layer: per channel for the LayerNorm outputs (qkv, fc1
-    inputs), per tensor for the attention and GELU outputs (proj, fc2
-    inputs).  Exact softmax (f32 scores) whatever ``quant_attn`` says, or
+    inputs), per tensor for the attention and FFN-activation outputs (proj,
+    fc2 inputs: GELU's, or SwiGLU's silu(x1) * x2).  Exact softmax (f32 scores) whatever ``quant_attn`` says, or
     the relu / sqrelu scores at the compute dtype, as the int8 ViT serves
     them; with ``kv_pool`` K and V pooled after the projection, whatever
     ``kv_pool_where`` says (as the JAX package calibrates).  Returns
@@ -392,7 +406,6 @@ def _collect_act_amax(net: ViT, cfg: ViTConfig, images: torch.Tensor, layer: int
                      net.patch_embed.proj.bias.float(), net.cls_token.float(),
                      net.pos_embed.float()).to(dt)
     D, h, hd = cfg.embed_dim, cfg.num_heads, cfg.head_dim
-    approximate = "tanh" if cfg.gelu_approx else "none"
     # the block's parameters are rounded to the compute dtype first, as JAX casts them
     lin = lambda mod, a: a @ mod.weight.to(dt).T + mod.bias.to(dt)
     ln = lambda a, norm: F.layer_norm(a.float(), (D,), norm.weight.to(dt).float(),
@@ -411,8 +424,9 @@ def _collect_act_amax(net: ViT, cfg: ViTConfig, images: torch.Tensor, layer: int
             attn = softmax_attention(q, k, v)
         x = x + blk.ls1.gamma.to(dt) * lin(blk.attn.proj, attn)
         n2 = ln(x, blk.norm2)
-        act = F.gelu(lin(blk.mlp.fc1, n2), approximate=approximate)
-        x = x + blk.ls2.gamma.to(dt) * lin(blk.mlp.fc2, act)
+        fc1, fc2 = blk.mlp.linears()
+        act = ffn_activation(lin(fc1, n2), cfg)
+        x = x + blk.ls2.gamma.to(dt) * lin(fc2, act)
         for lst, val in zip(out, (amax_c(n1), amax_c(n2), amax_t(attn), amax_t(act))):
             lst.append(val)
     return tuple(torch.stack(lst) for lst in out)

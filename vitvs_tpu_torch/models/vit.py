@@ -4,13 +4,16 @@
 Covered: patch embedding (a reshape and one matmul when stride == patch
 and ``patch_embed_impl='reshape'``, a convolution otherwise), bicubic
 pos-embed resampling with the DINO "+0.1" scale fudge, pre-norm blocks with
-LayerScale, LayerNorm statistics in f32, exact or tanh GELU, softmax
-attention or the relu / sqrelu scores (``attn_score``), K/V pooling
+LayerScale, LayerNorm statistics in f32, the GELU MLP (exact or tanh) or
+DINOv2-giant's fused SwiGLU FFN (``ffn``), softmax attention or the relu /
+sqrelu scores (``attn_score``), K/V pooling
 (``kv_pool``: the spatial keys and values mean-pooled
 ``kv_pool`` x ``kv_pool`` over the patch grid, after the qkv projection or,
 with ``kv_pool_where='pre'``, of the normed tokens before the K/V
-projection), and ``vit_features`` up to block ``layer`` for the token /
-query / key / value facets.
+projection), ``vit_features`` up to block ``layer`` for the token / query /
+key / value / attn facets, and ``vit_forward`` through every block and the
+final LayerNorm, which a ViT carries only when its weights do (the facet
+path never reads it; ``ViT.from_state_dict``).
 
 Dtypes follow the JAX package: the embedding (patch kernel, cls, pos) stays
 f32 and sees the images rounded to the compute dtype; the blocks run in the
@@ -61,9 +64,12 @@ QUANT_ATTN_MODES = ("none", "fused", "nomax", "nomax2", "nomax3", "pv", "qk+pv")
 # attention scores: exact softmax, or relu / sqrelu with the normalization
 # deferred onto the P.V output (a different model: its weights are co-trained)
 ATTN_SCORES = ("softmax", "relu", "sqrelu")
+# the FFN: the GELU MLP (fc1, fc2) or DINOv2-giant's fused SwiGLU (w12, w3)
+FFNS = ("mlp", "swiglu")
 KV_POOL_IMPLS = ("window", "matmul")
 KV_POOL_WHERE = ("post", "pre")
 PATCH_EMBED_IMPLS = ("reshape", "conv")
+FACETS = ("token", "query", "key", "value", "attn")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,6 +107,10 @@ class ViTConfig:
     # see ATTN_SCORES; relu and sqrelu take no logit scale (it cancels in the
     # deferred quotient) and never run an attention kernel
     attn_score: str = "softmax"
+    # see FFNS; ffn_hidden None: int(embed_dim * mlp_ratio) for the MLP, the
+    # fused-SwiGLU width round8(int(embed_dim * mlp_ratio) * 2 / 3) for SwiGLU
+    ffn: str = "mlp"
+    ffn_hidden: int | None = None
 
     def __post_init__(self):
         if self.attn_impl not in ATTN_IMPLS:
@@ -112,7 +122,7 @@ class ViTConfig:
             raise ValueError(f"unknown attn_score {self.attn_score!r} "
                              "(expected 'softmax', 'relu' or 'sqrelu')")
         for name, allowed in (("kv_pool_impl", KV_POOL_IMPLS), ("kv_pool_where", KV_POOL_WHERE),
-                              ("patch_embed_impl", PATCH_EMBED_IMPLS)):
+                              ("patch_embed_impl", PATCH_EMBED_IMPLS), ("ffn", FFNS)):
             if getattr(self, name) not in allowed:
                 raise ValueError(f"{name} must be one of {allowed}, got {getattr(self, name)!r}")
         if self.kv_pool < 1:
@@ -124,19 +134,26 @@ class ViTConfig:
 
     @property
     def hidden_dim(self) -> int:
-        return int(self.embed_dim * self.mlp_ratio)
+        """The FFN's hidden width (``vitvs_tpu/models/vit.py:ViTConfig.hidden_dim``)."""
+        if self.ffn_hidden is not None:
+            return self.ffn_hidden
+        h = int(self.embed_dim * self.mlp_ratio)
+        if self.ffn == "swiglu":
+            return (int(h * 2 / 3) + 7) // 8 * 8
+        return h
 
     def num_patches(self, h: int, w: int) -> tuple[int, int]:
         return (1 + (h - self.patch_size) // self.stride,
                 1 + (w - self.patch_size) // self.stride)
 
 
-# The GELU-MLP presets of vitvs_tpu/models/vit.py:PRESETS (the SwiGLU
-# dinov2_vitg14 is not ported).
+# vitvs_tpu/models/vit.py:PRESETS
 PRESETS: dict[str, dict] = {
     "dinov2_vits14": dict(patch_size=14, embed_dim=384, depth=12, num_heads=6, pos_grid=37),
     "dinov2_vitb14": dict(patch_size=14, embed_dim=768, depth=12, num_heads=12, pos_grid=37),
     "dinov2_vitl14": dict(patch_size=14, embed_dim=1024, depth=24, num_heads=16, pos_grid=37),
+    "dinov2_vitg14": dict(patch_size=14, embed_dim=1536, depth=40, num_heads=24, pos_grid=37,
+                          ffn="swiglu"),
     "dino_vits8": dict(patch_size=8, embed_dim=384, depth=12, num_heads=6, pos_grid=28, use_layerscale=False),
     "dino_vits16": dict(patch_size=16, embed_dim=384, depth=12, num_heads=6, pos_grid=14, use_layerscale=False),
     "dino_vitb8": dict(patch_size=8, embed_dim=768, depth=12, num_heads=12, pos_grid=28, use_layerscale=False),
@@ -239,6 +256,16 @@ def softmax_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torc
     return torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(B, T, h * hd)
 
 
+def attention_probs(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """The 'attn' facet: q, k (B, h, T, hd) -> (B, h, T, T) f32 softmax
+    probabilities; the logits come out of the product in q's dtype, are cast
+    to f32 and divided by sqrt(hd) (``vitvs_tpu/models/vit.py:606-610``).
+    Plain PyTorch on every device: no attention kernel returns its
+    probabilities."""
+    logits = torch.einsum("bhqd,bhkd->bhqk", q, k).float()
+    return torch.softmax(logits / math.sqrt(q.shape[-1]), dim=-1)
+
+
 def score_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg: ViTConfig,
                     out_dtype: torch.dtype, score_dtype: torch.dtype) -> torch.Tensor:
     """relu / sqrelu scored attention with the normalization deferred
@@ -326,15 +353,48 @@ class Attention(nn.Module):
         return self.proj(out)
 
 
+def ffn_activation(hidden: torch.Tensor, cfg: ViTConfig) -> torch.Tensor:
+    """The FFN's nonlinearity on the first product's output: GELU (exact or
+    tanh), or for SwiGLU silu(x1) * x2 of its two halves in that order
+    (``vitvs_tpu/models/vit.py:454-462``).  The float ViT, the int8 ViT and
+    static calibration all call here."""
+    if cfg.ffn == "swiglu":
+        x1, x2 = hidden.chunk(2, dim=-1)
+        return F.silu(x1) * x2
+    return F.gelu(hidden, approximate="tanh" if cfg.gelu_approx else "none")
+
+
 class Mlp(nn.Module):
+    """The GELU MLP, torch-hub's ``mlp.fc1`` (D -> H) and ``mlp.fc2`` (H -> D)."""
+
     def __init__(self, cfg: ViTConfig):
         super().__init__()
+        self.cfg = cfg
         self.fc1 = nn.Linear(cfg.embed_dim, cfg.hidden_dim)
         self.fc2 = nn.Linear(cfg.hidden_dim, cfg.embed_dim)
-        self.approximate = "tanh" if cfg.gelu_approx else "none"
+
+    def linears(self) -> tuple[nn.Linear, nn.Linear]:
+        return self.fc1, self.fc2
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(F.gelu(self.fc1(x), approximate=self.approximate))
+        return self.fc2(ffn_activation(self.fc1(x), self.cfg))
+
+
+class SwiGLUFFN(nn.Module):
+    """DINOv2-giant's fused SwiGLU FFN, torch-hub's names: ``mlp.w12`` (D ->
+    2H) and ``mlp.w3`` (H -> D)."""
+
+    def __init__(self, cfg: ViTConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.w12 = nn.Linear(cfg.embed_dim, 2 * cfg.hidden_dim)
+        self.w3 = nn.Linear(cfg.hidden_dim, cfg.embed_dim)
+
+    def linears(self) -> tuple[nn.Linear, nn.Linear]:
+        return self.w12, self.w3
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.w3(ffn_activation(self.w12(x), self.cfg))
 
 
 class Block(nn.Module):
@@ -346,23 +406,29 @@ class Block(nn.Module):
         self.attn = Attention(cfg)
         self.ls1 = LayerScale(cfg.embed_dim)
         self.norm2 = nn.LayerNorm(cfg.embed_dim, eps=cfg.ln_eps)
-        self.mlp = Mlp(cfg)
+        self.mlp = SwiGLUFFN(cfg) if cfg.ffn == "swiglu" else Mlp(cfg)
         self.ls2 = LayerScale(cfg.embed_dim)
 
     def forward(self, x: torch.Tensor, use_kernels: bool, facet: str | None = None) -> torch.Tensor:
         """The block's output, or with ``facet`` ('query' | 'key' | 'value')
-        that projection of its normed input, (B, h, T, hd)."""
+        that projection of its normed input, (B, h, T, hd), or ('attn') the
+        softmax probabilities of its query and key, (B, h, T, T) f32."""
         if facet is not None:
-            qkv = self.attn.qkv_heads(_layernorm(x, self.norm1))     # (3, B, T, h, hd)
-            return qkv[("query", "key", "value").index(facet)].transpose(1, 2)
+            qkv = self.attn.qkv_heads(_layernorm(x, self.norm1)).transpose(2, 3)  # (3, B, h, T, hd)
+            if facet == "attn":
+                return attention_probs(qkv[0], qkv[1])
+            return qkv[("query", "key", "value").index(facet)]
         x = x + self.ls1.gamma * self.attn(_layernorm(x, self.norm1), use_kernels)
         return x + self.ls2.gamma * self.mlp(_layernorm(x, self.norm2))
 
 
 class ViT(nn.Module):
-    """Weights and structure of the ViT; :func:`vit_features` runs it."""
+    """Weights and structure of the ViT; :func:`vit_features` runs it.
+    ``final_norm`` False: no final LayerNorm, for weights that carry none
+    (the facet path's, such as ``ckpt_real518.npz``), so that none is made
+    up for them; :meth:`from_state_dict` decides it from the weights."""
 
-    def __init__(self, cfg: ViTConfig):
+    def __init__(self, cfg: ViTConfig, final_norm: bool = True):
         super().__init__()
         self.cfg = cfg
         D = cfg.embed_dim
@@ -370,6 +436,15 @@ class ViT(nn.Module):
         self.cls_token = nn.Parameter(torch.zeros(1, 1, D))
         self.pos_embed = nn.Parameter(torch.zeros(1, 1 + cfg.pos_grid ** 2, D))
         self.blocks = nn.ModuleList(Block(cfg) for _ in range(cfg.depth))
+        self.norm = nn.LayerNorm(D, eps=cfg.ln_eps) if final_norm else None
+
+    @classmethod
+    def from_state_dict(cls, cfg: ViTConfig, state_dict: dict) -> "ViT":
+        """A ViT of ``cfg`` holding ``state_dict``, with the final norm
+        where the weights carry one (``norm.weight``)."""
+        net = cls(cfg, final_norm="norm.weight" in state_dict)
+        net.load_state_dict(state_dict)
+        return net
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -457,14 +532,16 @@ def vit_features(net: ViT, images: torch.Tensor, layer: int = 11,
     """Facet after block ``layer``, running blocks 0..layer only.
 
     facet 'token' -> (B, 1+t, D) block output (with cls);
-    'query' | 'key' | 'value' -> (B, h, 1+t, hd) of block ``layer``.
+    'query' | 'key' | 'value' -> (B, h, 1+t, hd) of block ``layer``;
+    'attn' -> (B, h, 1+t, 1+t) f32 softmax probabilities of block ``layer``
+    (:func:`attention_probs`, never an attention kernel).
 
     ``compute_dtype`` (the training forward): the images are rounded to it,
     the embedding computes in the promoted dtype of the images and its
     weights, and the blocks run in it on casts of their parameters made in
     the autograd graph; None runs every parameter in its own dtype.
     """
-    if facet not in ("token", "query", "key", "value"):
+    if facet not in FACETS:
         raise ValueError(f"unsupported facet {facet!r}")
     if compute_dtype is None:
         x = net.embed(images).to(net.compute_dtype)
@@ -480,10 +557,43 @@ def vit_features(net: ViT, images: torch.Tensor, layer: int = 11,
     return _block_call(net.blocks[layer], x, use_kernels, compute_dtype, facet)
 
 
+def vit_forward(net: ViT, images: torch.Tensor, use_kernels: bool = True) -> torch.Tensor:
+    """Every block, then the final LayerNorm with f32 statistics -> (B, 1+t,
+    D) in the compute dtype (``vitvs_tpu/models/vit.py:vit_forward``).
+    Weights without the final norm raise ``ValueError``."""
+    if net.norm is None:
+        raise ValueError("this ViT's weights carry no final norm (norm.weight, norm.bias): "
+                         "vit_forward needs one; vit_features does not")
+    x = net.embed(images).to(net.compute_dtype)
+    for blk in net.blocks:
+        x = _run_block(net, blk, x, use_kernels, None)
+    return _layernorm(x, net.norm)
+
+
+def count_flops_per_image(cfg: ViTConfig, input_size: int, layer: int | None = None) -> float:
+    """Matmul FLOPs of one facet forward, for reports and cost models;
+    ``vitvs_tpu/models/vit.py:count_flops_per_image``, copied (the FFN at
+    int(D * mlp_ratio) wide and not SwiGLU's width, as there)."""
+    gh, gw = cfg.num_patches(input_size, input_size)
+    t = gh * gw + 1
+    D, H = cfg.embed_dim, int(cfg.embed_dim * cfg.mlp_ratio)
+    nblocks = (layer + 1) if layer is not None else cfg.depth
+    per_block = (
+        2 * t * D * 3 * D          # qkv
+        + 2 * t * t * D * 2        # qk^T and probs@v
+        + 2 * t * D * D            # proj
+        + 2 * t * D * H * 2        # mlp
+    )
+    patch = 2 * t * (cfg.patch_size ** 2 * 3) * D
+    return float(nblocks * per_block + patch)
+
+
 def _trunc_normal(shape, generator: torch.Generator, std: float = 0.02) -> torch.Tensor:
-    """Normal(0, std) truncated to +-2 std, by inverse CDF of seeded uniforms."""
+    """Normal(0, std) truncated to +-2 std, by inverse CDF of seeded
+    uniforms drawn on the generator's device."""
     lo, hi = (1.0 + math.erf(-2.0 / math.sqrt(2.0))) / 2.0, (1.0 + math.erf(2.0 / math.sqrt(2.0))) / 2.0
-    u = lo + (hi - lo) * torch.rand(shape, generator=generator, dtype=torch.float64)
+    u = lo + (hi - lo) * torch.rand(shape, generator=generator, dtype=torch.float64,
+                                    device=generator.device)
     return (math.sqrt(2.0) * torch.erfinv(2.0 * u - 1.0) * std).float()
 
 
@@ -491,10 +601,13 @@ def init_vit(cfg: ViTConfig, generator: torch.Generator, device="cuda",
              layerscale: float | None = None) -> ViT:
     """Seeded random weights in the layout of ``vitvs_tpu.models.vit.init_vit``:
     truncated normal (std 0.02) kernels, cls and pos embeddings; zero biases;
-    unit norms; LayerScale 1e-5 (1.0 without LayerScale) unless
-    ``layerscale`` is given.  ``generator`` is a CPU generator, so the
-    weights are the same whatever the device."""
-    net = ViT(cfg)
+    unit norms, the final one included; LayerScale 1e-5 (1.0 without
+    LayerScale) unless ``layerscale`` is given.  With a CPU generator the
+    weights are the same whatever the device; a generator of another device
+    builds and draws them there (the same distribution, other values: a
+    ViT-g's 1.1 B draws on the host take tens of seconds)."""
+    with torch.device(generator.device):
+        net = ViT(cfg)
     ls = layerscale if layerscale is not None else (1e-5 if cfg.use_layerscale else 1.0)
     with torch.no_grad():
         for name, p in net.named_parameters():
@@ -502,7 +615,7 @@ def init_vit(cfg: ViTConfig, generator: torch.Generator, device="cuda",
                 p.fill_(ls)
             elif name.endswith("bias"):
                 p.zero_()
-            elif ".norm" in name:
+            elif name.startswith("norm.") or ".norm" in name:
                 p.fill_(1.0)
             else:
                 p.copy_(_trunc_normal(p.shape, generator))

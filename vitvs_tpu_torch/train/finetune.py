@@ -37,10 +37,9 @@ import torch
 from vitvs_tpu_torch.core import camera as camera_mod
 from vitvs_tpu_torch.core import se3
 from vitvs_tpu_torch.harness.pipeline import (ServoModel, batch_descriptors, goal_descriptors,
-                                              preprocess, quantized_vit)
+                                              match_frames, preprocess, quantized_vit)
 from vitvs_tpu_torch.harness.samplers import (DESIRED_ORIENTATION, DESIRED_POSITION,
                                               REFERENCE_POINT)
-from vitvs_tpu_torch.match.correspondence import find_correspondences
 from vitvs_tpu_torch.models.extractor import extract_descriptors
 from vitvs_tpu_torch.models.quant import QuantViT
 from vitvs_tpu_torch.models.vit import ViT
@@ -447,9 +446,10 @@ def matching_quality(net: ViT | QuantViT, model: ServoModel, scene: Scene,
                      num_pairs: int | None = None) -> tuple[float, float]:
     """Serving-path evaluation: the goal view against ``num_views``
     episode-like views (unperturbed) through ``goal_descriptors``,
-    ``batch_descriptors`` and the batched ``find_correspondences`` (the
-    hand kernels when ``model.use_kernels``; int8 and source-quantized bins
-    on a quantized model).  Returns (mean valid-pair fraction, mean share of
+    ``batch_descriptors`` and the batched match (``match_frames``: the hand
+    kernels when ``model.use_kernels``; int8 and source-quantized bins on a
+    quantized model; the factorized binned similarity under
+    ``fast_binned_match``).  Returns (mean valid-pair fraction, mean share of
     valid pairs within one patch of the geometric ground truth)."""
     k = num_pairs or model.cfg.num_pairs
     gh, gw = model.grid()
@@ -458,10 +458,8 @@ def matching_quality(net: ViT | QuantViT, model: ServoModel, scene: Scene,
     gd = goal_descriptors(serve, model, goal_rgb)
     db = batch_descriptors(serve, model, rgb_b)
     scores = torch.rand((num_views, gh * gw), generator=generator).to(model.device)
-    m = find_correspondences(gd, db, (gh, gw), k, scores,
-                             distance_threshold=model.cfg.thresh_filter_keypoints,
-                             use_kernel=model.use_kernels and not model.quantized,
-                             int8=model.quantized, use_match_kernel=model.use_match_kernel)
+    m, _ = match_frames(model, gd, db, k, scores,
+                        distance_threshold=model.cfg.thresh_filter_keypoints)
     # the ground truth: goal patch p1 lands at idx_ab[p1]; a match counts as
     # correct within one patch of it
     pts1, pts2 = m.points1.long(), m.points2.long()

@@ -100,9 +100,7 @@ def _weights(path: str, vit_cfg, device) -> torch.nn.Module:
     from vitvs_tpu_torch.models.vit import ViT
 
     src = load_checkpoint(path, VSConfig(model_name=vit_cfg.model_name), "cpu")
-    net = ViT(vit_cfg)
-    net.load_state_dict(src.state_dict())
-    return net.to(device)
+    return ViT.from_state_dict(vit_cfg, src.state_dict()).to(device)
 
 
 def train(args: argparse.Namespace, budget_s: float | None = None, log=print) -> dict:
