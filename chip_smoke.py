@@ -222,6 +222,34 @@ Phases, each announced with a flushed, timestamped start/done line:
    f32 cosine; (e) the 'attn' facet of both, float and int8, and the float
    ones' saliency, card vs the card machine's CPU (ATTN_FACET_TOL), rows
    summing to 1;
+3l. the last modules: (a) exact attention at other head widths than 64
+   (csrc/attention_hd.cu, bf16 and f32) against the plain versions at head
+   widths 48, 192, 588 and 768 (one head, T = 485, two launches bit for bit),
+   B = 2 at T in {1, 63, 65, 485} and rows of logits of about +-200, and f32
+   at pixel8's (1, 197, 1, 192), B = 1 and 2, whose error its row reports; (b) the
+   pixel baseline pixel14 @ 308 (configs/config.yaml's settings with
+   model_name pixel14, layer 0, bf16, build_model's pixel weights): goal + 5
+   servo steps through the kernels and plain, teacher-forced, 6 any-width
+   attention and 5 bf16-matcher launches, and its step's median ms; (c)
+   tests/test_baselines.py's pixel8 @ 112 episode in f32 (any-width f32
+   attention, the f32 matcher; 121 and 120 launches), ending below half its
+   start error; (d) run_benchmark on the trained ViT-S/14 @ 518, episodes 0
+   to 7 as one chunk for 60 steps on a (dp, tp) = (2, 2) mesh of the one
+   card (3 heads a shard; launches 2 x 12 x (1 + 2 + 2 a chunk-step) exact
+   attention, 2 x (1 + 1 a chunk-step) bf16 matcher), every dp row's
+   chunk-step teacher-forced through the unsplit ViT's plain step as in 3f
+   (twists within 1e-3 where pairs agree, on at least a quarter of the
+   episode-steps; the split's goal descriptors against the plain ones), then
+   held against the run without a mesh up to each episode's first pair flip;
+   (e) render_ir and organized_point_cloud at 640 x 480 from the goal pose,
+   the card against the card machine's CPU, and the IR noise's spread; (f)
+   the live channel on episodes 0 and 1, two segments: its PNGs (Pillow),
+   latest.png, and flags and final poses equal to a run without it; (g) the
+   native sensor bridge built from native/sensor_bridge.cpp into
+   vitvs_tpu_torch/_build/: a 640 x 480 four-sensor frame round-trips its
+   buffer, and ServoLoop over it drives 5 steps with the viz hook on; (h)
+   StageTimer over a servo step's stages and a trace_to trace holding the
+   annotated ranges and the card's kernels;
 4. times on the card (CUDA events / synchronized host clock) beside each
    kernel's bound and the PyTorch library call for the same function (the
    exact kernels at T = 485 and T = 1370; the int8 kernel from the bf16
@@ -241,7 +269,9 @@ Phases, each announced with a flushed, timestamped start/done line:
    at ViT-g's shapes beside their bounds, plain versions and library calls,
    with the factorized path's product (cuBLAS bf16, f32 output) and whole
    similarity beside 2a, and the ViT-g step and chunk-step of 8,
-   materialized against factorized, in 7 alternating rounds.  The
+   materialized against factorized, in 7 alternating rounds; the
+   any-width attention at pixel14's (1, 485, 1, 588) bf16 and pixel8's
+   (1, 197, 1, 192) f32 beside its plain version and SDPA.  The
    f32 attention kernel is held to the tensor-core bound of f32-accurate
    work (three TF32 passes), its f32 FMA bound logged beside it.
 
@@ -259,6 +289,7 @@ import copy
 import dataclasses
 import json
 import math
+import os
 import shutil
 import statistics
 import subprocess
@@ -283,28 +314,36 @@ from vitvs_tpu_torch.harness.benchmark import (build_model, cast_for_benchmark, 
 from vitvs_tpu_torch.harness.chunks import load_episodes
 from vitvs_tpu_torch.harness.evals import convergence_stats
 from vitvs_tpu_torch.harness.pipeline import (ServoModel, batch_descriptors, goal_descriptors,
+                                              match_frames,
                                               preprocess, quantized_vit, servo_step)
-from vitvs_tpu_torch.harness.rollout import episode_init, goal_pose, rollout_segment
+from vitvs_tpu_torch.harness.rollout import (episode_init, goal_pose, rollout_episode,
+                                             rollout_segment)
 from vitvs_tpu_torch.harness.samplers import (DESIRED_ORIENTATION, DESIRED_POSITION,
                                               generate_episode_starts)
+from vitvs_tpu_torch.io_bridge import native
 from vitvs_tpu_torch.io_bridge.config import VSConfig
+from vitvs_tpu_torch.io_bridge.host_loop import ServoLoop
 from vitvs_tpu_torch.match.binned import (QuantizedBinned, binned_cosine_similarity,
                                           quantize_binned_int8)
 from vitvs_tpu_torch.match.correspondence import cosine_similarity_matrix
+from vitvs_tpu_torch.models.baselines import init_pixel_params
 from vitvs_tpu_torch.models.convert import TRAINED_S518, load_exported, save_exported
-from vitvs_tpu_torch.models.extractor import (extract_saliency_maps, log_bin,
+from vitvs_tpu_torch.models.extractor import (extract_descriptors, extract_saliency_maps, log_bin,
                                               saliency_from_attention)
 from vitvs_tpu_torch.models.quant import (QuantViT, _block_q, _nomax_attention, static_quant_act,
                                           vit_features_quant)
 from vitvs_tpu_torch.models.vit import ViT, init_vit, vit_features, vit_forward
 from vitvs_tpu_torch.ops import _build, attention, attn_int8, matcher
 from vitvs_tpu_torch.ops.int_mm import int8_bmm
+from vitvs_tpu_torch.parallel import make_mesh
 from vitvs_tpu_torch.sim.env import observe
-from vitvs_tpu_torch.sim.scene import Scene, load_poster_scene
+from vitvs_tpu_torch.sim.pointcloud import organized_point_cloud
+from vitvs_tpu_torch.sim.scene import Scene, load_poster_scene, make_synthetic_poster, render_ir
 from vitvs_tpu_torch.train import train_servo
 from vitvs_tpu_torch.train.finetune import (_servo_batch_loss, init_train_state,
                                             make_servo_pair_batch, make_servo_train_epoch,
                                             matching_quality, warmup_cosine_decay_schedule)
+from vitvs_tpu_torch.utils.profiling import TRACE_FILE, StageTimer, annotate, trace_to
 
 T0 = time.perf_counter()
 
@@ -504,6 +543,25 @@ FAST_SIM_TOL = {"float": 1e-2, "int8": 5e-2}
 # rows' argmaxes equal but where two candidates lie that close
 FAST_SIM_F32_TOL = 1e-4
 FAST_ARGMAX_F32_MIN = 0.99
+# phase 3l: the pixel baselines (one head of width 3 P^2), the mesh, the sensors,
+# the live channel, the native bridge and stage profiling
+PIXEL_MODEL = "pixel14"
+PIXEL_HD = (48, 192, 588, 768)                 # pixel4, 8, 14 and 16's head widths
+PIXEL_T = (1, 63, 65, 485)
+PIXEL_ATTN_SHAPE = (1, 485, 1, 588)            # pixel14 @ 308: 22 x 22 patches + CLS
+PIXEL_F32_ATTN_SHAPE = (1, 197, 1, 192)        # pixel8 @ 112 in f32: 14 x 14 + CLS
+MESH_SHAPE = (2, 2)                            # (dp, tp) cells, all on the one card
+# the least share of the mesh's episode-steps whose pairs agree with the unsplit
+# plain step's, teacher-forced (phase 3f's chunk: 323 of 480 on kernels alone);
+# a split that scrambled heads would leave next to none
+MESH_MIN_COMPARED = 0.25
+# render_ir on the card against the CPU: the bilinear texture reads and the luma
+# round in the last bits on either side, so a value within that of a level's
+# midpoint lands on the other level: at most this share of the pixels, one level
+IR_LEVEL_SHARE = 1e-3
+IR_NOISE_BAND = (0.045, 0.055)                 # std of the noise (0.05) after 8-bit levels
+LIVE_STEPS = 20
+LIVE_SEGMENT = 10
 # the reference's npz: its 22 arrays and the run time
 NPZ_KEYS = ("initial_positions", "initial_orientations", "final_positions",
             "final_quaternions", "convergence_flags", "position_errors", "orientation_errors",
@@ -979,6 +1037,8 @@ def float_twists(fnet, cfg: VSConfig, device, seed=0) -> list:
 
 def _counters():
     return {"attention": attention.mha_attention, "attention_f32": attention.mha_attention_f32,
+            "attention_hd": attention.mha_attention_hd,
+            "attention_hd_f32": attention.mha_attention_hd_f32,
             "attention_fast": attention.mha_attention_fast,
             "attn_int8": attn_int8.fused_int8_attention, "matcher": matcher.dual_argmax_cosine,
             "matcher_bf16": matcher.dual_argmax_cosine_bf16}
@@ -1375,6 +1435,38 @@ def run_trained_loop(net, cfg: VSConfig, model: ServoModel, scene: Scene, out_di
     return out
 
 
+def teacher_forcer(net, model: ServoModel, scene: Scene, episodes):
+    """An ``on_step`` hook that hands every chunk-step (or a mesh's dp row's
+    share of it) to the plain batched step of the unsplit ``net``, cast as
+    the benchmark casts it, with the plain goal descriptors: the same frames,
+    EMA, commands and pair scores.  Per episode (its place in ``episodes``)
+    it counts the pairs that differ, and holds the twists within TWIST_TOL
+    where an episode's pairs agree (the caller holds the tally's error to
+    TWIST_TOL).  Returns (the tally, the hook, the plain goal descriptors)."""
+    model_plain = dataclasses.replace(model, use_kernels=False)
+    cast = cast_for_benchmark(net, model.compute_dtype)
+    goal_plain = goal_descriptors(cast, model_plain,
+                                  observe(scene, model.camera, *goal_pose(model.device))[0])
+    place = {int(e): j for j, e in enumerate(episodes)}
+    forced = {"flips": [0] * len(episodes), "steps_with_flips": [0] * len(episodes),
+              "twist_max_abs_err": 0.0, "episode_steps_compared": 0}
+
+    def on_step(abs_ids, inputs, result):
+        ref = servo_step(cast, model_plain, goal_plain, inputs.rgb, inputs.depth, inputs.ema,
+                         inputs.prev_v_c, scores=inputs.scores)
+        diff = (~same_pairs(ref, result)).sum(-1).tolist()
+        for ep, f in zip(np.asarray(abs_ids).tolist(), diff):
+            forced["flips"][place[int(ep)]] += f
+            forced["steps_with_flips"][place[int(ep)]] += int(f > 0)
+        agree = torch.tensor([f == 0 for f in diff], device=result.body_twist.device)
+        if bool(agree.any()):
+            err = (ref.body_twist - result.body_twist).abs().amax(-1)[agree].max().item()
+            forced["twist_max_abs_err"] = max(forced["twist_max_abs_err"], err)
+            forced["episode_steps_compared"] += int(agree.sum())
+
+    return forced, on_step, goal_plain
+
+
 def run_trained_chunk(net, cfg: VSConfig, model: ServoModel, scene: Scene, out_dir: str,
                       episodes=CHUNK_EPISODES, num_steps: int = CHUNK_STEPS,
                       segment_steps: int = CHUNK_SEGMENT,
@@ -1387,29 +1479,14 @@ def run_trained_chunk(net, cfg: VSConfig, model: ServoModel, scene: Scene, out_d
     agree, flips counted per episode.  Then the same episodes one a chunk
     for ``alone_steps`` steps, each held against its item of the chunk up to
     its first step whose pairs differ (the trajectories part there)."""
-    model_plain = dataclasses.replace(model, use_kernels=False)
-    cast = cast_for_benchmark(net, model.compute_dtype)
-    goal_plain = goal_descriptors(cast, model_plain,
-                                  observe(scene, model.camera, *goal_pose(model.device))[0])
     nb = len(episodes)
     common = dict(rotation_search=True, segment_steps=segment_steps, verbose=False,
                   device=model.device, episode_indices=episodes)
-    forced = {"flips": [0] * nb, "steps_with_flips": [0] * nb, "twist_max_abs_err": 0.0,
-              "episode_steps_compared": 0}
+    forced, force, _ = teacher_forcer(net, model, scene, episodes)
     kept = []
 
     def on_step(abs_ids, inputs, result):
-        ref = servo_step(cast, model_plain, goal_plain, inputs.rgb, inputs.depth, inputs.ema,
-                         inputs.prev_v_c, scores=inputs.scores)
-        diff = (~same_pairs(ref, result)).sum(-1).tolist()
-        for j, f in enumerate(diff):
-            forced["flips"][j] += f
-            forced["steps_with_flips"][j] += int(f > 0)
-        agree = torch.tensor([f == 0 for f in diff], device=result.body_twist.device)
-        if bool(agree.any()):
-            err = (ref.body_twist - result.body_twist).abs().amax(-1)[agree].max().item()
-            forced["twist_max_abs_err"] = max(forced["twist_max_abs_err"], err)
-            forced["episode_steps_compared"] += int(agree.sum())
+        force(abs_ids, inputs, result)
         if len(kept) < alone_steps:
             kept.append(result)
 
@@ -2733,6 +2810,412 @@ def run_vitg_phase(device, scene: Scene, tnet, tnet32, tmodel: ServoModel) -> di
 
 
 # ---------------------------------------------------------------------------
+# phase 3l: pixel baselines (any head width), the mesh, sensors, the live
+# channel, the native bridge and stage profiling
+# ---------------------------------------------------------------------------
+
+
+def pixel_config(name: str = PIXEL_MODEL) -> VSConfig:
+    """configs/config.yaml's settings with a pixel baseline (its one block:
+    layer 0)."""
+    return reference_config().replace(model_name=name, layer=0)
+
+
+def pixel_loop_config() -> VSConfig:
+    """tests/test_baselines.py's pixel8 episode: 128 x 128 at 112, 120 steps."""
+    return VSConfig(u_max=128, v_max=128, f_x=100.5, f_y=100.5, dino_input_size=112,
+                    num_pairs=16, lambda_=0.5, control_dt=0.1, ema_alpha=0.8,
+                    model_name="pixel8", layer=0, pinv_mode="dls", max_iterations=120)
+
+
+def check_attention_hd(device, dtype=torch.bfloat16) -> dict:
+    """The any-width kernel of ``dtype`` against the plain version at each
+    head width of PIXEL_HD (one head, T = 485, two launches bit for bit; B =
+    2 at each T of PIXEL_T; rows whose scaled logits are about +-200).
+    Returns the max abs error at each width's (1, 485, 1, d)."""
+    f32 = dtype == torch.float32
+    tol, large = (ATTN_F32_TOL, LARGE_LOGIT_F32_TOL) if f32 else (ATTN_TOL, ATTN_TOL)
+    return {d: check_attention(device, shape=(1, 485, 1, d), ts=PIXEL_T, seed=60 + i,
+                               dtype=dtype, tol=tol, large_tol=large)
+            for i, d in enumerate(PIXEL_HD)}
+
+
+def run_pixel_loop(device) -> dict:
+    """tests/test_baselines.py:38-54's episode on the card in f32 through the
+    any-width f32 kernel and the f32 matcher: pixel8 from goal + (0.10,
+    -0.08, 0.15), 120 steps; its error must fall below half the start's."""
+    cfg = pixel_loop_config()
+    model = ServoModel.create(cfg, compute_dtype=torch.float32, device=device)
+    net = init_pixel_params(model.vit, device=device).eval()
+    scene = Scene.create(make_synthetic_poster(256, seed=3), device=device)
+    gp, gq = goal_pose(device)
+    for fn in _counters().values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    goal = goal_descriptors(net, model, observe(scene, model.camera, gp, gq)[0])
+    start = gp + torch.tensor([0.10, -0.08, 0.15], device=device)
+    res = rollout_episode(net, model, scene, goal, start, gq,
+                          generator=torch.Generator(device).manual_seed(0),
+                          num_steps=cfg.max_iterations)
+    sync(device)
+    wall_s = time.perf_counter() - t0
+    e0 = float(torch.linalg.vector_norm(start - gp)) * 100.0
+    et = float(res.error_history[-1, 0])
+    launches = {k: fn.launches for k, fn in _counters().items()}
+    want = {k: 0 for k in _counters()}
+    want.update(attention_hd_f32=1 + cfg.max_iterations, matcher=cfg.max_iterations)
+    if not et < 0.5 * e0:
+        raise AssertionError(f"pixel8 loop: error {et} cm not below half the start's {e0} cm")
+    return {"start_err_cm": e0, "final_err_cm": et, "converged": bool(res.converged),
+            "iterations": int(res.iterations), "wall_s": wall_s, "launches": launches,
+            "launches_on_the_card": want}
+
+
+def run_mesh(net, cfg: VSConfig, model: ServoModel, scene: Scene, episodes=CHUNK_EPISODES,
+             num_steps: int = CHUNK_STEPS, segment_steps: int = CHUNK_SEGMENT,
+             min_compared: float = MESH_MIN_COMPARED) -> dict:
+    """run_benchmark on ``episodes`` as one chunk with rotation search on a
+    (dp, tp) = MESH_SHAPE mesh of the one card.  Every dp row's chunk-step
+    is teacher-forced through the unsplit ViT's plain step on the same
+    inputs (:func:`teacher_forcer`, as phase 3f): twists within TWIST_TOL
+    where an episode's pairs agree, on at least ``min_compared`` of the
+    episode-steps; the split's goal descriptors within DESC_REL_TOL and
+    DESC_COS_MIN of the plain unsplit ones.  Then the same run without a
+    mesh: twists within TWIST_TOL up to each episode's first pair flip (the
+    free runs part there, so the flags and final poses are logged, not
+    held).  Returns the launches beside those the split gives on the card
+    (each row's forward runs its tp shards' heads, the goal on row 0, a
+    matcher launch a row)."""
+    dp, tp = MESH_SHAPE
+    mesh = make_mesh(devices=[torch.device(model.device)] * (dp * tp), tp=tp)
+    common = dict(rotation_search=True, segment_steps=segment_steps, verbose=False,
+                  device=model.device, episode_indices=episodes, chunk=len(episodes),
+                  num_steps=num_steps, save=False)
+    forced, force, goal_plain = teacher_forcer(net, model, scene, episodes)
+    seen = {"mesh": {}, "one": {}}
+
+    def collect(name):
+        def on_step(abs_ids, inputs, result):
+            if name == "mesh":
+                force(abs_ids, inputs, result)
+            for j, ep in enumerate(abs_ids.tolist()):
+                seen[name].setdefault(int(ep), []).append(item(result, j))
+        return on_step
+
+    for fn in _counters().values():
+        fn.launches = 0
+    sync(model.device)
+    t0 = time.perf_counter()
+    run = run_benchmark(cfg, net=net, model=model, scene=scene, mesh=mesh,
+                        on_step=collect("mesh"), **common)
+    sync(model.device)
+    wall_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in _counters().items()}
+    heads = {sh.heads for blk in run.net.blocks for sh in blk.shards}
+    if heads != {model.vit.num_heads // tp}:
+        raise AssertionError(f"mesh: shards hold {heads} heads")
+    blocks = cfg.layer + 1
+    want = {k: 0 for k in _counters()}
+    want.update(attention=tp * blocks * (1 + dp + dp * run.chunk_steps),
+                matcher_bf16=dp * (1 + run.chunk_steps))
+    episode_steps = len(episodes) * run.chunk_steps
+    if not forced["twist_max_abs_err"] <= TWIST_TOL:
+        raise AssertionError(f"mesh, teacher-forced: twists differ by "
+                             f"{forced['twist_max_abs_err']} > {TWIST_TOL}")
+    if not forced["episode_steps_compared"] >= min_compared * episode_steps:
+        raise AssertionError(f"mesh, teacher-forced: pairs agree on "
+                             f"{forced['episode_steps_compared']} of {episode_steps} "
+                             f"episode-steps, fewer than {min_compared:.0%}")
+    goal_rgb = observe(scene, model.camera, *goal_pose(model.device))[0]
+    goal_split = goal_descriptors(run.net, run.model, goal_rgb).float()
+    goal_ref = goal_plain.float()
+    desc_rel = ((goal_split - goal_ref).abs().max() / goal_ref.abs().max()).item()
+    row_cos = torch.nn.functional.cosine_similarity(goal_split, goal_ref, dim=-1).min().item()
+    if not (desc_rel <= DESC_REL_TOL and row_cos >= DESC_COS_MIN):
+        raise AssertionError(f"mesh goal descriptors against the unsplit plain ones: max "
+                             f"|diff| / max |ref| {desc_rel}, least row cosine {row_cos}")
+    one = run_benchmark(cfg, net=net, model=model, scene=scene, on_step=collect("one"), **common)
+    first_flip, twist_err, compared = [], 0.0, 0
+    for ep in episodes:
+        parted = None
+        for step, (a, b) in enumerate(zip(seen["mesh"][ep], seen["one"][ep])):
+            if not bool(same_pairs(a, b).all()):
+                parted = step
+                break
+            twist_err = max(twist_err, (a.body_twist - b.body_twist).abs().max().item())
+            compared += 1
+        first_flip.append(parted)
+    if not twist_err <= TWIST_TOL:
+        raise AssertionError(f"mesh against one device: twists differ by {twist_err} > "
+                             f"{TWIST_TOL} before the first pair flip")
+    flags_equal = bool(np.array_equal(run.summaries["convergence_flags"],
+                                      one.summaries["convergence_flags"]))
+    return {"mesh": {"dp": dp, "tp": tp, "devices": str(model.device)},
+            "episodes": [int(e) for e in episodes], "chunk_steps": run.chunk_steps,
+            "wall_s": wall_s, "launches": launches, "launches_on_the_card": want,
+            "shard_heads": sorted(heads),
+            "teacher_forced": {**forced, "episode_steps": episode_steps,
+                               "goal_desc_rel_err": desc_rel, "goal_desc_row_cos_min": row_cos},
+            "free_run": {"first_flip_step": first_flip, "twist_max_abs_err": twist_err,
+                         "episode_steps_compared": compared,
+                         "convergence_flags_equal": flags_equal,
+                         "final_position_max_abs_diff": float(np.abs(
+                             np.asarray(run.summaries["final_positions"], np.float64)
+                             - np.asarray(one.summaries["final_positions"], np.float64)).max())}}
+
+
+def check_sensors(device) -> dict:
+    """render_ir and organized_point_cloud at 640 x 480 from the goal pose,
+    the card against the same functions on the card machine's CPU: IR
+    levels within one 8-bit level at no more than IR_LEVEL_SHARE of the
+    pixels, the cloud within 1e-6 (the same depth input) with the same NaN
+    positions; the noise's spread on the card (std within IR_NOISE_BAND)
+    and a generator that gates it."""
+    out = {}
+    views = {}
+    for dev in (device, "cpu"):
+        scene = load_poster_scene(device=dev)
+        cam = ServoModel.create(reference_config(), device=dev).camera
+        gp, gq = goal_pose(dev)
+        rgb, depth = observe(scene, cam, gp, gq)
+        views[dev] = (scene, cam, gp, gq, rgb, depth, render_ir(scene, cam, gp, gq))
+    (scene, cam, gp, gq, rgb, depth, ir), cpu = views[device], views["cpu"]
+    for name, a, b in (("ir1", ir[0], cpu[6][0]), ("ir2", ir[1], cpu[6][1])):
+        diff = (a.cpu() - b).abs()
+        share = float((diff > 0).float().mean())
+        if not (float(diff.max()) <= 1.0 / 255.0 + 1e-6 and share <= IR_LEVEL_SHARE):
+            raise AssertionError(f"{name}: card vs CPU max |diff| {float(diff.max())}, "
+                                 f"share {share}")
+        out[f"{name}_pixels_differing"] = int((diff > 0).sum())
+    cloud = organized_point_cloud(cpu[5].to(device), cpu[4].to(device))
+    ref = organized_point_cloud(cpu[5], cpu[4])
+    nan_same = bool(torch.equal(torch.isnan(cloud.cpu()), torch.isnan(ref)))
+    err = float(torch.nan_to_num(cloud.cpu() - ref).abs().max())
+    if not (nan_same and err <= 1e-6 and tuple(cloud.shape) == (480, 640, 6)):
+        raise AssertionError(f"point cloud: card vs CPU max |diff| {err}, NaN same {nan_same}")
+    noisy, again, other = (render_ir(scene, cam, gp, gq,
+                                     generator=torch.Generator(device).manual_seed(s))
+                           for s in (5, 5, 6))
+    mid = (ir[0] > 0.2) & (ir[0] < 0.8)
+    std = float((noisy[0] - ir[0])[mid].std())
+    if not (IR_NOISE_BAND[0] <= std <= IR_NOISE_BAND[1] and torch.equal(noisy[0], again[0])
+            and not torch.equal(noisy[0], other[0])):
+        raise AssertionError(f"IR noise: std {std}, or the generator does not gate it")
+    out.update(cloud_max_abs_err=err, cloud_nan_points=int(torch.isnan(ref[..., 0]).sum()),
+               ir_noise_std=std, ir_shape=list(ir[0].shape))
+    return out
+
+
+def run_live(net, cfg: VSConfig, model: ServoModel, scene: Scene, out_dir: Path,
+             episodes=(0, 1), num_steps: int = LIVE_STEPS, segment_steps: int = LIVE_SEGMENT
+             ) -> dict:
+    """run_benchmark with the live channel on ``episodes`` (one chunk, no
+    rotation search) for ``num_steps`` in segments of ``segment_steps``:
+    one snapshot a segment, ``latest.png`` linking the last, and the flags
+    and final poses equal to a run without it."""
+    common = dict(rotation_search=False, segment_steps=segment_steps, verbose=False,
+                  device=model.device, episode_indices=list(episodes), chunk=len(episodes),
+                  num_steps=num_steps, save=False)
+    live = out_dir / "live"
+    with_live = run_benchmark(cfg, net=net, model=model, scene=scene, live_dir=str(live),
+                              **common)
+    plain = run_benchmark(cfg, net=net, model=model, scene=scene, **common)
+    files = sorted(p.name for p in live.glob("ep*.png"))
+    want = [f"ep{episodes[0]:04d}_step{t:05d}.png"
+            for t in range(segment_steps, num_steps + 1, segment_steps)]
+    if files != want or os.readlink(live / "latest.png") != want[-1]:
+        raise AssertionError(f"live channel: files {files}, latest "
+                             f"{os.readlink(live / 'latest.png')}; want {want}")
+    for k in ("convergence_flags", "final_positions", "final_quaternions"):
+        if not np.array_equal(np.asarray(with_live.summaries[k], np.float64),
+                              np.asarray(plain.summaries[k], np.float64)):
+            raise AssertionError(f"live channel: {k} differs from the run without it")
+    return {"files": files, "latest": os.readlink(live / "latest.png"),
+            "bytes": [(live / f).stat().st_size for f in files]}
+
+
+class _Twists:
+    """A TwistSink that keeps what it is sent."""
+
+    def __init__(self):
+        self.sent = []
+
+    def send_twist(self, twist) -> None:
+        self.sent.append(np.asarray(twist))
+
+
+def run_native(net, model: ServoModel, scene: Scene, steps: int = N_STEPS) -> dict:
+    """The native sensor bridge built from native/sensor_bridge.cpp into the
+    build directory: a 640 x 480 four-sensor frame round-trips its seqlock'd
+    buffer, then ServoLoop reads its frames from it for ``steps`` steps on
+    the card (views near the goal published before each), the viz hook
+    taking every frame."""
+    if not native.native_available():
+        raise AssertionError("the native sensor bridge did not build")
+    cam = model.camera
+    fb = native.NativeFrameBuffer(cam.width, cam.height, with_ir=True)
+    to_u8 = lambda x: (x.clamp(0, 1) * 255).round().to(torch.uint8).cpu().numpy()  # noqa: E731
+    gp, gq = goal_pose(model.device)
+    rgb, depth = observe(scene, cam, gp, gq)
+    ir = render_ir(scene, cam, gp, gq)
+    frame = (to_u8(rgb), depth.cpu().numpy(), to_u8(ir[0]), to_u8(ir[1]))
+    fb.publish(*frame)
+    stamp, r, d, i1, i2 = fb.latest_ir()
+    mm = native.depth_m_to_u16mm(frame[1])
+    if not (stamp == 1 and np.array_equal(r, frame[0]) and np.array_equal(i1, frame[2])
+            and np.array_equal(i2, frame[3]) and np.array_equal(d, native.depth_u16mm_to_m(mm))):
+        raise AssertionError("native frame buffer: the frame did not round-trip")
+    sink, shown = _Twists(), []
+    loop = ServoLoop(net, model, frame[0], fb, sink, viz_every=1, viz_sink=shown.append)
+    _, rgbs, depths = render_views(model, scene, TRAINED_STEP_OFFSETS[:steps])
+    for rgb_i, depth_i in zip(rgbs, depths):
+        fb.publish(to_u8(rgb_i), depth_i.cpu().numpy())
+        loop.iterate()
+    fb.close()
+    twists = np.stack(sink.sent)
+    if twists.shape != (steps, 6) or not np.isfinite(twists).all() or len(shown) != steps:
+        raise AssertionError(f"ServoLoop over the native buffer: twists {twists.shape}, "
+                             f"{len(shown)} viz frames")
+    return {"library": str(native.build_library().name), "round_trip": True,
+            "steps": steps, "twist_max_abs": float(np.abs(twists).max()),
+            "viz_frames": len(shown)}
+
+
+def run_stages(net, model: ServoModel, scene: Scene, trace_dir: Path, iters: int = 10) -> dict:
+    """StageTimer over a servo step's stages (render, preprocess, the ViT
+    and binning, the match, the rest of the step) against the whole step,
+    then trace_to around one step whose stages are annotated: the trace
+    file must hold the annotated ranges and, on the card, its kernels."""
+    gp, gq = goal_pose(model.device)
+    goal = goal_descriptors(net, model, observe(scene, model.camera, gp, gq)[0])
+    start = gp + torch.tensor(TRAINED_STEP_OFFSETS[0], device=model.device)
+    ema, prev = EmaState.init(device=model.device), torch.zeros(6, device=model.device)
+    t = model.grid()[0] * model.grid()[1]
+    scores = torch.rand(t, generator=torch.Generator(model.device).manual_seed(3),
+                        device=model.device)
+    timer = StageTimer()
+
+    @torch.inference_mode()
+    def staged():
+        with timer.stage("render") as h:
+            rgb, depth = h["result"] = observe(scene, model.camera, start, gq)
+        with timer.stage("preprocess") as h:
+            x = h["result"] = preprocess(model, rgb)
+        with annotate("vit+bin"), timer.stage("vit+bin") as h:
+            desc = h["result"] = extract_descriptors(
+                net, x[None], layer=model.cfg.layer, facet=model.cfg.facet, bin=True,
+                use_kernels=True)[:, 0]
+        with timer.stage("match") as h:
+            h["result"] = match_frames(model, goal, desc, model.cfg.num_pairs, scores[None])[0].sim
+        with annotate("servo_step"), timer.stage("servo_step (whole)") as h:
+            h["result"] = servo_step(net, model, goal, rgb, depth, ema, prev,
+                                     scores=scores).body_twist
+
+    for _ in range(3):
+        staged()
+    timer = StageTimer()
+    for _ in range(iters):
+        staged()
+    summary, report = timer.summary(), timer.report().splitlines()
+    with trace_to(str(trace_dir)):
+        staged()
+    events = json.loads((trace_dir / TRACE_FILE).read_text())["traceEvents"]
+    names = {e.get("name") for e in events}
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    on_card = torch.device(model.device).type == "cuda"
+    if not ({"vit+bin", "servo_step"} <= names and (kernels > 0 or not on_card)):
+        raise AssertionError(f"trace: annotated ranges {({'vit+bin', 'servo_step'} & names)}, "
+                             f"{kernels} device kernels")
+    return {"stages_mean_ms": {k: v["mean_ms"] for k, v in summary.items()},
+            "iters": iters, "report": report,
+            "trace_events": len(events), "trace_kernels": kernels}
+
+
+def time_pixel_kernels(device) -> dict:
+    """The any-width kernel at pixel14's (1, 485, 1, 588) bf16 and pixel8's
+    (1, 197, 1, 192) f32: its launch, the plain version and SDPA at the
+    shape (whatever backend it picks), with the bound."""
+    rs = np.random.default_rng(9)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {}
+    for name, shape, dtype in (("attention_hd", PIXEL_ATTN_SHAPE, torch.bfloat16),
+                               ("attention_hd_f32", PIXEL_F32_ATTN_SHAPE, torch.float32)):
+        q, k, v = (_normal(device, shape, rs, dtype) for _ in range(3))
+        qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        entry = attention.HD_ENTRIES[dtype]
+        f32 = dtype == torch.float32
+        # f32-accurate work is least on the TF32 tensor cores (TF32_PASSES
+        # passes), as row 1b's bound; the FMA bound is logged beside it
+        bound = attention_bound_ms(shape, f32=f32, tensor_cores=f32)
+        out[name] = {"shape": list(shape),
+                     "ms": cuda_ms(lambda: attention._launch(entry, q, k, v, shape[-1],
+                                                             shape[-1] ** -0.5)),
+                     "plain_ms": cuda_ms(lambda: attention.mha_attention_plain(q, k, v)),
+                     "library_ms": cuda_ms(lambda: sdpa(qh, kh, vh)),
+                     "bound_ms": bound[0], "bound_by": bound[1]}
+        if f32:
+            out[name]["fma_bound_ms"] = attention_bound_ms(shape, f32=True)[0]
+    return out
+
+
+def run_pixel_phase(device, scene: Scene, tnet, tcfg: VSConfig, tmodel: ServoModel,
+                    out_dir: Path) -> dict:
+    """Phase 3l, every part held (a failed check raises): (a) the any-width
+    kernel against plain, bf16 and f32; (b) pixel14 @ 308 bf16, goal + 5
+    steps through the kernels and plain (teacher-forced), its launches and
+    step ms; (c) the pixel8 episode in f32; (d) the mesh; (e) the sensors;
+    (f) the live channel; (g) the native bridge; (h) stage profiling.
+    Returns what the kernels line and phase 4 need."""
+    t0 = time.perf_counter()
+    errs = {"attention_hd": check_attention_hd(device),
+            "attention_hd_f32": check_attention_hd(device, torch.float32)}
+    # the f32 kernel at the shape the pixel8 episode gives it (B = 2 there too)
+    pixel8_err = check_attention(device, shape=PIXEL_F32_ATTN_SHAPE,
+                                 ts=(PIXEL_F32_ATTN_SHAPE[1],), seed=70, dtype=torch.float32,
+                                 tol=ATTN_F32_TOL, large_tol=LARGE_LOGIT_F32_TOL)
+    log(f"3l(a) any-width attention vs plain at (1, 485, 1, d) for d in {PIXEL_HD}, B = 2 at "
+        f"T = {PIXEL_T}, logits of about +-{LARGE_LOGIT}, two launches bit for bit: max abs "
+        f"err bf16 {json.dumps(errs['attention_hd'])} (tol {ATTN_TOL}), f32 "
+        f"{json.dumps(errs['attention_hd_f32'])} (tol {ATTN_F32_TOL}); f32 at pixel8's "
+        f"{PIXEL_F32_ATTN_SHAPE} {pixel8_err}")
+    pcfg = pixel_config()
+    pnet, pmodel = build_model(pcfg, device=device)
+    summ = run_main_path(pnet, pcfg, pmodel, every_step=True)
+    want = {name: 0 for name in _counters()}
+    want.update(attention_hd=1 + N_STEPS, matcher_bf16=N_STEPS)
+    if summ["launches"] != want:
+        raise AssertionError(f"pixel14 step: launch counts {summ['launches']} != {want}")
+    step_ms = time_run(step_runner(pnet, pmodel))
+    log(f"3l(b) pixel14 @ 308 bf16 (one head of 588, binned rows {9 * 588} deep), goal + "
+        f"{N_STEPS} steps, kernels vs plain, teacher-forced: {json.dumps(summ)}")
+    loop = run_pixel_loop(device)
+    log(f"3l(c) pixel8 @ 112 f32 episode of tests/test_baselines.py (kernels 1b any-width and "
+        f"2b): {json.dumps(loop)}")
+    mesh = run_mesh(tnet, tcfg, tmodel, scene)
+    log(f"3l(d) run_benchmark on a (dp, tp) = {MESH_SHAPE} mesh of the one card, trained "
+        f"ViT-S/14 @ 518, against no mesh: {json.dumps(mesh)}")
+    for what, got in (("pixel8 loop", loop), ("mesh", mesh)):
+        if got["launches"] != got["launches_on_the_card"]:
+            raise AssertionError(f"{what}: launch counts {got['launches']} != "
+                                 f"{got['launches_on_the_card']}")
+    sensors = check_sensors(device)
+    log(f"3l(e) render_ir and organized_point_cloud at 640 x 480, card vs CPU: "
+        f"{json.dumps(sensors)}")
+    live = run_live(tnet, tcfg, tmodel, scene, out_dir)
+    log(f"3l(f) live channel, episodes 0 and 1: {json.dumps(live)}")
+    nat = run_native(tnet, tmodel, scene)
+    log(f"3l(g) native sensor bridge: {json.dumps(nat)}")
+    stages = run_stages(tnet, tmodel, scene, out_dir / "trace")
+    log(f"3l(h) StageTimer and trace_to, trained ViT-S/14 @ 518: {json.dumps(stages)}")
+    log(f"phase 3l took {time.perf_counter() - t0:.1f} s")
+    return {"errs": {"attention_hd": errs["attention_hd"][PIXEL_ATTN_SHAPE[-1]],
+                     "attention_hd_f32": pixel8_err},
+            "launches": {"attention_hd": summ["launches"]["attention_hd"],
+                         "attention_hd_f32": loop["launches"]["attention_hd_f32"]},
+            "pixel14_step_ms": step_ms, "pixel": (pnet, pmodel)}
+
+
+# ---------------------------------------------------------------------------
 # phase 4: times and bounds
 # ---------------------------------------------------------------------------
 
@@ -3845,6 +4328,14 @@ def main() -> int:
         gnet, gmodel = vg["gnet"], vg["gmodel"]
         vitg_launches = vg["launches"]
 
+    with phase("3l pixel-mesh-sensors-live-native-profiling"):
+        with tempfile.TemporaryDirectory() as out:
+            px = run_pixel_phase(device, scene, tnet, tcfg, tmodel, Path(out))
+        errs.update(px["errs"])
+        launches.update(px["launches"])
+        log(f"[{card}] pixel14 @ 308 bf16 servo_step median {px['pixel14_step_ms']:.3f} ms "
+            f"(any-width attention and the bf16 matcher, kernels)")
+
     with phase("4 times"):
         step_ms = time_run(step_runner(net, model))
         log(f"[{card}] servo_step median {step_ms:.3f} ms (ViT-S/14 @ 308, bf16, kernels)")
@@ -3954,6 +4445,14 @@ def main() -> int:
         for name in ("attention_vitg", "matcher_bf16_vitg", "attn_int8_vitg"):
             times[name] = vt[name]
             bounds[name] = (vt[name]["bound_ms"], vt[name]["bound_by"])
+        for name, tm in time_pixel_kernels(device).items():
+            fma = ("" if "fma_bound_ms" not in tm else
+                   f"; f32 FMA bound {tm['fma_bound_ms']:.5f} ms")
+            log(f"[{card}] {name} at {tm['shape']}: kernel {tm['ms']:.4f} ms, plain "
+                f"{tm['plain_ms']:.4f} ms, library (SDPA) {tm['library_ms']:.4f} ms, bound "
+                f"{tm['bound_ms']:.5f} ms ({tm['bound_by']}){fma}")
+            times[name] = tm
+            bounds[name] = (tm["bound_ms"], tm["bound_by"])
         # the ViT-g step and chunk-step, materialized against factorized binning
         gfast = dataclasses.replace(gmodel, fast_binned_match=True)
         runners = {"step, materialized": step_runner(gnet, gmodel),
@@ -3990,7 +4489,12 @@ def main() -> int:
                "matcher_bf16_vitg": ("vitvs_tpu_torch/csrc/matcher.cu",
                                      "vitvs_tpu/ops/matcher.py:39"),
                "attn_int8_vitg": ("vitvs_tpu_torch/csrc/attn_int8.cu",
-                                  "vitvs_tpu/ops/attn_int8.py:80")}
+                                  "vitvs_tpu/ops/attn_int8.py:80"),
+               # kernels 1 and 1b at other head widths: pixel14's (bf16) and pixel8's (f32)
+               "attention_hd": ("vitvs_tpu_torch/csrc/attention_hd.cu",
+                                "vitvs_tpu/ops/attention.py:42"),
+               "attention_hd_f32": ("vitvs_tpu_torch/csrc/attention_hd.cu",
+                                    "vitvs_tpu/ops/attention.py:42")}
     launches.update({f"{k}_vitg": v for k, v in vitg_launches.items()})
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

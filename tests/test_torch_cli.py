@@ -92,9 +92,20 @@ def test_cli_rejects_what_the_reference_rejects(argv):
 
 
 @pytest.mark.parametrize("argv,item", [(["--mesh"], "item 8"), (["--live", "x"], "item 1")])
-def test_cli_mesh_and_live_are_not_ported(argv, item):
-    with pytest.raises(NotImplementedError, match=item):
-        cli.main(argv + ["--device", "cpu"])
+def test_cli_mesh_and_live_are_not_ported(argv, item, monkeypatch):
+    """--mesh / --tp (ROADMAP.md queue 1, item 8) and --live / --live-every
+    (item 1), which raised before they were ported, reach run_benchmark:
+    a mesh of tp cells of the CPU, the live directory and its cadence."""
+    import vitvs_tpu_torch.harness.benchmark as bench
+
+    seen = _capture(monkeypatch, bench, "run_benchmark")
+    extra = ["--tp", "2"] if item == "item 8" else ["--live-every", "3"]
+    cli.main(argv + extra + ["--device", "cpu"])
+    if item == "item 8":
+        assert seen["mesh"].shape == {"dp": 1, "tp": 2} and seen["live_dir"] is None
+        assert seen["mesh"].devices == ((torch.device("cpu"),) * 2,)
+    else:
+        assert seen["mesh"] is None and (seen["live_dir"], seen["live_every"]) == ("x", 3)
 
 
 def _capture(monkeypatch, module, name):

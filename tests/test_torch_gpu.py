@@ -775,3 +775,33 @@ def test_int8_prob_block_on_the_card_matches_the_cpu(cuda, mode):
     qnet = quantized_vit(fnet, model, [goal, *frames[chip_smoke.N_STEPS:]])
     b = chip_smoke.check_int8_block(qnet, model, goal)
     assert b["rel_err"] <= chip_smoke.INT8_BLOCK_TOL
+
+
+@pytest.mark.parametrize("hd", [1, 48, 192, 588, 768, 1024])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_any_width_attention_kernel_matches_plain(cuda, hd, dtype):
+    """Head widths other than 64 (the pixel baselines'): the any-width
+    kernel against the plain version, B = 2 at T = 485 and 65, within the
+    exact kernels' tolerances (bf16 2e-2, f32 2e-5), its own counter, two
+    launches bit for bit."""
+    counter = attention.mha_attention_hd if dtype == torch.bfloat16 else attention.mha_attention_hd_f32
+    tol = 2e-2 if dtype == torch.bfloat16 else chip_smoke.ATTN_F32_TOL
+    for T in (485, 65):
+        rs = np.random.default_rng(hd + T)
+        q, k, v = (torch.from_numpy(rs.standard_normal((2, T, 1, hd)).astype(np.float32))
+                   .cuda().to(dtype) for _ in range(3))
+        before = counter.launches
+        out = attention.mha_attention(q, k, v)
+        again = attention.mha_attention(q, k, v)
+        torch.cuda.synchronize()
+        assert counter.launches == before + 2 and torch.equal(out, again)
+        ref = attention.mha_attention_plain(q, k, v)
+        assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+def test_pixel_phase_on_the_card(cuda, tmp_path):
+    """Phase 3l's kernel checks and the pixel8 episode on the card."""
+    chip_smoke.check_attention_hd("cuda")
+    chip_smoke.check_attention_hd("cuda", torch.float32)
+    loop = chip_smoke.run_pixel_loop("cuda")
+    assert loop["launches"] == loop["launches_on_the_card"]

@@ -24,6 +24,7 @@ from vitvs_tpu.harness import results as jresults  # noqa: E402
 from vitvs_tpu.io_bridge.images import load_image  # noqa: E402
 from vitvs_tpu_torch.harness import evals as tevals  # noqa: E402
 from vitvs_tpu_torch.harness.benchmark import run_benchmark  # noqa: E402
+from vitvs_tpu_torch.parallel import make_mesh  # noqa: E402
 from vitvs_tpu_torch.sim.scene import POSTER_ASSET  # noqa: E402
 
 NPZ_KEYS = {"total_execution_time", "initial_positions", "initial_orientations",
@@ -188,11 +189,23 @@ def test_frozen_fast_forward_equals_running_the_device(tmp_path):
                 "all_applied_velocity_x", "all_velocity_mean_10"))
 
 
-@pytest.mark.parametrize("flag", [dict(mesh=object()), dict(live_dir="live")])
+@pytest.mark.parametrize("flag", [dict(mesh=True), dict(live_dir=True)])
 def test_flags_not_ported_raise(tmp_path, flag):
+    """The two flags that raised before they were ported (a mesh, the live
+    channel) run, and the results equal those of a run without them, bit for
+    bit: a dp-only mesh of two CPU cells, a live directory that gets its
+    snapshot."""
     pair = make_pair(pixel_identity=True, max_iterations=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item"):
-        _bench(pair, tmp_path, num_steps=2, save=False, **flag)
+    common = dict(num_steps=2, save=False, segment_steps=1)
+    plain = _bench(pair, tmp_path, **common)
+    live = tmp_path / "live"
+    kw = (dict(mesh=make_mesh(devices=["cpu"] * 2)) if "mesh" in flag
+          else dict(live_dir=str(live)))
+    got = _bench(pair, tmp_path, **common, **kw)
+    _same(plain.summaries, got.summaries)
+    if "live_dir" in flag:
+        assert sorted(p.name for p in live.glob("ep*.png")) == [
+            "ep0000_step00001.png", "ep0000_step00002.png"]
 
 
 def test_poster_asset_is_the_png():

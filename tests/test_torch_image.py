@@ -77,3 +77,22 @@ def test_default_precision_scopes_tf32_to_the_resize():
         timage.resize(img, (4, 5), "bicubic", True, precision="default")
         assert torch.backends.cuda.matmul.allow_tf32 is before
     timage.set_f32_matmul_precision()
+
+
+@pytest.mark.parametrize("hw,out_hw", [((480, 640), (308, 308)), ((480, 640), (518, 518)),
+                                       ((37, 53), (112, 90)), ((64, 64), (17, 23))])
+def test_resize_matches_torch_bicubic_antialias(hw, out_hw):
+    """core/image.resize (bicubic, antialias: the PIL cubic, A = -0.5, with a
+    widened support) against F.interpolate(mode='bicubic', antialias=True,
+    align_corners=False) on the CPU, down, up and mixed, images in [0, 1].
+    The differences found: 4.7e-5 at most (640 x 480 -> 518 x 518), 1.8e-5 at
+    the servo step's 308; F.interpolate computes its weights in f32 and sums
+    the taps an axis at a time, the port rounds f64 weights to f32 and runs
+    two matmuls.  Held to 1e-4."""
+    import torch.nn.functional as F
+
+    img = torch.from_numpy(np.random.default_rng(8).random((2, *hw, 3)).astype(np.float32))
+    ours = timage.resize(img, out_hw, method="bicubic", antialias=True)
+    ref = F.interpolate(img.permute(0, 3, 1, 2), size=out_hw, mode="bicubic", antialias=True,
+                        align_corners=False).permute(0, 2, 3, 1)
+    torch.testing.assert_close(ours, ref, rtol=0, atol=1e-4)

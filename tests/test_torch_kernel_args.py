@@ -163,7 +163,7 @@ def test_build_sources_and_entry_points():
     arguments, and nothing else is."""
     srcs, headers = _build.sources()
     assert [p.name for p in srcs] == ["attention.cu", "attention_f32.cu", "attention_fast.cu",
-                                      "attn_int8.cu", "matcher.cu"]
+                                      "attention_hd.cu", "attn_int8.cu", "matcher.cu"]
     assert [p.name for p in headers] == ["sm90_ptx.cuh"]
     entries = {}
     for p in srcs:
@@ -202,12 +202,13 @@ def test_exact_attention_routes_by_dtype(no_library, dtype, entry):
     assert (attention.mha_attention.launches, attention.mha_attention_f32.launches) == counters
 
 
-@pytest.mark.parametrize("case", ["float16", "float64", "mixed", "head_dim_32", "shape_mismatch",
-                                  "not_contiguous", "unaligned"])
+@pytest.mark.parametrize("case", ["float16", "float64", "mixed", "head_dim_1025",
+                                  "shape_mismatch", "not_contiguous", "unaligned"])
 def test_exact_attention_refuses_what_neither_kernel_reads(no_library, case):
     """Refused before any launch: a dtype other than bf16 and f32, mixed
-    dtypes, a head dim other than 64, mismatched shapes, strided or
-    unaligned rows."""
+    dtypes, a head dim no kernel takes (64 and 1 to 1024 are taken: the
+    any-width kernel, tests/test_torch_baselines.py), mismatched shapes,
+    strided or unaligned rows."""
     q, k, v = _heads((1, 20, 2, 64), torch.float32)
     err = ValueError
     if case in ("float16", "float64"):
@@ -215,8 +216,8 @@ def test_exact_attention_refuses_what_neither_kernel_reads(no_library, case):
         err = TypeError
     elif case == "mixed":
         k, err = k.bfloat16(), TypeError
-    elif case == "head_dim_32":
-        q, k, v = _heads((1, 20, 4, 32), torch.float32)
+    elif case == "head_dim_1025":
+        q, k, v = _heads((1, 20, 1, 1025), torch.float32)
     elif case == "shape_mismatch":
         v = v[:, :-1].contiguous()
     elif case == "not_contiguous":

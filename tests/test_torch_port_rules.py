@@ -51,7 +51,7 @@ def test_import_rule_covers_the_trainer():
 def test_kernels_use_plain_c_interface():
     cu = sorted((REPO / "vitvs_tpu_torch" / "csrc").glob("*.cu"))
     assert [p.name for p in cu] == ["attention.cu", "attention_f32.cu", "attention_fast.cu",
-                                    "attn_int8.cu", "matcher.cu"]
+                                    "attention_hd.cu", "attn_int8.cu", "matcher.cu"]
     for p in cu:
         text = p.read_text()
         assert "torch/extension.h" not in text and "ATen" not in text, p
@@ -119,7 +119,8 @@ def test_chip_smoke_main_path_runs_tiny_on_cpu():
     net = tvit.init_vit(vcfg, torch.Generator().manual_seed(0), device="cpu",
                         layerscale=1.0).cast_blocks(torch.bfloat16).eval()
     summary = chip_smoke.run_main_path(net, cfg, model)
-    assert summary["launches"] == {"attention": 0, "attention_f32": 0, "attention_fast": 0,
+    assert summary["launches"] == {"attention": 0, "attention_f32": 0, "attention_hd": 0,
+                                   "attention_hd_f32": 0, "attention_fast": 0,
                                    "attn_int8": 0, "matcher": 0, "matcher_bf16": 0}
     assert summary["differing_pairs"] == [0] * chip_smoke.N_STEPS
     assert summary["desc_rel_err"] == 0.0 and summary["twist_max_abs_err"] == 0.0
@@ -619,3 +620,119 @@ def test_chip_smoke_score_train_check_runs_tiny_on_cpu(one_intra_op_thread):
         assert out[name]["loss_rel_err"] == 0.0 and out[name]["grad_cos_min"] > 0.999999
     assert out["bf16"]["f64_cos_min_card"] == out["bf16"]["f64_cos_min_cpu"]
     assert out["f32"]["f64_cos_min_card"] > out["bf16"]["f64_cos_min_card"]
+
+
+def _tree(path: Path) -> dict:
+    """Every file under ``path``: its size and modification time."""
+    return {str(p.relative_to(path)): (p.stat().st_size, p.stat().st_mtime_ns)
+            for p in sorted(path.rglob("*")) if p.is_file()}
+
+
+def test_native_library_builds_only_into_the_port_build_directory(tmp_path):
+    """The port builds native/sensor_bridge.cpp as it stands into its own
+    build directory (vitvs_tpu_torch/_build/ by default), under a name that
+    carries the source's hash, and writes nothing under native/: four
+    builds at once into one empty directory leave one library and no
+    temporary file; the port's sources never run make."""
+    import threading
+
+    from vitvs_tpu_torch.io_bridge import native
+    from vitvs_tpu_torch.ops import _build
+
+    assert native.SOURCE == REPO / "native" / "sensor_bridge.cpp"
+    assert native.build_library.__defaults__ == (_build.BUILD_DIR,)
+    assert _build.BUILD_DIR == REPO / "vitvs_tpu_torch" / "_build"
+    if native.native_available():
+        assert Path(native._load()._name).parent == _build.BUILD_DIR
+    before = _tree(REPO / "native")
+    out = tmp_path / "build"
+    got, errors = [], []
+
+    def build():
+        try:
+            got.append(native.build_library(out))
+        except Exception as e:           # a compiler missing here fails every thread alike
+            errors.append(e)
+
+    threads = [threading.Thread(target=build) for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in threads)
+    if errors:
+        assert all("no C++ compiler" in str(e) for e in errors), errors
+    else:
+        assert len(set(got)) == 1 and got[0].parent == out
+        assert [p.name for p in out.iterdir()] == [got[0].name]
+        assert got[0].name.startswith("libsensor_bridge-") and got[0].suffix == ".so"
+    assert _tree(REPO / "native") == before
+    for path in PORT_FILES:
+        text = path.read_text()
+        assert '"make"' not in text and "Makefile" not in text.replace("the Makefile's", ""), path
+
+
+def _tiny_mesh_setup():
+    """A tiny 2-block ViT of 4 heads (LayerScale 1) and its servo model on
+    the CPU, and a synthetic poster scene."""
+    from vitvs_tpu_torch.sim.scene import Scene, make_synthetic_poster
+
+    cfg = VSConfig(u_max=96, v_max=72, f_x=75.0, f_y=75.0, dino_input_size=84, num_pairs=12,
+                   layer=1, model_name="tiny", pinv_mode="dls", num_samples=8,
+                   min_iterations=8, max_iterations=8)
+    vcfg = tvit.ViTConfig(patch_size=14, embed_dim=96, depth=2, num_heads=4, pos_grid=5,
+                          gelu_approx=True, model_name="tiny")
+    model = ServoModel(vit=vcfg, cfg=cfg, compute_dtype=torch.bfloat16, device="cpu")
+    net = tvit.init_vit(vcfg, torch.Generator().manual_seed(0), device="cpu",
+                        layerscale=1.0).cast_blocks(torch.bfloat16).eval()
+    scene = Scene.create(make_synthetic_poster(128, seed=3), half_size=0.42, device="cpu")
+    return net, cfg, model, scene
+
+
+def test_chip_smoke_mesh_check_rejects_a_scrambled_split(monkeypatch, one_intra_op_thread):
+    """Phase 3l(d) refuses a tp split whose two shards project their heads'
+    outputs through each other's columns of the output projection: the
+    teacher-forced steps or the goal descriptors disagree with the unsplit
+    ViT's."""
+    from vitvs_tpu_torch.parallel import mesh as tmesh
+
+    def swapped(self, blk, devices, _init=tmesh.TPBlock.__init__):
+        _init(self, blk, devices)
+        a, b = self.shards[0], self.shards[1]
+        a.proj, b.proj = b.proj, a.proj
+
+    net, cfg, model, scene = _tiny_mesh_setup()
+    monkeypatch.setattr(tmesh.TPBlock, "__init__", swapped)
+    with pytest.raises(AssertionError):
+        chip_smoke.run_mesh(net, cfg, model, scene, episodes=[0, 1, 2, 3], num_steps=4,
+                            segment_steps=2)
+
+
+def test_chip_smoke_pixel_phase_runs_tiny_on_cpu(tmp_path, one_intra_op_thread):
+    """Phase 3l's parts on the CPU at small size (plain versions: no kernel
+    counts a launch): the any-width kernel's checks, the mesh against one
+    device (a (2, 2) grid of the CPU, a tiny 2-block ViT of 4 heads), the
+    sensors at 640 x 480, the live channel, the native bridge's round trip
+    and ServoLoop over it, and the stage timer and trace; the launches the
+    mesh and the pixel8 episode must give on the card."""
+    assert chip_smoke.check_attention_hd("cpu") == dict.fromkeys(chip_smoke.PIXEL_HD, 0.0)
+    net, cfg, model, scene = _tiny_mesh_setup()
+    m = chip_smoke.run_mesh(net, cfg, model, scene, episodes=[0, 1, 2, 3], num_steps=4,
+                            segment_steps=2)
+    assert m["shard_heads"] == [2] and m["chunk_steps"] == 4
+    assert m["teacher_forced"]["episode_steps_compared"] >= 4
+    assert all(v == 0 for v in m["launches"].values())
+    # two blocks: the goal on row 0's two shards, two rows' search, 4 chunk-steps
+    assert m["launches_on_the_card"]["attention"] == 2 * 2 * (1 + 2 + 2 * 4)
+    assert m["launches_on_the_card"]["matcher_bf16"] == 2 * (1 + 4)
+    s = chip_smoke.check_sensors("cpu")
+    assert s["ir_shape"] == [480, 640] and s["cloud_max_abs_err"] == 0.0
+    live = chip_smoke.run_live(net, cfg, model, scene, tmp_path, num_steps=4, segment_steps=2)
+    assert live["files"] == ["ep0000_step00002.png", "ep0000_step00004.png"]
+    nat = chip_smoke.run_native(net, model, scene)
+    assert nat["round_trip"] and nat["viz_frames"] == chip_smoke.N_STEPS
+    st = chip_smoke.run_stages(net, model, scene, tmp_path / "trace", iters=2)
+    assert set(st["stages_mean_ms"]) == {"render", "preprocess", "vit+bin", "match",
+                                         "servo_step (whole)"}
+    assert chip_smoke.pixel_config().model_name == chip_smoke.PIXEL_MODEL
+    assert chip_smoke.pixel_loop_config().max_iterations == 120

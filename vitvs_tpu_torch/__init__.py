@@ -3,8 +3,10 @@
 The DINO servo step runs here as eager PyTorch on the card:
 
     camera frame -> preprocess (two f32 resize matmuls + normalize)
-                 -> DINOv2-style ViT facet forward (attention: csrc/attention.cu;
-                    the int8 serving step: csrc/attention_fast.cu, csrc/attn_int8.cu)
+                 -> DINOv2-style ViT facet forward (attention: csrc/attention.cu,
+                    f32 csrc/attention_f32.cu, other head widths than 64
+                    csrc/attention_hd.cu; the int8 serving step:
+                    csrc/attention_fast.cu, csrc/attn_int8.cu)
                  -> log-binned patch descriptors
                  -> cosine mutual-argmax matching (csrc/matcher.cu, bf16 mode
                     on the tensor cores by default)

@@ -25,7 +25,7 @@ import torch
 from vitvs_tpu_torch.classical.pipeline import (DEFAULT_MAX_CORNERS, classical_servo_step,
                                                 extract_goal_features)
 from vitvs_tpu_torch.harness import chunks, evals, results, samplers
-from vitvs_tpu_torch.harness.benchmark import BenchmarkRun, _run_chunk
+from vitvs_tpu_torch.harness.benchmark import BenchmarkRun, ChunkRow, _run_chunk
 from vitvs_tpu_torch.harness.pipeline import ServoModel
 from vitvs_tpu_torch.harness.rollout import EpisodeResult, goal_pose
 from vitvs_tpu_torch.io_bridge.config import VSConfig
@@ -124,8 +124,9 @@ def run_classical_benchmark(
         sc = scene if textures_for is None else scene.with_texture(torch.stack(textures_for(ids)))
         hook = None if on_step is None else (
             lambda inputs, res, ids=ids: on_step(ids, inputs, res))
-        res, steps = _run_chunk(None, model, sc, None, chunk_of(positions, lo, hi),
-                                chunk_of(quats, lo, hi), None, T, seg, hook, step_fn)
+        res, steps = _run_chunk([ChunkRow(None, model, sc, None, hook)],
+                                chunk_of(positions, lo, hi), chunk_of(quats, lo, hi), None, T,
+                                seg, step_fn=step_fn)
         episodes.extend(EpisodeResult(*(np.array(a[j]) for a in res)) for j in range(hi - lo))
         device_steps += (hi - lo) * steps
         chunk_steps += steps

@@ -35,19 +35,25 @@ from __future__ import annotations
 import copy
 import dataclasses
 import hashlib
+import os
 import time
 from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 
-from vitvs_tpu_torch.harness import chunks, evals, results, samplers
-from vitvs_tpu_torch.harness.pipeline import ServoModel, goal_descriptors, quantized_vit
+from vitvs_tpu_torch.core.batch import item
+from vitvs_tpu_torch.harness import chunks, evals, results, samplers, viz
+from vitvs_tpu_torch.harness.pipeline import (ServoModel, goal_descriptors, quantized_vit,
+                                              servo_step)
 from vitvs_tpu_torch.harness.rollout import (EpisodeResult, episode_init, finalize_episode,
                                              find_best_start_pose, goal_pose, rollout_segment)
 from vitvs_tpu_torch.io_bridge.config import VSConfig
+from vitvs_tpu_torch.io_bridge.images import save_image
+from vitvs_tpu_torch.models.baselines import init_pixel_params, is_pixel_model
 from vitvs_tpu_torch.models.quant import QuantViT
 from vitvs_tpu_torch.models.vit import ViT, init_vit
+from vitvs_tpu_torch.parallel.mesh import row_models, row_slices, shard_vit_params, to_device
 from vitvs_tpu_torch.sim.env import observe
 from vitvs_tpu_torch.sim.scene import Scene, load_poster_scene
 
@@ -67,13 +73,15 @@ class BenchmarkRun(NamedTuple):
 def build_model(cfg: VSConfig, net: ViT | None = None, compute_dtype=torch.bfloat16,
                 seed: int = 0, device="cuda") -> tuple[ViT, ServoModel]:
     """The servo model of ``cfg`` and a ViT for it: ``net``, or seeded
-    random weights (``seed``) with the blocks in the compute dtype.  The
-    compute dtype is bf16 whatever ``cfg.compute_dtype`` says, as the
-    reference's ``build_model`` builds it; an explicit ``compute_dtype``
-    wins."""
+    random weights (``seed``) with the blocks in the compute dtype (a pixel
+    baseline's weights: ``init_pixel_params``).  The compute dtype is bf16
+    whatever ``cfg.compute_dtype`` says, as the reference's ``build_model``
+    builds it; an explicit ``compute_dtype`` wins."""
     model = ServoModel.create(cfg, compute_dtype=compute_dtype, device=device)
     if net is None:
-        net = init_vit(model.vit, torch.Generator().manual_seed(seed), device=device)
+        gen = torch.Generator().manual_seed(seed)
+        net = (init_pixel_params(model.vit, gen, device=device) if is_pixel_model(cfg.model_name)
+               else init_vit(model.vit, gen, device=device))
         net = net.cast_blocks(model.compute_dtype).eval()
     return net, model
 
@@ -124,32 +132,95 @@ def _generator(device, seed: int) -> torch.Generator:
     return gen
 
 
-def _run_chunk(net, model: ServoModel, scene: Scene, goal_desc, start_p, start_q,
-               generators: list | None, T: int, seg: int, on_step=None, step_fn=None):
+class ChunkRow(NamedTuple):
+    """One dp row's share of a chunk (``parallel/mesh.py``): its net, model,
+    scene and goal descriptors on its device, and its ``on_step`` hook."""
+
+    net: object
+    model: ServoModel
+    scene: Scene
+    goal_desc: object
+    on_step: Callable | None = None
+
+
+def _run_chunk(rows: list[ChunkRow], start_p, start_q, generators: list | None, T: int,
+               seg: int, step_fn=None, after_segment=None):
     """A chunk of episodes from starts (B, 3) / (B, 4) in segments of
-    ``seg`` steps (the last one clamped).  At a segment's end one host sync
-    asks whether every episode of the chunk is frozen (done or aborted); if
-    so, the rest of their histories are the frozen tail.  ``step_fn``
-    replaces the servo step and draws no pair scores (``generators`` then
-    None).  Returns (the chunk's result as numpy arrays with a leading B,
-    the chunk-steps run on the device)."""
-    desired_p, desired_q = goal_pose(model.device)
-    carry = episode_init(start_p, start_q, desired_p, desired_q)
-    parts, done, steps = [], 0, 0
+    ``seg`` steps (the last one clamped), over ``rows``: one for a device,
+    or a mesh's dp rows, each running its consecutive share of the episodes,
+    segment by segment in lockstep.  At a segment's end one host sync asks
+    whether every episode of the chunk is frozen (done or aborted); if so,
+    the rest of their histories are the frozen tail.  ``step_fn`` replaces
+    the servo step and draws no pair scores (``generators`` then None).
+    ``after_segment(row, carry, steps done)`` sees row 0's carry after each
+    segment.  Returns (the chunk's result as numpy arrays with a leading B,
+    in episode order, the chunk-steps run on the device)."""
+    shares = row_slices(len(start_p), len(rows))
+    desired = [goal_pose(row.model.device) for row in rows]
+    carries = [episode_init(start_p[sl], start_q[sl], *d) for sl, d in zip(shares, desired)]
+    parts = [[] for _ in rows]
+    done = steps = 0
     while done < T:
         nsteps = min(seg, T - done)
-        carry, ys = rollout_segment(net, model, scene, goal_desc, carry, nsteps, desired_p,
-                                    desired_q, generator=generators, on_step=on_step,
-                                    step_fn=step_fn, draw_scores=step_fn is None)
-        parts.append(ys)
+        for r, (row, sl) in enumerate(zip(rows, shares)):
+            carries[r], ys = rollout_segment(
+                row.net, row.model, row.scene, row.goal_desc, carries[r], nsteps, *desired[r],
+                generator=None if generators is None else generators[sl],
+                on_step=row.on_step, step_fn=step_fn, draw_scores=step_fn is None)
+            parts[r].append(ys)
         done += nsteps
         steps += nsteps
-        if done < T and bool((carry.conv.done | carry.aborted).all()):
-            parts.append(chunks.frozen_tail(ys, T - done))
+        if after_segment is not None:
+            after_segment(rows[0], carries[0], done)
+        if done < T and all(bool((c.conv.done | c.aborted).all()) for c in carries):
+            for part in parts:
+                part.append(chunks.frozen_tail(part[-1], T - done))
             done = T
-    full = {k: torch.cat([p[k] for p in parts], dim=1) for k in parts[0]}
-    res = finalize_episode(carry, full, desired_p, desired_q)
-    return EpisodeResult(*(a.cpu().numpy() for a in res)), steps
+    out = []
+    for carry, part, d in zip(carries, parts, desired):
+        full = {k: torch.cat([p[k] for p in part], dim=1) for k in part[0]}
+        out.append([a.cpu().numpy() for a in finalize_episode(carry, full, *d)])
+    return EpisodeResult(*(np.concatenate(a) for a in zip(*out))), steps
+
+
+def _clone(gen: torch.Generator) -> torch.Generator:
+    """A generator in ``gen``'s state, so that drawing from it leaves
+    ``gen`` where it was."""
+    twin = torch.Generator(device=gen.device)
+    twin.set_state(gen.get_state())
+    return twin
+
+
+def live_snapshot(row: ChunkRow, carry, generator: torch.Generator | None, live_dir: str,
+                  name: str) -> str:
+    """The live channel's frame: episode 0 of ``carry`` (a row's, with a
+    leading B) rendered at its pose, its servo step (pair scores drawn from a
+    clone of its ``generator``, the draws its next step makes, so the
+    episode's own stream does not move) and the matched points drawn on the
+    frame (current green, goal red), written to ``live_dir/name`` as a PNG,
+    with ``latest.png`` a symlink to it."""
+    model, scene = row.model, row.scene
+    if scene.texture.ndim == 4:                         # the chunk's textures: episode 0's
+        scene = scene._replace(texture=scene.texture[0], quad=scene.quad[0])
+    rgb, depth = observe(scene, model.camera, carry.position[0], carry.quat[0])
+    scores = None
+    if generator is not None:
+        gh, gw = model.grid()
+        scores = torch.rand(gh * gw, generator=_clone(generator), device=model.device)
+    res = servo_step(row.net, model, row.goal_desc, rgb, depth, item(carry.ema, 0),
+                     carry.prev_v_c[0], scores=scores)
+    valid = res.valid.cpu().numpy()
+    img = viz.draw_points(np.clip(rgb.float().cpu().numpy(), 0.0, 1.0),
+                          res.s_uv.cpu().numpy()[valid], res.s_uv_star.cpu().numpy()[valid])
+    os.makedirs(live_dir, exist_ok=True)
+    path = os.path.join(live_dir, name)
+    save_image(path, img)
+    tmp = os.path.join(live_dir, ".latest.tmp")
+    if os.path.lexists(tmp):
+        os.unlink(tmp)
+    os.symlink(name, tmp)
+    os.replace(tmp, os.path.join(live_dir, "latest.png"))
+    return path
 
 
 def run_benchmark(
@@ -174,6 +245,7 @@ def run_benchmark(
     int8_static: bool = False,
     episode_indices=None,
     live_dir: str | None = None,
+    live_every: int = 1,
     device="cuda",
     on_step: Callable | None = None,
 ) -> BenchmarkRun:
@@ -189,19 +261,28 @@ def run_benchmark(
     seed-41 stream, identical to the same episodes of the full sweep.
     ``on_step(abs_ids, inputs, result)`` sees every step of a chunk: the
     chunk's absolute episode indices (the padding repeating the last), its
-    ``rollout.StepInputs`` and ``StepResult``, each with a leading B.
+    ``rollout.StepInputs`` and ``StepResult``, each with a leading B (under
+    a mesh, each dp row's share).
     ``quantized`` (and ``int8_static``): the int8 serving configuration of
     the module docstring, quantized from ``net``; a model that is already
     quantized runs its ``QuantViT`` ``net`` as given.
 
-    Not ported: ``mesh`` and ``live_dir`` raise."""
+    ``mesh`` (``parallel.make_mesh``): ``chunk`` is rounded to a multiple of
+    dp, each chunk's episodes split into dp consecutive shares run on their
+    rows' devices (the ViT split over each row's tp devices when tp > 1; the
+    int8 serving ViT takes dp only), the goal descriptors computed on row
+    0 and copied to every row; the results gathered in episode order.  Each
+    episode's generators live on its row's device and are seeded from its
+    absolute index, so a dp-only mesh gives the one-device results (bit for
+    bit on the CPU); tp sums partial products in another order (float
+    tolerance).
+
+    ``live_dir``: every ``live_every`` rollout segments (counted over the
+    run) the first episode of the current chunk is snapshotted
+    (:func:`live_snapshot`) to ``live_dir/ep{abs_idx:04d}_step{t:05d}.png``
+    with ``latest.png`` a symlink to the newest; the results are those of a
+    run without it."""
     t_start = time.time()
-    if mesh is not None:
-        raise NotImplementedError("sharding the sweep over a mesh is not ported "
-                                  "(ROADMAP.md queue 1, item 8)")
-    if live_dir is not None:
-        raise NotImplementedError("the live channel needs harness/viz.py, not ported "
-                                  "(ROADMAP.md queue 1, item 1)")
     if model is None:
         net, model = build_model(cfg, net, device=device)
     if net is None:
@@ -219,6 +300,11 @@ def run_benchmark(
         net, model = int8_serving(net, model, scene, calib)
     elif not model.quantized:
         net = cast_for_benchmark(net, model.compute_dtype)
+    nets, models = [net], [model]
+    if mesh is not None:
+        nets = shard_vit_params(net, mesh)
+        models = row_models(model, mesh)
+        net = nets[0]
     abs_idx = np.arange(n)
     if episode_indices is not None:
         abs_idx = np.asarray(sorted(set(int(i) for i in episode_indices)))
@@ -234,7 +320,8 @@ def run_benchmark(
 
     # the goal image: the scene rendered from the goal pose
     goal_rgb, _ = observe(scene, model.camera, *goal_pose(dev))
-    goal_desc = goal_descriptors(net, model, goal_rgb)
+    goal_desc = goal_descriptors(net, models[0], to_device(goal_rgb, models[0].device))
+    goals = {m.device: to_device(goal_desc, m.device) for m in models}
     textures_for = (chunks.make_textures_for(perturb_seed, scene.texture)
                     if perturbation else None)
 
@@ -257,6 +344,9 @@ def run_benchmark(
                                                 meta=ckpt_meta)
 
     chunk = max(1, min(chunk, n))
+    if mesh is not None:
+        n_dp = mesh.shape["dp"]
+        chunk = max(chunk, n_dp) // n_dp * n_dp            # a whole share for every row
 
     def chunk_of(a: np.ndarray, lo: int, hi: int) -> np.ndarray:
         return chunks.pad_tail(np.asarray(a[lo:hi]), chunk - (hi - lo))
@@ -266,6 +356,25 @@ def run_benchmark(
             return scene
         return scene.with_texture(torch.stack(textures_for(ids)))
 
+    def chunk_rows(ids, hook=None) -> list[ChunkRow]:
+        """The chunk's dp rows: row r's share of the episodes (and of the
+        textures) on its device."""
+        sc = chunk_scene(ids)
+        rows = []
+        for rnet, rmodel, sl in zip(nets, models, row_slices(len(ids), len(models))):
+            rsc = sc if sc.texture.ndim == 3 else sc._replace(texture=sc.texture[sl],
+                                                              quad=sc.quad[sl])
+            rhook = None if hook is None else (
+                lambda inputs, res, ids=ids[sl]: hook(ids, inputs, res))
+            rows.append(ChunkRow(rnet, rmodel, to_device(rsc, rmodel.device),
+                                 goals[rmodel.device], rhook))
+        return rows
+
+    def generators(ids, base: int = 0) -> list[torch.Generator]:
+        """Each episode's generator on its row's device, seeded base + its index."""
+        shares = row_slices(len(ids), len(models))
+        return [_generator(m.device, base + i) for m, sl in zip(models, shares) for i in ids[sl]]
+
     best_quats = np.asarray(quats, np.float32)
     if rotation_search and "best_quats" in ckpt_extra:
         best_quats = np.asarray(ckpt_extra["best_quats"], np.float32)
@@ -274,25 +383,34 @@ def run_benchmark(
         for lo in range(0, n, chunk):
             hi = min(lo + chunk, n)
             ids = chunk_of(abs_idx, lo, hi)
-            gens = [_generator(dev, SEARCH_SEED_BASE + i) for i in ids]
-            _, q = find_best_start_pose(net, model, chunk_scene(ids), goal_desc,
-                                        chunk_of(positions, lo, hi), chunk_of(best_quats, lo, hi),
-                                        generator=gens)
-            found.append(q[: hi - lo])
-        best_quats = torch.cat(found).cpu().numpy()
+            gens = generators(ids, SEARCH_SEED_BASE)
+            pos, qs = chunk_of(positions, lo, hi), chunk_of(best_quats, lo, hi)
+            q = [find_best_start_pose(row.net, row.model, row.scene, row.goal_desc, pos[sl],
+                                      qs[sl], generator=gens[sl])[1].cpu()
+                 for row, sl in zip(chunk_rows(ids), row_slices(len(ids), len(models)))]
+            found.append(torch.cat(q)[: hi - lo])
+        best_quats = torch.cat(found).numpy()
         chunks.save_episodes(checkpoint_path, episodes, meta=ckpt_meta,
                              extra={"best_quats": best_quats})
 
     seg = max(1, min(segment_steps or T, T))
+    live_segments = 0
+
+    def snapshot(row: ChunkRow, carry, steps_done: int, abs_ep: int, gen) -> None:
+        nonlocal live_segments
+        live_segments += 1
+        if live_segments % max(live_every, 1) == 0:
+            live_snapshot(row, carry, gen, live_dir, f"ep{abs_ep:04d}_step{steps_done:05d}.png")
+
     device_steps = chunk_steps = 0
     for lo in range(len(episodes), n, chunk):
         hi = min(lo + chunk, n)
         ids = chunk_of(abs_idx, lo, hi)
-        hook = None if on_step is None else (
-            lambda inputs, res, ids=ids: on_step(ids, inputs, res))
-        res, steps = _run_chunk(net, model, chunk_scene(ids), goal_desc,
-                                chunk_of(positions, lo, hi), chunk_of(best_quats, lo, hi),
-                                [_generator(dev, i) for i in ids], T, seg, hook)
+        gens = generators(ids)
+        after = None if live_dir is None else (
+            lambda row, carry, t, ep=int(ids[0]), g=gens[0]: snapshot(row, carry, t, ep, g))
+        res, steps = _run_chunk(chunk_rows(ids, on_step), chunk_of(positions, lo, hi),
+                                chunk_of(best_quats, lo, hi), gens, T, seg, after_segment=after)
         episodes.extend(EpisodeResult(*(np.array(a[j]) for a in res)) for j in range(hi - lo))
         device_steps += (hi - lo) * steps
         chunk_steps += steps

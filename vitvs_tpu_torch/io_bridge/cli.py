@@ -4,14 +4,16 @@ card:
 
     python -m vitvs_tpu_torch.io_bridge.cli --method dino [--config f.yaml]
         [--perturbation] [--no-rotation-search] [--num-samples N]
-        [--checkpoint FILE] [--out DIR] [--device cuda|cpu]
+        [--checkpoint FILE] [--out DIR] [--mesh [--tp N]] [--live DIR]
+        [--device cuda|cpu]
 
 ``--method dino`` runs the ViT pipeline (``harness/benchmark.py``); the
 classical methods run ``classical/benchmark.py``.  Every flag of the
 reference is here, with its validation and its npz naming; ``--device``
 (default ``cuda``) is the port's.  ``--checkpoint`` reads a weight file
 exported by ``scripts/export_port_weights.py`` (.npz) or a torch-hub state
-dict (.pth); ``--config`` needs pyyaml.
+dict (.pth); ``--config`` needs pyyaml.  The model is the config's ``model_name``:
+a DINO ViT preset or a pixel baseline (``pixel8``, ``pixel14``, ...).
 """
 
 from __future__ import annotations
@@ -83,13 +85,16 @@ def main(argv=None):
                         " (e.g. '37,102,441'): the same episodes as inside the"
                         " full seed-41 sweep (dino only)")
     p.add_argument("--mesh", action="store_true",
-                   help="shard rollout chunks over all devices (not ported)")
+                   help="shard rollout chunks over all devices (dp x tp mesh of every"
+                        " visible card; with --device cpu, tp cells of the CPU)")
     p.add_argument("--tp", type=int, default=1,
                    help="tensor-parallel degree for the ViT params (with --mesh)")
     p.add_argument("--int8", action="store_true",
                    help="serve the ViT on the int8 W8A8 path instead of bf16")
     p.add_argument("--live", default=None, metavar="DIR",
-                   help="live snapshots of the first in-flight episode (not ported)")
+                   help="live observability channel: write an annotated frame of the first"
+                        " episode of each chunk to DIR every --live-every rollout segments"
+                        " (DIR/latest.png links the newest; needs Pillow)")
     p.add_argument("--live-every", type=int, default=1,
                    help="segments between live snapshots (default 1)")
     p.add_argument("--int8-static", action="store_true",
@@ -159,6 +164,13 @@ def main(argv=None):
             texture = load_image(args.poster)
         scene = Scene.create(texture, device=args.device)
 
+    mesh = None
+    if args.mesh:
+        from vitvs_tpu_torch.parallel import make_mesh
+
+        mesh = (make_mesh(tp=args.tp) if args.device.startswith("cuda")
+                else make_mesh(tp=args.tp, devices=[args.device] * args.tp))
+
     if args.method == "dino":
         from vitvs_tpu_torch.harness.benchmark import run_benchmark
 
@@ -166,9 +178,9 @@ def main(argv=None):
             cfg, net=net, scene=scene, out_dir=args.out, config_name=config_name,
             perturbation=args.perturbation, rotation_search=not args.no_rotation_search,
             chunk=args.chunk, num_steps=args.num_steps, checkpoint_path=args.resume,
-            mesh=True if args.mesh else None, quantized=args.int8,
+            mesh=mesh, quantized=args.int8,
             int8_static=args.int8_static, episode_indices=episode_indices,
-            live_dir=args.live, device=args.device)
+            live_dir=args.live, live_every=args.live_every, device=args.device)
     else:
         from vitvs_tpu_torch.classical.benchmark import run_classical_benchmark
 

@@ -7,13 +7,15 @@ plain function and host I/O enters at two points:
 * :func:`make_io_servo_step`: one call pulls the latest (rgb, depth) frame,
   runs the servo step on the model's device and pushes the twist (the JAX
   package does this inside its jitted graph with ``io_callback``);
-* :class:`ServoLoop`: grabs a frame, runs the step, forwards the twist, and
-  keeps the reference controller's feature-failure counter and abort.
+* :class:`ServoLoop`: grabs a frame, runs the step, forwards the twist,
+  keeps the reference controller's feature-failure counter and abort, and
+  every ``viz_every`` iterations hands the frame with its matched points
+  drawn (``harness/viz.draw_points``) to ``viz_sink``.
 
 Frame sources implement ``get_frame() -> (rgb uint8 (H, W, 3), depth_m f32
-(H, W))``; sinks implement ``send_twist(np.ndarray (6,)) -> None``.  The
-native sensor bridge of the JAX package (``native/sensor_bridge.cpp``
-through ``ctypes``) is not ported.
+(H, W))``, as the native sensor bridge's seqlock'd mailbox does
+(``io_bridge/native.py:NativeFrameBuffer``); sinks implement
+``send_twist(np.ndarray (6,)) -> None``.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import torch
 
 from vitvs_tpu_torch.control.ibvs import EmaState
 from vitvs_tpu_torch.harness.pipeline import ServoModel, goal_descriptors, servo_step
+from vitvs_tpu_torch.harness.viz import draw_points
 
 
 class FrameSource(Protocol):
@@ -61,8 +64,14 @@ class ServoLoop:
     """The host driver, as the reference controller's ``run`` handles I/O."""
 
     def __init__(self, net, model: ServoModel, goal_rgb, source: FrameSource,
-                 sink: TwistSink, seed: int = 0):
+                 sink: TwistSink, seed: int = 0, viz_every: int = 0,
+                 viz_sink: Callable[[np.ndarray], None] | None = None):
+        """``viz_every`` N > 0: every N iterations whose features are ok, the
+        frame with the step's matched points drawn (current green, goal red)
+        goes to ``viz_sink(image)`` (the reference's processed-image topic)."""
         self.net = net
+        self.viz_every = viz_every
+        self.viz_sink = viz_sink
         self.model = model
         self.source = source
         self.sink = sink
@@ -95,6 +104,12 @@ class ServoLoop:
             raise RuntimeError("Persistent feature detection failure")
 
         self.sink.send_twist(twist)
+        if self.viz_every and self.iteration % self.viz_every == 0 and ok:
+            valid = res.valid.cpu().numpy()
+            img = draw_points(np.asarray(rgb), res.s_uv.cpu().numpy()[valid],
+                              res.s_uv_star.cpu().numpy()[valid])
+            if self.viz_sink is not None:
+                self.viz_sink(img)
         self.ema = res.ema
         self.prev_v = res.v_c
         self.iteration += 1

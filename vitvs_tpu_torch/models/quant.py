@@ -51,7 +51,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from vitvs_tpu_torch.models.vit import (FACETS, ViT, ViTConfig, attention_core,
+from vitvs_tpu_torch.models.vit import (FACETS, Block, ViT, ViTConfig, attention_core,
                                         attention_probs, embed_tokens, ffn_activation, pool_kv,
                                         pool_matrix, score_attention, softmax_attention)
 from vitvs_tpu_torch.ops.attn_int8 import (INV127, _quant_th, fused_int8_attention,
@@ -445,8 +445,13 @@ def quantize_vit_params(net: ViT, cfg: ViTConfig | None = None,
     With ``calib_images`` (B, H, W, 3) (and ``cfg``), the qkv / fc1 inputs
     get static per-tensor scales with the SmoothQuant fold (``smooth_alpha``;
     0 disables it) and the proj / fc2 inputs static scales with 1.25x
-    headroom; blocks past ``layer`` get scale 1.
+    headroom; blocks past ``layer`` get scale 1.  A ViT split over a mesh's
+    tp devices (``parallel/mesh.py:TPViT``) raises TypeError: quantize the
+    unsplit one.
     """
+    if not all(type(b) is Block for b in net.blocks):
+        raise TypeError("int8 calibration reads whole blocks: quantize the unsplit ViT, "
+                        "not one split over tensor-parallel devices")
     blocks = _stacked_blocks(net)
     qblocks = dict(blocks)
     if calib_images is not None:

@@ -166,8 +166,17 @@ PRESETS: dict[str, dict] = {
 
 
 def make_config(model_name: str, stride: int | None = None) -> ViTConfig:
+    """The architecture of ``model_name``: a preset of :data:`PRESETS`, or a
+    pixel baseline ``pixel{P}`` (``models/baselines.py``: one block of one
+    head of width 3 P^2, stride P whatever ``stride`` says, as in the JAX
+    package)."""
+    if model_name.startswith("pixel"):
+        from vitvs_tpu_torch.models.baselines import pixel_config
+
+        return pixel_config(model_name)
     if model_name not in PRESETS:
-        raise ValueError(f"unknown model {model_name!r}; options: {sorted(PRESETS)}")
+        raise ValueError(f"unknown model {model_name!r}; options: {sorted(PRESETS)} "
+                         f"or pixel<P>")
     kw = dict(PRESETS[model_name])
     patch = kw["patch_size"]
     if stride is None:
@@ -307,6 +316,49 @@ class LayerScale(nn.Module):
         self.gamma = nn.Parameter(torch.ones(dim))
 
 
+def qkv_heads(qkv: nn.Linear, x_norm: torch.Tensor, heads: int, hd: int) -> torch.Tensor:
+    """(B, T, D) -> (3, B, T, heads, hd), contiguous: the projection of
+    ``heads`` heads of width ``hd`` (all of a block's, or one tp shard's)."""
+    B, T, _ = x_norm.shape
+    return qkv(x_norm).reshape(B, T, 3, heads, hd).permute(2, 0, 1, 3, 4).contiguous()
+
+
+def qkv_prepool(cfg: ViTConfig, qkv: nn.Linear, x_norm: torch.Tensor, heads: int):
+    """kv_pool_where='pre': q (B, T, heads, hd) projected from every token,
+    k and v (B, T_p, heads, hd) from the pooled normed tokens (equal to
+    project-then-pool up to float association: each pooling row sums to 1,
+    so the bias passes through)."""
+    B, T, _ = x_norm.shape
+    hd = cfg.head_dim
+    n = heads * hd
+    w, b = qkv.weight, qkv.bias
+    xp = torch.einsum("ot,btd->bod", pool_matrix(T, cfg.kv_pool, x_norm), x_norm)
+    q = F.linear(x_norm, w[:n], None if b is None else b[:n]).reshape(B, T, heads, hd)
+    kv = F.linear(xp, w[n:], None if b is None else b[n:]).reshape(B, -1, 2, heads, hd)
+    return q, kv[:, :, 0], kv[:, :, 1]
+
+
+def attend(cfg: ViTConfig, qkv: nn.Linear, heads: int, x_norm: torch.Tensor,
+           use_kernels: bool) -> torch.Tensor:
+    """The attention of ``heads`` heads before the output projection: (B, T,
+    D) normed tokens -> (B, T, heads * hd), K/V pooled as ``cfg`` says,
+    softmax through :func:`attention_core` (or plain when pooled), relu /
+    sqrelu through :func:`score_attention`.  A block runs all its heads
+    here, a tensor-parallel shard its own."""
+    B, T, _ = x_norm.shape
+    if cfg.kv_pool > 1 and cfg.kv_pool_where == "pre":
+        q, k, v = qkv_prepool(cfg, qkv, x_norm, heads)
+    else:
+        q, k, v = qkv_heads(qkv, x_norm, heads, cfg.head_dim).unbind(0)
+        k = pool_kv(k, cfg.kv_pool, cfg.kv_pool_impl)
+        v = pool_kv(v, cfg.kv_pool, cfg.kv_pool_impl)
+    if cfg.attn_score != "softmax":
+        return score_attention(q, k, v, cfg, x_norm.dtype, score_dtype=torch.float32)
+    if cfg.kv_pool > 1:
+        return softmax_attention(q, k, v)
+    return attention_core(q, k, v, use_kernels, cfg.attn_impl).reshape(B, T, heads * cfg.head_dim)
+
+
 class Attention(nn.Module):
     def __init__(self, cfg: ViTConfig):
         super().__init__()
@@ -318,39 +370,10 @@ class Attention(nn.Module):
 
     def qkv_heads(self, x_norm: torch.Tensor) -> torch.Tensor:
         """(B, T, D) -> (3, B, T, h, hd), contiguous."""
-        B, T, D = x_norm.shape
-        qkv = self.qkv(x_norm).reshape(B, T, 3, self.num_heads, D // self.num_heads)
-        return qkv.permute(2, 0, 1, 3, 4).contiguous()
-
-    def qkv_prepool(self, x_norm: torch.Tensor):
-        """kv_pool_where='pre': q (B, T, h, hd) projected from every token,
-        k and v (B, T_p, h, hd) from the pooled normed tokens (equal to
-        project-then-pool up to float association: each pooling row sums to
-        1, so the bias passes through)."""
-        B, T, D = x_norm.shape
-        h = self.num_heads
-        w, b = self.qkv.weight, self.qkv.bias
-        xp = torch.einsum("ot,btd->bod", pool_matrix(T, self.cfg.kv_pool, x_norm), x_norm)
-        q = F.linear(x_norm, w[:D], None if b is None else b[:D]).reshape(B, T, h, D // h)
-        kv = F.linear(xp, w[D:], None if b is None else b[D:]).reshape(B, -1, 2, h, D // h)
-        return q, kv[:, :, 0], kv[:, :, 1]
+        return qkv_heads(self.qkv, x_norm, self.num_heads, self.cfg.head_dim)
 
     def forward(self, x_norm: torch.Tensor, use_kernels: bool) -> torch.Tensor:
-        B, T, D = x_norm.shape
-        cfg = self.cfg
-        if cfg.kv_pool > 1 and cfg.kv_pool_where == "pre":
-            q, k, v = self.qkv_prepool(x_norm)
-        else:
-            q, k, v = self.qkv_heads(x_norm).unbind(0)
-            k = pool_kv(k, cfg.kv_pool, cfg.kv_pool_impl)
-            v = pool_kv(v, cfg.kv_pool, cfg.kv_pool_impl)
-        if cfg.attn_score != "softmax":
-            out = score_attention(q, k, v, cfg, x_norm.dtype, score_dtype=torch.float32)
-        elif cfg.kv_pool > 1:
-            out = softmax_attention(q, k, v)
-        else:
-            out = attention_core(q, k, v, use_kernels, cfg.attn_impl).reshape(B, T, D)
-        return self.proj(out)
+        return self.proj(attend(self.cfg, self.qkv, self.num_heads, x_norm, use_kernels))
 
 
 def ffn_activation(hidden: torch.Tensor, cfg: ViTConfig) -> torch.Tensor:

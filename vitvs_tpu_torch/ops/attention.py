@@ -29,11 +29,22 @@ K/V stream through a cp.async ring.  Bound at (1, 1370, 12, 64):
 operations, 5.77 GFLOP in 5.8 us on the tensor cores.  It keeps its own entry point and launch count
 (``mha_attention_fast``).
 
+Head widths other than 64 (the pixel baselines' one head of width 3 P^2)
+go to ``csrc/attention_hd.cu`` (:func:`mha_attention_hd` for bf16,
+:func:`mha_attention_hd_f32` for f32, each its own launch count): exact
+softmax at any width from 1 to 1024 in f32 FMA on the CUDA cores, a grid
+over (batch x head, 64-row Q tile, 64-wide slice of the output's head
+dims), each block computing the full scores over every head dim and P.V
+for its slice.  Bound at (1, 485, 1, 588) bf16 (pixel14 @ 308): bytes,
+4 x 570 KB in 0.68 us.  The no-max kernel and the int8 kernel take 64 only
+and refuse other widths (ValueError).
+
 ``mha_attention`` launches a kernel for CUDA tensors (bf16: the exact
-kernel, f32: the f32 kernel; any other dtype raises) and takes the plain
-version only for CPU tensors; ``mha_attention_plain`` and
-``mha_attention_fast_plain`` are the plain versions, which the CPU tests and
-the card's reference pass call directly.
+kernel, f32: the f32 kernel, at head width 64; the any-width kernel at
+other widths; any other dtype raises) and takes the plain version only for
+CPU tensors; ``mha_attention_plain`` and ``mha_attention_fast_plain`` are
+the plain versions, which the CPU tests and the card's reference pass call
+directly.
 """
 
 from __future__ import annotations
@@ -45,6 +56,7 @@ import torch
 from vitvs_tpu_torch.ops import _build
 
 HEAD_DIM = 64  # the kernel's head dim (ViT-S/B/L/14 all use 64)
+HD_MAX = 1024  # the widest head of the any-width kernel (csrc/attention_hd.cu)
 LOG2E = math.log2(math.e)
 
 
@@ -77,9 +89,12 @@ def mha_attention_fast_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) 
 
 
 def _check_layout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  dtype: torch.dtype = torch.bfloat16) -> None:
-    """What a kernel reads, on any device: (B, T, h, 64) ``dtype`` tensors
-    of one shape on one device, contiguous, 16-byte aligned."""
+                  dtype: torch.dtype = torch.bfloat16, head_dim: int | None = HEAD_DIM) -> None:
+    """What a kernel reads, on any device: (B, T, h, ``head_dim``) ``dtype``
+    tensors of one shape on one device, contiguous, 16-byte aligned;
+    ``head_dim`` None: any width from 1 to HD_MAX (the any-width kernel,
+    which reads element by element and needs no more than the dtype's own
+    alignment: the k and v of a qkv split start mid-row there)."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
@@ -89,29 +104,38 @@ def _check_layout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"{name} shape {tuple(t.shape)} != q shape {tuple(q.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        if t.data_ptr() % 16:
+        if head_dim is not None and t.data_ptr() % 16:
             raise ValueError(f"{name} must start 16-byte aligned")
-    if q.dim() != 4 or q.shape[-1] != HEAD_DIM or q.shape[1] < 1:
-        raise ValueError(f"attention kernel takes (B, T, h, {HEAD_DIM}), got {tuple(q.shape)}")
+    if head_dim is None:
+        if q.dim() != 4 or not 1 <= q.shape[-1] <= HD_MAX or q.shape[1] < 1:
+            raise ValueError(f"attention kernel takes (B, T, h, d) with 1 <= d <= {HD_MAX}, "
+                             f"got {tuple(q.shape)}")
+    elif q.dim() != 4 or q.shape[-1] != head_dim or q.shape[1] < 1:
+        raise ValueError(f"attention kernel takes (B, T, h, {head_dim}), got {tuple(q.shape)}")
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           dtype: torch.dtype = torch.bfloat16) -> None:
-    _check_layout(q, k, v, dtype)
+           dtype: torch.dtype = torch.bfloat16, head_dim: int | None = HEAD_DIM) -> None:
+    _check_layout(q, k, v, dtype, head_dim)
     if q.device.type != "cuda":
         raise ValueError(f"attention kernel runs on CUDA tensors, q is on {q.device}")
 
 
-# the exact kernels' C entry points by input dtype
+# the exact kernels' C entry points by input dtype: at head width 64, and at any other
 EXACT_ENTRIES = {torch.bfloat16: "vitvs_attention_fwd", torch.float32: "vitvs_attention_f32_fwd"}
+HD_ENTRIES = {torch.bfloat16: "vitvs_attention_hd_fwd",
+              torch.float32: "vitvs_attention_hd_f32_fwd"}
 
 
 def exact_entry(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     """The C entry point :func:`mha_attention` launches for these inputs
     (their layout checked, on any device), or an error: TypeError for a
-    dtype neither kernel takes, ValueError for a layout they cannot read."""
+    dtype no kernel takes, ValueError for a layout they cannot read."""
     if q.dtype not in EXACT_ENTRIES:
         raise TypeError(f"exact attention kernels take {list(EXACT_ENTRIES)}, q is {q.dtype}")
+    if q.dim() == 4 and q.shape[-1] != HEAD_DIM:
+        _check_layout(q, k, v, q.dtype, head_dim=None)
+        return HD_ENTRIES[q.dtype]
     _check_layout(q, k, v, q.dtype)
     return EXACT_ENTRIES[q.dtype]
 
@@ -122,15 +146,17 @@ EXACT_SPLITS = {"64-row": 1, "128-row": 2}
 
 
 def _launch(entry: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            *split: int) -> torch.Tensor:
-    """One kernel launch on inputs that passed :func:`_check` (``split``:
-    the work split of ``vitvs_attention_split_fwd``)."""
+            *extra) -> torch.Tensor:
+    """One kernel launch on inputs that passed :func:`_check` (``extra``:
+    the arguments after B, T, H: the work split of
+    ``vitvs_attention_split_fwd``, the head width and scale of the any-width
+    kernel)."""
     B, T, H, _ = q.shape
     out = torch.empty_like(q)
     lib = _build.library()
     with torch.cuda.device(q.device):
         err = getattr(lib, entry)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, T, H, *split,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, T, H, *extra,
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, entry)
     return out
@@ -142,15 +168,19 @@ def mha_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     fast=True goes to :func:`mha_attention_fast`.  Otherwise CUDA tensors:
     the exact kernel (bf16, d = 64, contiguous), the f32 kernel for f32
-    ones (:func:`mha_attention_f32`), or an error; CPU tensors:
-    :func:`mha_attention_plain`.
+    ones (:func:`mha_attention_f32`), the any-width kernel at d != 64
+    (:func:`mha_attention_hd`, :func:`mha_attention_hd_f32`), or an error;
+    CPU tensors: :func:`mha_attention_plain`.
     """
     _build.refuse_grad("mha_attention", q, k, v)
     if fast:
         return mha_attention_fast(q, k, v)
     if q.device.type == "cpu":
         return mha_attention_plain(q, k, v)
-    if exact_entry(q, k, v) == EXACT_ENTRIES[torch.float32]:
+    entry = exact_entry(q, k, v)
+    if entry == HD_ENTRIES[torch.bfloat16]:
+        return mha_attention_hd(q, k, v)
+    if entry in (EXACT_ENTRIES[torch.float32], HD_ENTRIES[torch.float32]):
         return mha_attention_f32(q, k, v)
     _check(q, k, v)
     out = _launch("vitvs_attention_fwd", q, k, v)
@@ -161,15 +191,54 @@ def mha_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def mha_attention_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Exact attention in f32 (the f32 servo step).
 
-    CUDA tensors: the f32 kernel (f32, d = 64, contiguous), or an error;
-    CPU tensors: :func:`mha_attention_plain`.
+    CUDA tensors: the f32 kernel (f32, d = 64, contiguous), the any-width
+    kernel at d != 64 (:func:`mha_attention_hd_f32`), or an error; CPU
+    tensors: :func:`mha_attention_plain`.
     """
     _build.refuse_grad("mha_attention_f32", q, k, v)
     if q.device.type == "cpu":
         return mha_attention_plain(q, k, v)
+    if q.dim() == 4 and q.shape[-1] != HEAD_DIM:
+        return mha_attention_hd_f32(q, k, v)
     _check(q, k, v, torch.float32)
     out = _launch("vitvs_attention_f32_fwd", q, k, v)
     mha_attention_f32.launches += 1
+    return out
+
+
+def _attention_hd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """One launch of the any-width kernel on ``dtype`` CUDA tensors (checked
+    first), the scale d^-0.5 of the true head width as f32."""
+    _check(q, k, v, dtype, head_dim=None)
+    return _launch(HD_ENTRIES[dtype], q, k, v, q.shape[-1], q.shape[-1] ** -0.5)
+
+
+def mha_attention_hd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Exact attention at any head width from 1 to 1024, bf16.
+
+    CUDA tensors: the any-width kernel (bf16, contiguous), or an error; CPU
+    tensors: :func:`mha_attention_plain`.
+    """
+    _build.refuse_grad("mha_attention_hd", q, k, v)
+    if q.device.type == "cpu":
+        return mha_attention_plain(q, k, v)
+    out = _attention_hd(q, k, v, torch.bfloat16)
+    mha_attention_hd.launches += 1
+    return out
+
+
+def mha_attention_hd_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Exact attention at any head width from 1 to 1024, f32.
+
+    CUDA tensors: the any-width kernel (f32, contiguous), or an error; CPU
+    tensors: :func:`mha_attention_plain`.
+    """
+    _build.refuse_grad("mha_attention_hd_f32", q, k, v)
+    if q.device.type == "cpu":
+        return mha_attention_plain(q, k, v)
+    out = _attention_hd(q, k, v, torch.float32)
+    mha_attention_hd_f32.launches += 1
     return out
 
 
@@ -191,3 +260,5 @@ def mha_attention_fast(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tor
 mha_attention.launches = 0
 mha_attention_f32.launches = 0
 mha_attention_fast.launches = 0
+mha_attention_hd.launches = 0
+mha_attention_hd_f32.launches = 0

@@ -153,3 +153,51 @@ def render(scene: Scene, cam: CameraIntrinsics, position: torch.Tensor, quat: to
         # constant 1000 so, and the depths then agree bit for bit
         depth = torch.round(depth * 1000.0) * (1.0 / 1000.0)
     return rgb, depth
+
+
+# D435 stereo-IR extrinsics: the left IR sits at the depth frame, the right IR
+# 50 mm to its right (body y is image-left, so the offset is negative)
+IR1_OFFSET_Y = 0.0
+IR2_OFFSET_Y = -0.050
+IR_NOISE_STD = 0.05   # the plugin's IR sensors' Gaussian noise
+
+# ITU-R BT.601 luma: how a colourless renderer greys an RGB scene (as f32)
+_LUMA = tuple(float(np.float32(c)) for c in (0.299, 0.587, 0.114))
+
+
+def _luma(rgb: torch.Tensor) -> torch.Tensor:
+    """The f32 luma of (..., 3) as XLA's CPU dot of the JAX package computes
+    it, fma(b, .114, fma(g, .587, r * .299)): each fused step is one f64
+    product and sum (the product exact) rounded to f32."""
+    acc = rgb[..., 0] * _LUMA[0]
+    for c in (1, 2):
+        acc = (rgb[..., c].double() * _LUMA[c] + acc.double()).float()
+    return acc
+
+
+def render_ir(scene: Scene, cam: CameraIntrinsics, position: torch.Tensor, quat: torch.Tensor,
+              generator: torch.Generator | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The two infrared streams (ir1 left, ir2 right), each (..., H, W) in
+    [0, 1] at 8-bit levels, of camera poses (..., 3) / (..., 4)
+    (``vitvs_tpu/sim/scene.py:render_ir``).
+
+    The emulated RealSense's IR sensors render the same scene in 8-bit grey
+    (BT.601 luma of a pinhole render, no depth rounding) from two poses: the
+    left IR at the depth frame, the right one 50 mm along body -y, so the
+    pair has the stereo disparity f B / Z.  With ``generator`` the sensors'
+    Gaussian noise (std 0.05; ir1's draws, then ir2's, on the generator's
+    device) is added before the 8-bit quantization; None renders without
+    noise."""
+    r_wb = se3.matrix_from_quat(quat)
+    outs = []
+    for off_y in (IR1_OFFSET_Y, IR2_OFFSET_Y):
+        pos = position + r_wb[..., :, 1] * off_y
+        rgb, _ = render(scene, cam, pos, quat, quantize_depth_mm=False)
+        ir = _luma(rgb)
+        if generator is not None:
+            noise = torch.randn(ir.shape, generator=generator, device=generator.device)
+            ir = ir + IR_NOISE_STD * noise.to(ir.device)
+        # the L_INT8 wire format: 8-bit levels (times the reciprocal, as XLA
+        # computes the JAX package's division by the constant 255)
+        outs.append(torch.round(torch.clamp(ir, 0.0, 1.0) * 255.0) * (1.0 / 255.0))
+    return outs[0], outs[1]
