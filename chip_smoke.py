@@ -161,7 +161,7 @@ Phases, each announced with a flushed, timestamped start/done line:
    settings (runs J, K and AN's) on the poster at 640x480: for each of sift,
    orb, akaze and harris with its default keypoints (1152, 1000, 512, 512),
    run_classical_benchmark on episodes 0 to 7 of the 64-episode stream as one
-   chunk for 60 steps, twice (the twists equal bit for bit); no hand kernel
+   chunk for 30 steps, twice (the twists equal bit for bit); no hand kernel
    may launch (the reference runs this path in plain XLA); every 6th
    chunk-step held against the port on the CPU on the same frames (keypoint
    and pair sets compared, twists within 1e-4 where the pairs agree; the
@@ -224,9 +224,14 @@ Phases, each announced with a flushed, timestamped start/done line:
    summing to 1;
 3l. the last modules: (a) exact attention at other head widths than 64
    (csrc/attention_hd.cu, bf16 and f32) against the plain versions at head
-   widths 48, 192, 588 and 768 (one head, T = 485, two launches bit for bit),
-   B = 2 at T in {1, 63, 65, 485} and rows of logits of about +-200, and f32
-   at pixel8's (1, 197, 1, 192), B = 1 and 2, whose error its row reports; (b) the
+   widths 1, 27, 48, 147, 192, 588, 768 and 1024 (one head, T = 485, two
+   launches bit for bit), B = 2 at T in {1, 63, 65, 485} and rows of logits
+   of about +-200; at (1, 1370, 1, 588) and (1, 5930, 1, 48) (pixel14 @ 518,
+   pixel4 @ 308), two launches bit for bit; pixel14's unaligned qkv split
+   (k and v 8 bytes off: 8-byte copies) on the card; the launch geometry of
+   the kernel's C side equal to ops/attention.py:hd_plan at every width and
+   pointer offset; and f32 at pixel8's (1, 197, 1, 192), B = 1 and 2, whose
+   error its row reports; (b) the
    pixel baseline pixel14 @ 308 (configs/config.yaml's settings with
    model_name pixel14, layer 0, bf16, build_model's pixel weights): goal + 5
    servo steps through the kernels and plain, teacher-forced, 6 any-width
@@ -286,6 +291,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import ctypes
 import dataclasses
 import json
 import math
@@ -444,7 +450,9 @@ POOLED_ATTN_SHAPE = (CHUNK, 1370, POOLED_KEYS, 6, 64)   # (B, T, keys, h, hd) of
 # phase 3h, the classical baselines: runs J, K and AN's configuration, episodes 0 to 7
 CLASSICAL = ("sift", "orb", "akaze", "harris")
 CLASSICAL_STREAM = 64                 # configs/real64.yaml's 64-episode stream
-CLASSICAL_STEPS = 60
+# cut from 60 to keep the smoke inside its limit: the checks are as before,
+# on half as many chunk-steps (5 compared with the CPU, not 10)
+CLASSICAL_STEPS = 30
 # chunk-steps held against the CPU
 CLASSICAL_COMPARED = tuple(range(0, CLASSICAL_STEPS, 6))
 CLASSICAL_ALONE_STEPS = 20
@@ -546,8 +554,12 @@ FAST_ARGMAX_F32_MIN = 0.99
 # phase 3l: the pixel baselines (one head of width 3 P^2), the mesh, the sensors,
 # the live channel, the native bridge and stage profiling
 PIXEL_MODEL = "pixel14"
-PIXEL_HD = (48, 192, 588, 768)                 # pixel4, 8, 14 and 16's head widths
+# pixel4, 8, 14 and 16's head widths, pixel3's and 7's odd ones (bf16: scalar
+# loads), and the range's ends
+PIXEL_HD = (1, 27, 48, 147, 192, 588, 768, 1024)
 PIXEL_T = (1, 63, 65, 485)
+# long T at the widths that give it: pixel14 @ 518, pixel4 @ 308
+PIXEL_HD_LONG = ((1, 1370, 1, 588), (1, 5930, 1, 48))
 PIXEL_ATTN_SHAPE = (1, 485, 1, 588)            # pixel14 @ 308: 22 x 22 patches + CLS
 PIXEL_F32_ATTN_SHAPE = (1, 197, 1, 192)        # pixel8 @ 112 in f32: 14 x 14 + CLS
 MESH_SHAPE = (2, 2)                            # (dp, tp) cells, all on the one card
@@ -2840,6 +2852,56 @@ def check_attention_hd(device, dtype=torch.bfloat16) -> dict:
             for i, d in enumerate(PIXEL_HD)}
 
 
+def check_attention_hd_edges(device, long_shapes=PIXEL_HD_LONG,
+                             split_shape=PIXEL_ATTN_SHAPE) -> dict:
+    """The any-width kernel's edges, bf16 and f32: each shape of
+    ``long_shapes`` against plain and two launches bit for bit; q, k, v
+    sliced from one (3, B, T, 1, D) tensor (pixel14's qkv split: k and v
+    start mid-row) against plain; and, on the card, the C side's launch
+    geometry (vitvs_attention_hd_plan) equal to ops/attention.py:hd_plan at
+    every width and pointer offset.  Returns the errors, the split's copy
+    widths and the geometry's mismatches."""
+    rs = np.random.default_rng(80)
+    out = {"long": {}, "qkv_split": {}}
+    for dtype in (torch.bfloat16, torch.float32):
+        f32 = dtype == torch.float32
+        tol = ATTN_F32_TOL if f32 else ATTN_TOL
+        for shape in long_shapes:
+            what = f"any-width attention ({dtype}) at {shape}"
+            q, k, v = (_normal(device, shape, rs, dtype) for _ in range(3))
+            got = attention.mha_attention(q, k, v)
+            out["long"][f"{'f32' if f32 else 'bf16'} {shape}"] = _max_err(
+                got, attention.mha_attention_plain(q, k, v), what, tol)
+            if not torch.equal(got.view(torch.uint8),
+                               attention.mha_attention(q, k, v).view(torch.uint8)):
+                raise AssertionError(f"{what}: two launches on the same inputs differ")
+        qkv = _normal(device, (3, *split_shape), rs, dtype)
+        q, k, v = qkv.unbind(0)
+        plan = attention.hd_plan(split_shape[-1], dtype, q.data_ptr(), k.data_ptr(), v.data_ptr())
+        err = _max_err(attention.mha_attention(q, k, v), attention.mha_attention_plain(q, k, v),
+                       f"any-width attention ({dtype}), the qkv split", tol)
+        out["qkv_split"]["f32" if f32 else "bf16"] = {"k_offset_mod_16": k.data_ptr() % 16,
+                                                      "copy": plan["copy"], "max_abs_err": err}
+    if torch.device(device).type == "cuda":
+        lib, got = _build.library(), (ctypes.c_int * 6)()
+        keys = ("cluster", "slice", "stages", "pbufs", "copy", "smem")
+        bad = []
+        for d in range(1, attention.HD_MAX + 1):
+            for dtype, es in ((torch.bfloat16, 2), (torch.float32, 4)):
+                for off in (0, 2, 4, 8):
+                    if off % es:
+                        continue
+                    _build.check(lib.vitvs_attention_hd_plan(d, es, off, got), "hd plan")
+                    want = attention.hd_plan(d, dtype, off)
+                    if list(got) != [want[x] for x in keys]:
+                        bad.append((d, es, off, list(got)))
+        if bad:
+            raise AssertionError(f"any-width kernel: C geometry differs from hd_plan at "
+                                 f"{len(bad)} points, first {bad[:3]}")
+        out["plan_mismatches"] = 0
+    return out
+
+
 def run_pixel_loop(device) -> dict:
     """tests/test_baselines.py:38-54's episode on the card in f32 through the
     any-width f32 kernel and the f32 matcher: pixel8 from goal + (0.10,
@@ -3133,13 +3195,15 @@ def run_stages(net, model: ServoModel, scene: Scene, trace_dir: Path, iters: int
 
 def time_pixel_kernels(device) -> dict:
     """The any-width kernel at pixel14's (1, 485, 1, 588) bf16 and pixel8's
-    (1, 197, 1, 192) f32: its launch, the plain version and SDPA at the
-    shape (whatever backend it picks), with the bound."""
+    (1, 197, 1, 192) f32, and bf16 at pixel14 @ 518's (1, 1370, 1, 588):
+    its launch, the plain version and SDPA at the shape (whatever backend it
+    picks), with the bound."""
     rs = np.random.default_rng(9)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     out = {}
     for name, shape, dtype in (("attention_hd", PIXEL_ATTN_SHAPE, torch.bfloat16),
-                               ("attention_hd_f32", PIXEL_F32_ATTN_SHAPE, torch.float32)):
+                               ("attention_hd_f32", PIXEL_F32_ATTN_SHAPE, torch.float32),
+                               ("attention_hd_1370", PIXEL_HD_LONG[0], torch.bfloat16)):
         q, k, v = (_normal(device, shape, rs, dtype) for _ in range(3))
         qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         entry = attention.HD_ENTRIES[dtype]
@@ -3173,11 +3237,13 @@ def run_pixel_phase(device, scene: Scene, tnet, tcfg: VSConfig, tmodel: ServoMod
     pixel8_err = check_attention(device, shape=PIXEL_F32_ATTN_SHAPE,
                                  ts=(PIXEL_F32_ATTN_SHAPE[1],), seed=70, dtype=torch.float32,
                                  tol=ATTN_F32_TOL, large_tol=LARGE_LOGIT_F32_TOL)
+    edges = check_attention_hd_edges(device)
     log(f"3l(a) any-width attention vs plain at (1, 485, 1, d) for d in {PIXEL_HD}, B = 2 at "
         f"T = {PIXEL_T}, logits of about +-{LARGE_LOGIT}, two launches bit for bit: max abs "
         f"err bf16 {json.dumps(errs['attention_hd'])} (tol {ATTN_TOL}), f32 "
         f"{json.dumps(errs['attention_hd_f32'])} (tol {ATTN_F32_TOL}); f32 at pixel8's "
-        f"{PIXEL_F32_ATTN_SHAPE} {pixel8_err}")
+        f"{PIXEL_F32_ATTN_SHAPE} {pixel8_err}; long T, the qkv split and the C geometry: "
+        f"{json.dumps(edges)}")
     pcfg = pixel_config()
     pnet, pmodel = build_model(pcfg, device=device)
     summ = run_main_path(pnet, pcfg, pmodel, every_step=True)

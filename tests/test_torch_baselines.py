@@ -222,11 +222,14 @@ def test_other_head_widths_go_to_the_any_width_kernel(launches, hd, dtype):
 
 def test_any_width_kernel_takes_the_unaligned_qkv_split(launches):
     """pixel14's k and v, slices of one (3, B, T, 1, 588) bf16 tensor, start
-    8 bytes past a 16-byte boundary: the any-width kernel (element loads)
-    takes them, the 64-wide kernels' 16-byte rule does not apply."""
+    8 bytes past a 16-byte boundary: the any-width kernel takes them by
+    8-byte copies, the 64-wide kernels' 16-byte rule does not apply."""
     q, k, v = torch.zeros((3, 1, 485, 1, 588), dtype=torch.bfloat16).unbind(0)
     assert k.data_ptr() % 16 == 8
     attention._check_layout(q, k, v, torch.bfloat16, head_dim=None)
+    # the kernel copies them 8 bytes at a time (cp.async), q too
+    assert attention.hd_plan(588, torch.bfloat16, q.data_ptr(), k.data_ptr(),
+                             v.data_ptr())["copy"] == 8
 
 
 @pytest.mark.parametrize("hd", [0, 1025])

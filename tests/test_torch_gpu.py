@@ -777,7 +777,7 @@ def test_int8_prob_block_on_the_card_matches_the_cpu(cuda, mode):
     assert b["rel_err"] <= chip_smoke.INT8_BLOCK_TOL
 
 
-@pytest.mark.parametrize("hd", [1, 48, 192, 588, 768, 1024])
+@pytest.mark.parametrize("hd", chip_smoke.PIXEL_HD)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
 def test_any_width_attention_kernel_matches_plain(cuda, hd, dtype):
     """Head widths other than 64 (the pixel baselines'): the any-width
@@ -797,6 +797,13 @@ def test_any_width_attention_kernel_matches_plain(cuda, hd, dtype):
         assert counter.launches == before + 2 and torch.equal(out, again)
         ref = attention.mha_attention_plain(q, k, v)
         assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+def test_any_width_attention_edges_on_the_card(cuda):
+    """Phase 3l(a)'s edges: long T at pixel14 @ 518's and pixel4 @ 308's
+    shapes, pixel14's unaligned qkv split, the C geometry equal to hd_plan."""
+    out = chip_smoke.check_attention_hd_edges("cuda")
+    assert out["plan_mismatches"] == 0 and out["qkv_split"]["bf16"]["copy"] == 8
 
 
 def test_pixel_phase_on_the_card(cuda, tmp_path):

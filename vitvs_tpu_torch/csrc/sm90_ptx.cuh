@@ -1,9 +1,11 @@
 // Inline PTX the Hopper kernels of this directory share: cp.async copies
-// into shared memory (16 and 4 bytes, and into the 128-byte swizzle that wgmma
-// reads), ldmatrix fragment loads, the bf16 mma.sync, the wgmma products
-// (bf16, s8 and tf32) with their shared-memory descriptors and the fences
-// around them, the A fragments of bf16 query rows, the TF32 split of an f32
-// value, and the one-instruction exp2.
+// into shared memory (16, 8 and 4 bytes, and into the 128-byte swizzle that
+// wgmma reads), ldmatrix fragment loads (plain and transposed), the bf16 and
+// tf32 mma.sync, the wgmma products (bf16, s8 and tf32) with their
+// shared-memory descriptors and the fences around them, transaction barriers
+// and st.async stores between the blocks of a cluster, the A fragments of
+// bf16 query rows, the TF32 split of an f32 value, and the one-instruction
+// exp2.
 
 #pragma once
 
@@ -28,6 +30,13 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes
 // bytes = 0 writes a zero
 __device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes) {
     asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 :: "r"(smem_addr(dst)), "l"(src), "r"(bytes));
+}
+
+// 8 bytes global -> shared, asynchronous (a source only 8-byte aligned);
+// bytes = 0 writes zeros
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, int bytes) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
                  :: "r"(smem_addr(dst)), "l"(src), "r"(bytes));
 }
 
@@ -59,10 +68,30 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
                  : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
 }
 
+// the four 8 x 8 b16 matrices read transposed: thread lane holds rows
+// 2 (lane % 4) and + 1 of column lane / 4 of each (the B fragments of an
+// operand stored k-rows first)
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
+}
+
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
                                          uint32_t b1) {
     asm volatile(
         "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// D (16 x 8, f32) += A (16 x 8 tf32) B (8 x 8 tf32).  g = lane / 4, t = lane % 4:
+// a = {(g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4)}, b = {(t, g), (t + 4, g)},
+// d = {(g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1)}
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
         "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
@@ -115,6 +144,58 @@ __device__ __forceinline__ void wgmma_fence_operand(float (&d)[8][4]) {
     for (int n = 0; n < 8; ++n)
 #pragma unroll
         for (int i = 0; i < 4; ++i) asm volatile("" : "+f"(d[n][i]) :: "memory");
+}
+
+// Transaction barriers in shared memory for stores between the blocks of a
+// cluster: a consumer arms its barrier with the bytes a phase brings
+// (arrive.expect_tx, one arrival), producers write into its shared memory by
+// st.async, each store completing its bytes on that barrier, and the phase
+// ends when all have landed.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_addr(bar)), "r"(count));
+}
+
+// the barriers' initialization becomes visible to the cluster (then a cluster barrier)
+__device__ __forceinline__ void fence_mbar_init() {
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+// until the phase of the given parity has completed; acquires the cluster's stores
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+    asm volatile("{\n.reg .pred P1;\nLAB_WAIT:\n"
+                 "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 P1, [%0], %1;\n"
+                 "@P1 bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n"
+                 :: "r"(smem_addr(bar)), "r"(parity) : "memory");
+}
+
+// the shared::cluster address of local shared address addr in block `rank`
+__device__ __forceinline__ uint32_t mapa(uint32_t addr, int rank) {
+    uint32_t out;
+    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(addr), "r"(rank));
+    return out;
+}
+
+// stores into another block's shared memory (cluster addresses), each
+// completing its bytes on that block's barrier bar
+__device__ __forceinline__ void st_async(uint32_t addr, float x, float y, uint32_t bar) {
+    asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.f32 [%0], {%1, %2}, [%3];\n"
+                 :: "r"(addr), "f"(x), "f"(y), "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void st_async(uint32_t addr, uint32_t a, uint32_t b, uint32_t c,
+                                         uint32_t d, uint32_t bar) {
+    asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%1, %2, %3, %4}, [%5];\n"
+                 :: "r"(addr), "r"(a), "r"(b), "r"(c), "r"(d), "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void st_async(uint32_t addr, float x, uint32_t bar) {
+    asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 [%0], %1, [%2];\n"
+                 :: "r"(addr), "f"(x), "r"(bar) : "memory");
 }
 
 // generic-proxy writes to shared memory (cp.async, st.shared) become visible

@@ -40,6 +40,7 @@ _SIGNATURES = {
     "vitvs_attention_f32_fwd": ([_P, _P, _P, _P, _I, _I, _I, _P], _I),
     "vitvs_attention_hd_fwd": ([_P] * 4 + [_I] * 4 + [_F, _P], _I),
     "vitvs_attention_hd_f32_fwd": ([_P] * 4 + [_I] * 4 + [_F, _P], _I),
+    "vitvs_attention_hd_plan": ([_I, _I, _L, _P], _I),
     "vitvs_dual_argmax_cosine": ([_P] * 7 + [_I] * 7 + [_P], _I),
     "vitvs_dual_argmax_bf16": ([_P] * 7 + [_I] * 4 + [_P], _I),
     "vitvs_error_string": ([_I], ctypes.c_char_p),

@@ -32,12 +32,16 @@ operations, 5.77 GFLOP in 5.8 us on the tensor cores.  It keeps its own entry po
 Head widths other than 64 (the pixel baselines' one head of width 3 P^2)
 go to ``csrc/attention_hd.cu`` (:func:`mha_attention_hd` for bf16,
 :func:`mha_attention_hd_f32` for f32, each its own launch count): exact
-softmax at any width from 1 to 1024 in f32 FMA on the CUDA cores, a grid
-over (batch x head, 64-row Q tile, 64-wide slice of the output's head
-dims), each block computing the full scores over every head dim and P.V
-for its slice.  Bound at (1, 485, 1, 588) bf16 (pixel14 @ 308): bytes,
-4 x 570 KB in 0.68 us.  The no-max kernel and the int8 kernel take 64 only
-and refuse other widths (ValueError).
+softmax at any width from 1 to 1024 on the tensor cores (bf16 mma.sync;
+f32 split-precision TF32, 3 passes).  A cluster of up to 8 blocks shares a
+64-row Q tile, each block owning a slice of the head dims: the blocks sum
+their partial scores through distributed shared memory, each row's softmax
+runs once in its owner, and every block applies P.V to its own output
+columns, so the scores are computed once.  K/V slices stream through a
+cp.async ring at the widest copy the pointers allow (:func:`hd_plan`, the
+geometry the entry points launch with).  Bound at (1, 485, 1, 588) bf16
+(pixel14 @ 308): bytes, 4 x 570 KB in 0.68 us.  The no-max kernel and the
+int8 kernel take 64 only and refuse other widths (ValueError).
 
 ``mha_attention`` launches a kernel for CUDA tensors (bf16: the exact
 kernel, f32: the f32 kernel, at head width 64; the any-width kernel at
@@ -58,6 +62,13 @@ from vitvs_tpu_torch.ops import _build
 HEAD_DIM = 64  # the kernel's head dim (ViT-S/B/L/14 all use 64)
 HD_MAX = 1024  # the widest head of the any-width kernel (csrc/attention_hd.cu)
 LOG2E = math.log2(math.e)
+# the any-width kernel's geometry (csrc/attention_hd.cu:make_plan)
+HD_ROWS = 64          # query rows of a cluster and keys of a step
+HD_KSTEP = 16         # head dims are zero-padded to a multiple of the bf16 mma's k
+HD_MIN_SLICE = 32     # head dims a block at least, where the width allows
+HD_MAX_CLUSTER = 8    # blocks of a cluster (the portable most)
+HD_MAX_GRID_Y = 65535  # B x H
+SMEM_LIMIT = 232_448  # dynamic shared memory a block may have on the H100
 
 
 def mha_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -93,8 +104,9 @@ def _check_layout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """What a kernel reads, on any device: (B, T, h, ``head_dim``) ``dtype``
     tensors of one shape on one device, contiguous, 16-byte aligned;
     ``head_dim`` None: any width from 1 to HD_MAX (the any-width kernel,
-    which reads element by element and needs no more than the dtype's own
-    alignment: the k and v of a qkv split start mid-row there)."""
+    which copies as wide as the pointers allow, :func:`hd_plan`, and needs
+    no more than the dtype's own alignment: the k and v of a qkv split start
+    mid-row there)."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
@@ -138,6 +150,49 @@ def exact_entry(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
         return HD_ENTRIES[q.dtype]
     _check_layout(q, k, v, q.dtype)
     return EXACT_ENTRIES[q.dtype]
+
+
+def hd_plan(d: int, dtype: torch.dtype, *ptrs: int) -> dict:
+    """The any-width kernel's launch geometry at head width ``d`` for
+    ``dtype`` inputs at addresses ``ptrs`` (q, k, v), as
+    ``csrc/attention_hd.cu:make_plan`` computes it: ``cluster`` blocks share a
+    64-row Q tile, rank r owning head dims ``slices[r]`` = (start, width),
+    widths multiples of ``kstep`` covering d zero-padded to it; K/V stream
+    through ``stages`` ring stages by cp.async copies of ``copy`` bytes (the
+    widest of 16, 8, 4 that divides every pointer and a row's d * itemsize
+    bytes; 2: bf16 scalar loads); ``pbufs`` P tiles (two let a block send
+    the next key block's scores before P.V); ``smem`` bytes of dynamic
+    shared memory.  Raises ValueError for what the kernel cannot take: a
+    width outside 1 to HD_MAX, another dtype, a pointer not aligned to its
+    element."""
+    if dtype not in HD_ENTRIES:
+        raise ValueError(f"the any-width kernel takes {list(HD_ENTRIES)}, not {dtype}")
+    if not 1 <= d <= HD_MAX:
+        raise ValueError(f"the any-width kernel takes 1 <= d <= {HD_MAX}, got d = {d}")
+    es = 2 if dtype == torch.bfloat16 else 4
+    if any(p % es for p in ptrs):
+        raise ValueError(f"the any-width kernel needs {es}-byte aligned {dtype} pointers")
+    dp = -(-d // HD_KSTEP) * HD_KSTEP
+    cl = min(HD_MAX_CLUSTER, -(-dp // HD_MIN_SLICE))
+    width = -(-(-(-dp // cl)) // HD_KSTEP) * HD_KSTEP
+    cl = -(-dp // width)
+    bits = d * es
+    for p in ptrs:
+        bits |= p
+    copy = 16
+    while copy > es and bits % copy:
+        copy //= 2
+    ldq, ldv, ldp = width + (8 if es == 2 else 4), width + 8, HD_ROWS + (8 if es == 2 else 4)
+    rpo = -(-HD_ROWS // cl)
+    kv = HD_ROWS * (ldq + ldv) * es                      # a ring stage
+    pb = HD_ROWS * ldp * es + HD_ROWS * 4                # a P tile and its alphas
+    fixed = HD_ROWS * ldq * es + 2 * cl * rpo * (HD_ROWS + 4) * 4 + HD_ROWS * 4 + 4 * 8
+    stages = 3 if fixed + 3 * kv + 2 * pb <= SMEM_LIMIT else 2
+    pbufs = 2 if fixed + 2 * kv + 2 * pb <= SMEM_LIMIT else 1
+    return {"cluster": cl, "slice": width,
+            "slices": [(r * width, min(width, dp - r * width)) for r in range(cl)],
+            "kstep": HD_KSTEP, "copy": copy, "stages": stages, "pbufs": pbufs,
+            "smem": fixed + stages * kv + pbufs * pb}
 
 
 # the exact kernel's work splits (csrc/attention.cu), which vitvs_attention_fwd
@@ -209,8 +264,13 @@ def mha_attention_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torc
 def _attention_hd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   dtype: torch.dtype) -> torch.Tensor:
     """One launch of the any-width kernel on ``dtype`` CUDA tensors (checked
-    first), the scale d^-0.5 of the true head width as f32."""
+    first, its geometry too: :func:`hd_plan`), the scale d^-0.5 of the true
+    head width as f32."""
     _check(q, k, v, dtype, head_dim=None)
+    hd_plan(q.shape[-1], dtype, q.data_ptr(), k.data_ptr(), v.data_ptr())
+    if q.shape[0] * q.shape[2] > HD_MAX_GRID_Y:
+        raise ValueError(f"the any-width kernel takes B x h <= {HD_MAX_GRID_Y}, got "
+                         f"{q.shape[0] * q.shape[2]}")
     return _launch(HD_ENTRIES[dtype], q, k, v, q.shape[-1], q.shape[-1] ** -0.5)
 
 
