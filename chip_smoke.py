@@ -255,6 +255,28 @@ Phases, each announced with a flushed, timestamped start/done line:
    buffer, and ServoLoop over it drives 5 steps with the viz hook on; (h)
    StageTimer over a servo step's stages and a trace_to trace holding the
    annotated ranges and the card's kernels;
+3m. the int8 serving ViT split over tensor parallelism (parallel/mesh.py's
+   TPQuantViT), the bf16-logits attention and scripts/port_measure.py: (a)
+   run_benchmark at run AD's int8 settings (phase 3g's int8 ViT), episodes
+   0 to 7 as one chunk for 60 steps on a (dp, tp) = (2, 2) grid of the one
+   card, every dp row's chunk-step teacher-forced through the unsplit int8
+   ViT and equal to it bit for bit (pairs and twists on every episode-step,
+   the goal descriptors), no hand kernel launched and the shards' attention
+   run tp x blocks x forwards times; the same check fails on a planted
+   fault (two shards' proj columns swapped, 4 chunk-steps);
+   (b) the ViT-B/14 @ 518 int8 ViTs of
+   3b's 'fused' and 3j's 'none' split over a (1, 2) grid, goal + 5 steps
+   held against the unsplit (launches tp x blocks x forwards of kernel 4 and
+   of kernel 1), and each shard's kernel 4 output on its [q | k | v] column
+   slices equal to the unsplit kernel's heads to the bit and held against
+   fused_int8_attention_plain; (c) the exact kernel's bf16-logits variant
+   against its plain version at (1, 485, 6, 64), (1, 1370, 12, 64) and
+   (8, 1370, 6, 64), two launches bit for bit, its mean |diff| at most half
+   the exact kernel's (f32 scores) to the same plain version; (d) scripts/port_measure.py's
+   step, desc, match and attn at ViT-B/14 @ 518, float and --quant
+   --static-scales --fast-math --attn xla (whose int8 'none' attention is
+   the bf16-logits variant), short chains, their lines logged and their
+   launches held;
 4. times on the card (CUDA events / synchronized host clock) beside each
    kernel's bound and the PyTorch library call for the same function (the
    exact kernels at T = 485 and T = 1370; the int8 kernel from the bf16
@@ -276,7 +298,9 @@ Phases, each announced with a flushed, timestamped start/done line:
    similarity beside 2a, and the ViT-g step and chunk-step of 8,
    materialized against factorized, in 7 alternating rounds; the
    any-width attention at pixel14's (1, 485, 1, 588) bf16 and pixel8's
-   (1, 197, 1, 192) f32 beside its plain version and SDPA.  The
+   (1, 197, 1, 192) f32 beside its plain version and SDPA; the bf16-logits
+   variant at 3m(c)'s shapes beside the exact kernel (f32 scores), its plain
+   version and SDPA.  The
    f32 attention kernel is held to the tensor-core bound of f32-accurate
    work (three TF32 passes), its f32 FMA bound logged beside it.
 
@@ -342,6 +366,7 @@ from vitvs_tpu_torch.models.vit import ViT, init_vit, vit_features, vit_forward
 from vitvs_tpu_torch.ops import _build, attention, attn_int8, matcher
 from vitvs_tpu_torch.ops.int_mm import int8_bmm
 from vitvs_tpu_torch.parallel import make_mesh
+from vitvs_tpu_torch.parallel.mesh import QuantBlockShard, TPQuantBlock, TPQuantViT
 from vitvs_tpu_torch.sim.env import observe
 from vitvs_tpu_torch.sim.pointcloud import organized_point_cloud
 from vitvs_tpu_torch.sim.scene import Scene, load_poster_scene, make_synthetic_poster, render_ir
@@ -574,6 +599,25 @@ IR_LEVEL_SHARE = 1e-3
 IR_NOISE_BAND = (0.045, 0.055)                 # std of the noise (0.05) after 8-bit levels
 LIVE_STEPS = 20
 LIVE_SEGMENT = 10
+
+# phase 3m: the int8 ViT under tensor parallelism, the bf16-logits attention,
+# scripts/port_measure.py
+INT8_TP_MESH = (2, 2)               # (a) (dp, tp) cells at run AD's settings, the one card
+INT8_TP_PLANT_STEPS = 4             # (a) chunk-steps of the planted fault's run
+INT8_TP_SERVE = 2                   # (b) tp of the (1, 2) grid at config_vitb_518.yaml
+# (c) the bf16-logits variant's shapes: ViT-S/14 @ 308, ViT-B/14 @ 518 (the int8
+# 'none' step's), the trained chunk's
+BF16L_SHAPES = ((1, 485, 6, 64), (1, 1370, 12, 64), (8, 1370, 6, 64))
+# (c) the variant's mean |diff| to its plain version at most this share of the exact
+# kernel's (f32 scores) mean |diff| to that plain version, at each shape: the largest
+# |diff| cannot tell them apart (one bf16 ulp of the largest outputs for either)
+BF16L_MEAN_SHARE = 0.5
+# (d) scripts/port_measure.py at ViT-B/14 @ 518, short chains: the modes, the two
+# configurations and the chain arguments
+MEASURE_MODES = ("step", "desc", "match", "attn")
+MEASURE_RUNS = {"float": (), "int8 fast-math": ("--quant", "--static-scales", "--fast-math",
+                                                "--attn", "xla")}
+MEASURE_CHAIN = ("--chain", "10", "--chain-short", "2", "--reps", "2")
 # the reference's npz: its 22 arrays and the run time
 NPZ_KEYS = ("initial_positions", "initial_orientations", "final_positions",
             "final_quaternions", "convergence_flags", "position_errors", "orientation_errors",
@@ -3282,6 +3326,291 @@ def run_pixel_phase(device, scene: Scene, tnet, tcfg: VSConfig, tmodel: ServoMod
 
 
 # ---------------------------------------------------------------------------
+# phase 3m: the int8 ViT under tensor parallelism, the bf16-logits attention,
+# scripts/port_measure.py
+# ---------------------------------------------------------------------------
+
+
+@contextmanager
+def shard_attention_calls():
+    """Counts the int8 shards' attention runs (QuantBlockShard.attention)
+    while the block is open: a list of one int."""
+    calls, orig = [0], QuantBlockShard.attention
+
+    def counted(self, *args, **kw):
+        calls[0] += 1
+        return orig(self, *args, **kw)
+
+    QuantBlockShard.attention = counted
+    try:
+        yield calls
+    finally:
+        QuantBlockShard.attention = orig
+
+
+def run_int8_tp(qnet, cfg: VSConfig, qmodel: ServoModel, scene: Scene,
+                episodes=CHUNK_EPISODES, num_steps: int = CHUNK_STEPS,
+                segment_steps: int = CHUNK_SEGMENT, hold: bool = True) -> dict:
+    """3m(a): run_benchmark on ``episodes`` as one chunk (rotation search on)
+    with the int8 ``qnet`` (quantized and calibrated unsplit) split over an
+    INT8_TP_MESH grid of the one card.  Every dp row's chunk-step is
+    teacher-forced through the unsplit ``qnet`` on the same inputs (frames,
+    EMA, commands, scores; its own goal descriptors) and held to it bit for
+    bit: the same pairs and twists on every episode-step, and the split's
+    goal descriptors equal to the unsplit's.  The int32 sums and maxima are
+    exact, and so are a shard's K/V pooling product (``pool_kv``) and its
+    'nomax3' denominators (f64 sums): ``scripts/port_int8_tp_gap.py``.  The
+    hand-kernel counters are zeroed before and held to the path's (none at
+    run AD's settings: 'nomax3' with pooled K/V), the shards' attention runs
+    to tp x blocks x forwards (the goal on row 0, a search and the
+    chunk-steps a row).  The clauses that fail are listed under "failed";
+    ``hold`` raises if any does."""
+    dp, tp = INT8_TP_MESH
+    mesh = make_mesh(devices=[torch.device(qmodel.device)] * (dp * tp), tp=tp)
+    goal_rgb = observe(scene, qmodel.camera, *goal_pose(qmodel.device))[0]
+    goal_ref = goal_descriptors(qnet, qmodel, goal_rgb)
+    place = {int(e): j for j, e in enumerate(episodes)}
+    forced = {"flips": [0] * len(episodes), "twist_max_abs_err": 0.0,
+              "episode_steps_compared": 0, "episode_steps_bit_equal": 0}
+
+    def on_step(abs_ids, inputs, result):
+        ref = servo_step(qnet, qmodel, goal_ref, inputs.rgb, inputs.depth, inputs.ema,
+                         inputs.prev_v_c, scores=inputs.scores)
+        diff = (~same_pairs(ref, result)).sum(-1).tolist()
+        for ep, f in zip(np.asarray(abs_ids).tolist(), diff):
+            forced["flips"][place[int(ep)]] += f
+        forced["episode_steps_bit_equal"] += int(
+            (ref.body_twist == result.body_twist).all(-1).sum())
+        agree = torch.tensor([f == 0 for f in diff], device=result.body_twist.device)
+        if bool(agree.any()):
+            err = (ref.body_twist - result.body_twist).abs().amax(-1)[agree].max().item()
+            forced["twist_max_abs_err"] = max(forced["twist_max_abs_err"], err)
+            forced["episode_steps_compared"] += int(agree.sum())
+
+    for fn in _counters().values():
+        fn.launches = 0
+    sync(qmodel.device)
+    t0 = time.perf_counter()
+    with shard_attention_calls() as calls:
+        run = run_benchmark(cfg, net=qnet, model=qmodel, scene=scene, mesh=mesh,
+                            on_step=on_step, rotation_search=True, segment_steps=segment_steps,
+                            verbose=False, device=qmodel.device, episode_indices=episodes,
+                            chunk=len(episodes), num_steps=num_steps, save=False)
+    sync(qmodel.device)
+    wall_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in _counters().items()}
+    if not isinstance(run.net, TPQuantViT):
+        raise AssertionError(f"int8 tp: the run served a {type(run.net).__name__}")
+    blocks = cfg.layer + 1
+    want_calls = tp * blocks * (1 + dp + dp * run.chunk_steps)
+    episode_steps = len(episodes) * run.chunk_steps
+    goal_split = goal_descriptors(run.net, run.model, goal_rgb)
+    goal_equal = bool(torch.equal(goal_split.q, goal_ref.q) and torch.equal(goal_split.nq,
+                                                                            goal_ref.nq))
+    g_split, g_ref = _unit_rows(goal_split), _unit_rows(goal_ref)
+    out = {"mesh": {"dp": dp, "tp": tp, "devices": str(qmodel.device)},
+           "episodes": [int(e) for e in episodes], "chunk_steps": run.chunk_steps,
+           "wall_s": wall_s, "launches": launches, "shard_attention_calls": calls[0],
+           "shard_attention_calls_expected": want_calls,
+           "shard_heads": sorted({sh.heads for blk in run.net.blocks for sh in blk.shards}),
+           "goal_desc_bit_equal": goal_equal,
+           "goal_desc_rel_err": ((g_split - g_ref).abs().max() / g_ref.abs().max()).item(),
+           "goal_desc_row_cos_min": torch.nn.functional.cosine_similarity(
+               g_split, g_ref, dim=-1).min().item(),
+           "teacher_forced": {**forced, "episode_steps": episode_steps}}
+    out["failed"] = [clause for clause, ok in (
+        ("no hand-kernel launch", not any(launches.values())),
+        ("shard attention runs", calls[0] == want_calls),
+        ("goal descriptors bit for bit", goal_equal),
+        ("pairs on every episode-step", not any(forced["flips"])),
+        ("twists bit for bit on every episode-step",
+         forced["episode_steps_bit_equal"] == episode_steps)) if not ok]
+    if hold and out["failed"]:
+        raise AssertionError(f"int8 tp: {json.dumps(out)}")
+    return out
+
+
+@contextmanager
+def scrambled_int8_split():
+    """While open, every TPQuantBlock's first two shards project their
+    heads' attention outputs through each other's int8 columns of the
+    output projection (a planted fault)."""
+    orig = TPQuantBlock.__init__
+
+    def swapped(self, blk, cfg, devices):
+        orig(self, blk, cfg, devices)
+        a, b = self.shards[0], self.shards[1]
+        a.proj_weight, b.proj_weight = b.proj_weight, a.proj_weight
+
+    TPQuantBlock.__init__ = swapped
+    try:
+        yield
+    finally:
+        TPQuantBlock.__init__ = orig
+
+
+def run_int8_tp_plant(qnet, cfg: VSConfig, qmodel: ServoModel, scene: Scene,
+                      num_steps: int = INT8_TP_PLANT_STEPS) -> dict:
+    """3m(a)'s check on a planted fault (:func:`scrambled_int8_split`) over
+    ``num_steps`` chunk-steps: its readings, which must fail a clause."""
+    with scrambled_int8_split():
+        out = run_int8_tp(qnet, cfg, qmodel, scene, num_steps=num_steps,
+                          segment_steps=min(num_steps, CHUNK_SEGMENT), hold=False)
+    if not out["failed"]:
+        raise AssertionError(f"int8 tp: the planted fault passed the check: {json.dumps(out)}")
+    return out
+
+
+def check_int8_shard_kernels(qnet, model: ServoModel, split, frame,
+                             tol: float = ATTN_TOL) -> dict:
+    """3m(b): block 0's kernel 4 on each shard's [q | k | v] column slices
+    of its own qkv product (h / tp heads, columns at offsets n and 2 n of a
+    3 n wide output) against the unsplit kernel's output for those heads
+    (bit for bit) and against fused_int8_attention_plain on the same slices
+    (max abs err within ``tol``)."""
+    cfg = model.vit
+    with torch.inference_mode():
+        x = qnet.embed(preprocess(model, frame)[None])
+        blk = qnet.blocks[0]
+        xn = blk.norm1(x, cfg.ln_f32)
+        full = blk.qkv(xn, blk.act(0))
+        D = cfg.embed_dim
+        whole = attn_int8.fused_int8_attention(full[..., :D], full[..., D:2 * D],
+                                               full[..., 2 * D:], heads=cfg.num_heads)
+        out = {"bit_equal": [], "max_abs_err_vs_plain": [], "column_offset_bytes": []}
+        for s, sh in enumerate(split.blocks[0].shards):
+            qkv = sh.qkv(xn.to(sh.proj_weight.device), sh.act(0))
+            n = sh.heads * cfg.head_dim
+            sl = (qkv[..., :n], qkv[..., n:2 * n], qkv[..., 2 * n:])
+            got = attn_int8.fused_int8_attention(*sl, heads=sh.heads)
+            plain = attn_int8.fused_int8_attention_plain(*sl, sh.heads)
+            out["bit_equal"].append(bool(torch.equal(got.to(whole.device),
+                                                     whole[..., s * n:(s + 1) * n])))
+            out["max_abs_err_vs_plain"].append((got.float() - plain.float()).abs().max().item())
+            out["column_offset_bytes"].append(n * qkv.element_size())
+    if not (all(out["bit_equal"]) and max(out["max_abs_err_vs_plain"]) <= tol):
+        raise AssertionError(f"int8 shard kernel 4: {json.dumps(out)}")
+    return out
+
+
+def run_int8_tp_serving(variants: dict, cfg: VSConfig, seed: int = 0,
+                        tp: int = INT8_TP_SERVE) -> dict:
+    """3m(b): each int8 ViT of ``variants`` (name -> (QuantViT, model, the
+    counter of the kernel its attention launches)) split over a (1, tp) grid
+    of its device: goal + N_STEPS steps of the split against the unsplit on
+    the same frames and scores (twists within TWIST_TOL where pairs agree,
+    bit-equal steps counted), the split's launches (counters zeroed just
+    before its run) beside those it gives on the card, tp x blocks x
+    forwards of its kernel; for 'fused' the shards' kernel 4 outputs against
+    the unsplit's (:func:`check_int8_shard_kernels`)."""
+    goal, frames, depth = make_frames(cfg, seed)
+    frames = frames[:N_STEPS]
+    out = {}
+    for name, (qnet, model, kernel) in variants.items():
+        split = TPQuantViT(qnet, [torch.device(model.device)] * tp)
+        scores = pair_scores(model, len(frames), seed)
+        for fn in _counters().values():
+            fn.launches = 0
+        ker = drive(split, model, goal, frames, depth, scores)
+        launches = {k: fn.launches for k, fn in _counters().items()}
+        ref = drive(qnet, model, goal, frames, depth, scores)
+        check_outputs(model, *ker)
+        summ = compare_runs(ref, ker)
+        want = {k: 0 for k in _counters()}
+        want[kernel] = tp * (cfg.layer + 1) * (1 + len(frames))
+        summ.update(launches=launches, launches_on_the_card=want, tp=tp, steps_bit_equal=sum(
+            bool(torch.equal(r.body_twist, k.body_twist)) for r, k in zip(ref[1], ker[1])))
+        if name == "fused":
+            summ["shard_kernels"] = check_int8_shard_kernels(qnet, model, split, goal)
+        out[name] = summ
+    return out
+
+
+def check_bf16l(device, shapes=BF16L_SHAPES, seed: int = 40, tol: float = ATTN_TOL,
+                share: float = BF16L_MEAN_SHARE) -> dict:
+    """3m(c): the exact kernel's bf16-logits variant against its plain
+    version (mha_attention_plain(bf16_logits=True)) on the same bf16
+    inputs: two launches bit for bit, the largest |diff| within ``tol``, and
+    the mean |diff| at most ``share`` of the exact kernel's (f32 scores)
+    mean |diff| to the same plain version, so that a variant without its
+    roundings fails.  Returns both kernels' readings by shape."""
+    rs = np.random.default_rng(seed)
+    out = {}
+    for shape in shapes:
+        q, k, v = (torch.from_numpy(rs.standard_normal(shape).astype(np.float32))
+                   .to(device, torch.bfloat16) for _ in range(3))
+        got = attention.mha_attention(q, k, v, bf16_logits=True)
+        again = attention.mha_attention(q, k, v, bf16_logits=True)
+        ref = attention.mha_attention_plain(q, k, v, bf16_logits=True).float()
+        d, d1 = (got.float() - ref).abs(), (attention.mha_attention(q, k, v).float() - ref).abs()
+        r = {"max_abs_err": d.max().item(), "mean_abs_err": d.mean().item(),
+             "share_differing": (d > 0).float().mean().item(),
+             "exact_kernel_max_abs_err": d1.max().item(),
+             "exact_kernel_mean_abs_err": d1.mean().item(),
+             "exact_kernel_share_differing": (d1 > 0).float().mean().item()}
+        out[str(shape)] = r
+        if not (r["max_abs_err"] <= tol and torch.equal(got, again)
+                and r["mean_abs_err"] <= share * r["exact_kernel_mean_abs_err"]):
+            raise AssertionError(f"bf16-logits attention at {shape}: {json.dumps(out)}")
+    return out
+
+
+def _port_measure():
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "scripts" / "port_measure.py"
+    spec = importlib.util.spec_from_file_location("port_measure", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def measure_launches(what: str, blocks: int, short: int, long: int, reps: int) -> int:
+    """The attention launches of one port_measure.py run: the goal's forward,
+    then (1 + reps) chains of each length, a forward (attn: one launch)
+    an iteration (match: none)."""
+    iters = (1 + reps) * (short + long)
+    return blocks * (1 + (iters if what in ("step", "desc") else 0)) + (
+        iters if what == "attn" else 0)
+
+
+def run_port_measure(device, size: int = 518, model: str = "dinov2_vitb14",
+                     modes=MEASURE_MODES, runs=MEASURE_RUNS, chain=MEASURE_CHAIN) -> dict:
+    """3m(d): scripts/port_measure.py's modes in this process, each
+    configuration of ``runs`` with the launch counters zeroed before its
+    modes and read after: the float ones launch the exact kernel (and the
+    bf16 matcher in step and match), the int8 fast-math ones with 'xla' the
+    bf16-logits variant, as many times as the chains run forwards."""
+    pm = _port_measure()
+    short, long, reps = int(chain[3]), int(chain[1]), int(chain[5])
+    out = {}
+    for name, flags in runs.items():
+        for fn in _counters().values():
+            fn.launches = 0
+        attention.mha_attention_bf16l.launches = 0
+        lines = {}
+        for what in modes:
+            res = pm.main([what, "--device", str(device), "--size", str(size), "--model", model,
+                           *chain, *flags])
+            lines[what] = res["line"]
+            log(f"3m(d) {name}: {res['device']} | {res['line']}")
+        launches = {k: fn.launches for k, fn in _counters().items()}
+        launches["attention_bf16l"] = attention.mha_attention_bf16l.launches
+        blocks = 11 + 1                     # port_measure.py's layer 11
+        n = sum(measure_launches(w, blocks, short, long, reps) for w in modes)
+        want = {k: 0 for k in launches}
+        kernel = "attention_bf16l" if "--quant" in flags else "attention"
+        want[kernel] = n
+        if "--quant" not in flags:
+            want["matcher_bf16"] = sum((1 + reps) * (short + long) for w in modes
+                                       if w in ("step", "match"))
+        if launches != want:
+            raise AssertionError(f"port_measure {name}: launches {launches} != {want}")
+        out[name] = {"lines": lines, "launches": launches}
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 4: times and bounds
 # ---------------------------------------------------------------------------
 
@@ -3432,6 +3761,31 @@ def time_kernels(device) -> dict:
             "sdpa_bf16_ms": cuda_ms(lambda: sdpa(fqh, fkh, fvh)),
             "wrapper_ms": cuda_ms(lambda: attn_int8.fused_int8_attention(iq, ik, iv, heads=H))},
     }
+
+
+def time_bf16l_kernels(device, shapes=BF16L_SHAPES) -> dict:
+    """The bf16-logits variant alone at each shape, beside the exact kernel
+    (f32 scores) on the same inputs, its plain version and SDPA (bf16), with
+    the bound (the exact kernel's work: the roundings add no bytes and a few
+    operations an element)."""
+    rs = np.random.default_rng(41)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {}
+    for shape in shapes:
+        q, k, v = (torch.from_numpy(rs.standard_normal(shape).astype(np.float32))
+                   .to(device, torch.bfloat16) for _ in range(3))
+        qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        bound, by = attention_bound_ms(shape)
+        out[str(shape)] = {
+            "shape": list(shape),
+            "ms": cuda_ms(lambda: attention._launch(attention.BF16L_ENTRY, q, k, v)),
+            "exact_f32_scores_ms": cuda_ms(lambda: attention._launch("vitvs_attention_fwd",
+                                                                     q, k, v)),
+            "plain_ms": cuda_ms(lambda: attention.mha_attention_plain(q, k, v, bf16_logits=True),
+                                iters=20),
+            "library_ms": cuda_ms(lambda: sdpa(qh, kh, vh)),
+            "bound_ms": bound, "bound_by": by}
+    return out
 
 
 def time_trained_kernels(device) -> dict:
@@ -4402,6 +4756,44 @@ def main() -> int:
         log(f"[{card}] pixel14 @ 308 bf16 servo_step median {px['pixel14_step_ms']:.3f} ms "
             f"(any-width attention and the bf16 matcher, kernels)")
 
+    with phase("3m int8-tp-fastmath"):
+        t3m = time.perf_counter()
+        tp = run_int8_tp(irun.net, acfg, irun.model, scene)
+        log(f"3m(a) int8 at run AD's settings on a (dp, tp) = {INT8_TP_MESH} grid of the one "
+            f"card, episodes {tp['episodes']}, {tp['chunk_steps']} chunk-steps, "
+            f"teacher-forced through the unsplit int8 ViT: {json.dumps(tp)}")
+        tf = tp["teacher_forced"]
+        log(f"[{card}] 3m(a) goal descriptors equal to the unsplit's to the bit; "
+            f"{tf['episode_steps_bit_equal']} of {tf['episode_steps']} episode-steps' pairs "
+            f"and twists equal to the bit; the run {tp['wall_s']:.2f} s with its "
+            f"teacher-forcing")
+        plant = run_int8_tp_plant(irun.net, acfg, irun.model, scene)
+        log(f"3m(a) the check on a planted fault (two shards' proj columns swapped, "
+            f"{plant['chunk_steps']} chunk-steps) fails {plant['failed']}: goal descriptors' "
+            f"least row cosine {plant['goal_desc_row_cos_min']:.4f}, max |diff| / max |ref| "
+            f"{plant['goal_desc_rel_err']:.3e}; teacher-forced {json.dumps(plant['teacher_forced'])}")
+        tps = run_int8_tp_serving(
+            {"fused": (*serving["F"], "attn_int8"), "none": (prob["none"][1], prob["none"][2],
+                                                             "attention")}, scfg)
+        for name, summ in tps.items():
+            log(f"3m(b) int8 '{name}' ViT-B/14 @ 518 split over a (1, {INT8_TP_SERVE}) grid, "
+                f"goal + {N_STEPS} steps against the unsplit: {json.dumps(summ)}")
+            if summ["launches"] != summ["launches_on_the_card"]:
+                raise AssertionError(f"3m(b) {name}: launches {summ['launches']} != "
+                                     f"{summ['launches_on_the_card']}")
+        launches["attn_int8"] += tps["fused"]["launches"]["attn_int8"]
+        launches["attention"] += tps["none"]["launches"]["attention"]
+        bl = check_bf16l(device)
+        log(f"3m(c) bf16-logits attention vs plain (largest |diff| within {ATTN_TOL}, mean "
+            f"|diff| at most {BF16L_MEAN_SHARE} of the exact kernel's to the same plain "
+            f"version), two launches bit for bit: {json.dumps(bl)}")
+        errs["attention_bf16l"] = bl[str(SERVE_ATTN_SHAPE)]["max_abs_err"]
+        pmr = run_port_measure(device)
+        log(f"3m(d) scripts/port_measure.py at ViT-B/14 @ 518 ({' '.join(MEASURE_CHAIN)}): "
+            f"{json.dumps(pmr)}")
+        launches["attention_bf16l"] = pmr["int8 fast-math"]["launches"]["attention_bf16l"]
+        log(f"phase 3m took {time.perf_counter() - t3m:.1f} s")
+
     with phase("4 times"):
         step_ms = time_run(step_runner(net, model))
         log(f"[{card}] servo_step median {step_ms:.3f} ms (ViT-S/14 @ 308, bf16, kernels)")
@@ -4532,6 +4924,15 @@ def main() -> int:
             log(f"[{card}] ViT-g/14 @ 518 bf16 {k}: median {statistics.median(got):.3f} ms "
                 f"(spread {min(got):.3f} to {max(got):.3f} over {TIMING_ROUNDS} rounds: "
                 f"{[round(x, 3) for x in got]})")
+        bt = time_bf16l_kernels(device)
+        for name, tm in bt.items():
+            log(f"[{card}] attention_bf16l at {name}: kernel {tm['ms']:.4f} ms, exact kernel "
+                f"(f32 scores) {tm['exact_f32_scores_ms']:.4f} ms, plain {tm['plain_ms']:.4f} "
+                f"ms, library (SDPA) {tm['library_ms']:.4f} ms, bound {tm['bound_ms']:.5f} ms "
+                f"({tm['bound_by']})")
+        times["attention_bf16l"] = bt[str(SERVE_ATTN_SHAPE)]
+        bounds["attention_bf16l"] = (times["attention_bf16l"]["bound_ms"],
+                                     times["attention_bf16l"]["bound_by"])
         f32_bounds = [attention_bound_ms(shape, f32=True, tensor_cores=tc)[0]
                       for tc in (True, False) for shape in (ATTN_SHAPE, SERVE_ATTN_SHAPE)]
         log(f"[{card}] attention_f32 bounds at T = 485 and 1370: tensor cores "
@@ -4560,7 +4961,12 @@ def main() -> int:
                "attention_hd": ("vitvs_tpu_torch/csrc/attention_hd.cu",
                                 "vitvs_tpu/ops/attention.py:42"),
                "attention_hd_f32": ("vitvs_tpu_torch/csrc/attention_hd.cu",
-                                    "vitvs_tpu/ops/attention.py:42")}
+                                    "vitvs_tpu/ops/attention.py:42"),
+               # kernel 1's bf16-logits variant (softmax_f32=False), at ViT-B/14 @ 518's int8
+               # 'none' shape: the reference computes it in XLA's plain softmax
+               # (vitvs_tpu/models/vit.py:445-447), the port on the exact kernel
+               "attention_bf16l": ("vitvs_tpu_torch/csrc/attention.cu",
+                                   "vitvs_tpu/ops/attention.py:42")}
     launches.update({f"{k}_vitg": v for k, v in vitg_launches.items()})
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

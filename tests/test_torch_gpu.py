@@ -289,9 +289,12 @@ def test_new_kernel_wrappers_refuse_what_the_kernels_do_not_take(cuda):
                                        heads=2)
 
 
-@pytest.mark.parametrize("m,k,n", [(1370, 768, 2304), (1369, 6912, 1369), (5, 20, 3)])
+@pytest.mark.parametrize("m,k,n", [(1370, 768, 2304), (1369, 6912, 1369), (5, 20, 3),
+                                   (2 * 1370, 96, 384), (2 * 1370, 384, 384), (10, 96, 1152)])
 def test_int8_matmul_is_exact(cuda, m, k, n):
-    """torch._int_mm on the card with the padding the wrapper adds."""
+    """torch._int_mm on the card with the padding the wrapper adds (also at
+    a tensor-parallel shard's products: ViT-S at tp = 4, proj input 96 wide,
+    fc2 input 384; a 10-row batch)."""
     rs = np.random.default_rng(m + k + n)
     a = torch.from_numpy(rs.integers(-127, 128, (m, k), dtype=np.int8)).cuda()
     b = torch.from_numpy(rs.integers(-127, 128, (n, k), dtype=np.int8)).cuda()
@@ -812,3 +815,52 @@ def test_pixel_phase_on_the_card(cuda, tmp_path):
     chip_smoke.check_attention_hd("cuda", torch.float32)
     loop = chip_smoke.run_pixel_loop("cuda")
     assert loop["launches"] == loop["launches_on_the_card"]
+
+
+@pytest.mark.parametrize("shape", [*chip_smoke.BF16L_SHAPES, (2, 65, 3, 64), (1, 1, 2, 64)])
+def test_bf16_logits_attention_kernel_matches_plain(cuda, shape):
+    """The exact kernel's bf16-logits variant (softmax_f32=False) against
+    its plain version, its own counter, two launches bit for bit, and
+    phase 3m(c)'s hold: its mean |diff| to the plain version at most half
+    the f32-score kernel's (the roundings are in)."""
+    q, k, v = _bf16(shape, sum(shape) + 1)
+    before = attention.mha_attention_bf16l.launches
+    out = attention.mha_attention(q, k, v, bf16_logits=True)
+    again = attention.mha_attention(q, k, v, bf16_logits=True)
+    torch.cuda.synchronize()
+    assert attention.mha_attention_bf16l.launches == before + 2 and torch.equal(out, again)
+    chip_smoke.check_bf16l("cuda", shapes=(shape,))
+
+
+@pytest.mark.parametrize("tp", [2, 3])
+def test_matmul_pooling_of_shard_heads_on_the_card(cuda, tp):
+    """The K/V pooling product ('matmul', pool 2) of a tensor-parallel
+    shard's heads equals the whole's for those heads to the bit on the card,
+    where cuBLAS picks its GEMM by width (run AD's (8, 1370, 6, 64) K)."""
+    from vitvs_tpu_torch.models.vit import pool_kv
+
+    t = _bf16((8, 1370, 6, 64), 5)[0]
+    whole = pool_kv(t, 2, "matmul")
+    n = 6 // tp
+    for s in range(tp):
+        part = pool_kv(t[:, :, s * n:(s + 1) * n].contiguous(), 2, "matmul")
+        assert torch.equal(part, whole[:, :, s * n:(s + 1) * n])
+
+
+def test_int8_split_over_tp_on_the_card(cuda):
+    """chip_smoke.py phase 3m(b)'s check on a small int8 ViT: 'fused' split
+    over tp = 2 on the card equals the unsplit, each shard's kernel 4 output
+    the unsplit kernel's heads to the bit."""
+    from vitvs_tpu_torch.io_bridge.config import VSConfig
+    from vitvs_tpu_torch.models import vit as tvit
+
+    cfg = VSConfig(u_max=96, v_max=72, f_x=75.0, f_y=75.0, dino_input_size=84, num_pairs=12,
+                   layer=1, model_name="tiny", pinv_mode="dls")
+    vit = tvit.ViTConfig(patch_size=14, embed_dim=256, depth=2, num_heads=4, pos_grid=5,
+                         gelu_approx=True, model_name="tiny")
+    fnet = tvit.init_vit(vit, torch.Generator().manual_seed(1), device="cuda",
+                         layerscale=1.0).eval()
+    _, qnet, model = chip_smoke.run_serving_path(fnet, cfg, "F", "cuda", vit=vit)
+    out = chip_smoke.run_int8_tp_serving({"fused": (qnet, model, "attn_int8")}, cfg)["fused"]
+    assert out["launches"] == out["launches_on_the_card"]
+    assert out["shard_kernels"]["bit_equal"] == [True, True]

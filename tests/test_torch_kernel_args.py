@@ -295,3 +295,50 @@ def test_matcher_key_scratch_is_kept_per_device_and_grown():
     assert bigger is not first and bigger.numel() == 11 and not bigger.any()
     assert matcher._keys(cpu, 11) is bigger
     matcher._keys_scratch.clear()
+
+
+@pytest.mark.parametrize("attn_impl,softmax_f32,dtype,want", [
+    ("xla", False, torch.bfloat16, True),       # the reference's plain path reads the flag
+    ("auto", False, torch.bfloat16, True),      # 'auto' off the card: the plain path too
+    ("pallas", False, torch.bfloat16, False),   # the Pallas route ignores it
+    ("fast", False, torch.bfloat16, False),
+    ("xla", True, torch.bfloat16, False),
+    ("xla", False, torch.float32, False),       # f32 logits already
+])
+def test_bf16_logits_variant_routing(no_library, attn_impl, softmax_f32, dtype, want):
+    """The ViT's dispatch picks the bf16-logits variant where the reference
+    reads softmax_f32 (bf16 CPU tensors here), its entry point and its own
+    launch count chosen before any launch; the other counters stay."""
+    from vitvs_tpu_torch.models.vit import attention_core, bf16_logits
+
+    q, k, v = _heads((1, 37, 2, 64), dtype)
+    assert bf16_logits(q, attn_impl, softmax_f32) is want
+    if want:
+        assert attention.bf16_logits_entry(q) == "vitvs_attention_bf16l_fwd"
+    before = {fn: fn.launches for fn in (attention.mha_attention, attention.mha_attention_bf16l,
+                                         attention.mha_attention_fast)}
+    out = attention_core(q, k, v, True, attn_impl, softmax_f32)
+    ref = (attention.mha_attention_fast_plain(q, k, v) if attn_impl == "fast" else
+           attention.mha_attention_plain(q, k, v, bf16_logits=want))
+    assert torch.equal(out, ref)
+    assert {fn: fn.launches for fn in before} == before
+
+
+@pytest.mark.parametrize("case", ["float32", "head_dim_32", "head_dim_588", "fast"])
+def test_bf16_logits_variant_refusals(no_library, case):
+    """The variant takes bf16 at head width 64: f32 inputs, other widths
+    (the any-width kernel has none: ROADMAP.md, not queued) and the no-max
+    kernel raise ValueError before any launch, on CPU tensors too, and so
+    does the ViT's plain path."""
+    from vitvs_tpu_torch.models.vit import attention_core
+
+    shape, dtype = {"float32": ((1, 9, 2, 64), torch.float32),
+                    "head_dim_32": ((1, 9, 2, 32), torch.bfloat16),
+                    "head_dim_588": ((1, 9, 1, 588), torch.bfloat16),
+                    "fast": ((1, 9, 2, 64), torch.bfloat16)}[case]
+    q, k, v = _heads(shape, dtype)
+    with pytest.raises(ValueError):
+        attention.mha_attention(q, k, v, fast=case == "fast", bf16_logits=True)
+    if case.startswith("head_dim"):
+        with pytest.raises(ValueError, match="not queued"):
+            attention_core(q, k, v, False, "xla", softmax_f32=False)

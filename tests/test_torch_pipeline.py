@@ -328,3 +328,35 @@ def test_f32_servo_step_full_size_on_trained_weights_matches():
                                        rtol=0, atol=1e-5, err_msg=name)
         assert bool(tr.feature_ok) and float(torch.abs(tr.v_c).max()) > 1e-3
         jema, jprev, tema, tprev = jr.ema, jr.v_c, tr.ema, tr.v_c
+
+
+@pytest.mark.parametrize("fast_binned", [False, True])
+def test_quantized_model_with_match_kernel_raises_as_the_reference(fast_binned):
+    """Fault 3.8: a quantized model with use_match_kernel=True (dynamic
+    scales, quant_attn 'none').  Both packages quantize no bins at the
+    source, their goal descriptors are float binned rows of one shape (or
+    unbinned rows with fast_binned_match), and both steps raise the
+    reference's ValueError: its matcher kernel computes a float similarity,
+    which an int8 serving configuration must not serve."""
+    params, _, _, fnet = _setup(pinv_mode="dls")
+    jcfg, tcfg = JVSConfig(**CFG, pinv_mode="dls"), TVSConfig(**CFG, pinv_mode="dls")
+    kw = dict(quantized=True, use_match_kernel=True, fast_binned_match=fast_binned)
+    jmodel = jpipe.ServoModel(vit=jvit.ViTConfig(**VIT), cfg=jcfg, compute_dtype=jnp.float32,
+                              **kw)
+    tmodel = tpipe.ServoModel(vit=tvit.ViTConfig(**VIT), cfg=tcfg, compute_dtype=torch.float32,
+                              device="cpu", **kw)
+    assert tmodel.source_quantized_bins is jmodel.source_quantized_bins is False
+    jq_params = jquant.quantize_vit_params(params, compute_dtype=jnp.float32)
+    net = tpipe.quantized_vit(fnet, tmodel)
+    goal, (frame,), depth = _frames([(18, 20)])
+    jg = jpipe.goal_descriptors(jq_params, jmodel, jnp.asarray(goal))
+    tg = tpipe.goal_descriptors(net, tmodel, goal)
+    assert isinstance(tg, torch.Tensor) and isinstance(jg, jax.Array)
+    assert tg.shape == jg.shape == (36, 96 * (1 if fast_binned else 9))
+    scores = torch.tensor(np.asarray(jax.random.uniform(jax.random.PRNGKey(0), (36,))))
+    with pytest.raises(ValueError, match="does not compose with int8 matching"):
+        jpipe.servo_step(jq_params, jmodel, jg, jnp.asarray(frame), jnp.asarray(depth),
+                         JEma.init(), jnp.zeros(6), jax.random.PRNGKey(0))
+    with pytest.raises(ValueError, match="does not compose with int8 matching"):
+        tpipe.servo_step(net, tmodel, tg, frame, depth, TEma.init(device="cpu"),
+                         torch.zeros(6), scores=scores)

@@ -20,7 +20,9 @@ from vitvs_tpu_torch.io_bridge.config import VSConfig, load_config
 from vitvs_tpu_torch.models import vit as tvit
 
 REPO = Path(__file__).resolve().parent.parent
-PORT_FILES = sorted((REPO / "vitvs_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+PORT_FILES = (sorted((REPO / "vitvs_tpu_torch").rglob("*.py"))
+              + [REPO / "chip_smoke.py", REPO / "scripts" / "port_measure.py",
+                 REPO / "scripts" / "port_int8_tp_gap.py"])
 
 
 def _imported_modules(path: Path):
@@ -36,6 +38,20 @@ def test_port_imports_neither_jax_nor_reference(path):
     for mod in _imported_modules(path):
         top = mod.split(".")[0]
         assert top not in ("jax", "jaxlib", "vitvs_tpu", "flax", "optax", "orbax"), (path, mod)
+
+
+def test_port_measure_imports_no_jax_at_run_time():
+    """scripts/port_measure.py, which times the port on the card, brings in
+    neither JAX nor vitvs_tpu when it is imported."""
+    import subprocess
+    import sys
+
+    code = ("import sys, runpy; runpy.run_path('scripts/port_measure.py', run_name='x'); "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'vitvs_tpu', 'orbax', 'flax', 'optax')]; assert not bad, bad")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
 
 
 def test_import_rule_covers_the_trainer():
@@ -736,3 +752,102 @@ def test_chip_smoke_pixel_phase_runs_tiny_on_cpu(tmp_path, one_intra_op_thread):
                                          "servo_step (whole)"}
     assert chip_smoke.pixel_config().model_name == chip_smoke.PIXEL_MODEL
     assert chip_smoke.pixel_loop_config().max_iterations == 120
+
+
+def _tiny_int8_tp_setup():
+    """A tiny int8 ViT of 4 heads at run AD's settings (static scales,
+    'nomax3', 2 x 2 K/V pooling by the matrix), its config, model and scene,
+    and the base of the configs."""
+    from vitvs_tpu_torch.sim.scene import Scene, make_synthetic_poster
+
+    scene = Scene.create(make_synthetic_poster(128, seed=3), half_size=0.42, device="cpu")
+    base = dict(u_max=96, v_max=72, f_x=75.0, f_y=75.0, dino_input_size=84, num_pairs=12,
+                layer=1, model_name="tiny", pinv_mode="dls")
+    cfg = VSConfig(**base, num_samples=8, min_iterations=8, max_iterations=8, kv_pool=2,
+                   kv_pool_impl="matmul")
+    vcfg = tvit.ViTConfig(patch_size=14, embed_dim=128, depth=2, num_heads=4, pos_grid=5,
+                          gelu_approx=True, model_name="tiny", kv_pool=2, kv_pool_impl="matmul")
+    model = ServoModel(vit=vcfg, cfg=cfg, compute_dtype=torch.bfloat16, device="cpu")
+    fnet = tvit.init_vit(vcfg, torch.Generator().manual_seed(0), device="cpu",
+                         layerscale=1.0).eval()
+    qnet, qmodel = chip_smoke.int8_serving_of_stream(fnet, model, scene)
+    return qnet, cfg, qmodel, scene, base
+
+
+def test_chip_smoke_int8_tp_phase_runs_tiny_on_cpu(one_intra_op_thread):
+    """Phase 3m's parts on the CPU at small size (plain versions: no kernel
+    counts a launch): (a) a tiny int8 ViT of 4 heads at run AD's settings
+    (static scales, 'nomax3', 2 x 2 K/V pooling) on a (2, 2) grid of the
+    CPU, teacher-forced through the unsplit: every twist equal to the bit,
+    the shards' attention run 2 x 2 x (1 + 2 + 2 a chunk-step) times, and
+    the planted fault failing the check; (b)
+    'fused' and 'none' ViTs of 4 heads of 64 over tp = 2: equal to the
+    unsplit, the shards' kernel 4 (its plain version here) equal to the
+    unsplit's heads; (c) the bf16-logits check on CPU tensors; (d) the
+    launches port_measure.py's chains give."""
+    qnet, cfg, qmodel, scene, base = _tiny_int8_tp_setup()
+    a = chip_smoke.run_int8_tp(qnet, cfg, qmodel, scene, episodes=[0, 1, 2, 3], num_steps=4,
+                               segment_steps=2)
+    tf = a["teacher_forced"]
+    assert a["shard_heads"] == [2] and a["chunk_steps"] == 4 and a["goal_desc_bit_equal"]
+    assert a["shard_attention_calls"] == 2 * 2 * (1 + 2 + 2 * 4)
+    assert tf["flips"] == [0] * 4 and tf["twist_max_abs_err"] == 0.0 and a["failed"] == []
+    assert tf["episode_steps_bit_equal"] == tf["episode_steps_compared"] == 16
+    plant = chip_smoke.run_int8_tp_plant(qnet, cfg, qmodel, scene, num_steps=2)
+    assert "goal descriptors bit for bit" in plant["failed"]
+
+    bcfg = VSConfig(**base)
+    bvit = tvit.ViTConfig(patch_size=14, embed_dim=256, depth=2, num_heads=4, pos_grid=5,
+                          gelu_approx=True, model_name="tiny")
+    bnet = tvit.init_vit(bvit, torch.Generator().manual_seed(1), device="cpu",
+                         layerscale=1.0).eval()
+    variants = {}
+    for name, variant, kernel in (("fused", "F", "attn_int8"), ("none", "none", "attention")):
+        _, q, m = chip_smoke.run_serving_path(bnet, bcfg, variant, "cpu", vit=bvit)
+        variants[name] = (q, m, kernel)
+    b = chip_smoke.run_int8_tp_serving(variants, bcfg)
+    for name, summ in b.items():
+        assert summ["launches"] == dict.fromkeys(summ["launches"], 0)
+        assert summ["launches_on_the_card"][variants[name][2]] == 2 * 2 * (1 + chip_smoke.N_STEPS)
+        assert summ["steps_bit_equal"] == chip_smoke.N_STEPS and summ["twist_max_abs_err"] == 0.0
+    sk = b["fused"]["shard_kernels"]
+    assert sk["bit_equal"] == [True, True] and sk["column_offset_bytes"] == [256, 256]
+    assert max(sk["max_abs_err_vs_plain"]) == 0.0
+    c = chip_smoke.check_bf16l("cpu", shapes=((1, 37, 2, 64),))["(1, 37, 2, 64)"]
+    assert c["max_abs_err"] == c["mean_abs_err"] == 0.0 and c["exact_kernel_mean_abs_err"] > 0
+    # (d): a goal forward and 3 chains of 2 and 10 iterations of 12 blocks
+    assert chip_smoke.measure_launches("step", 12, 2, 10, 2) == 12 * (1 + 36)
+    assert chip_smoke.measure_launches("attn", 12, 2, 10, 2) == 12 + 36
+    assert chip_smoke.measure_launches("match", 12, 2, 10, 2) == 12
+
+
+def test_chip_smoke_int8_tp_check_rejects_a_scrambled_split(monkeypatch, one_intra_op_thread):
+    """Phase 3m(a) refuses an int8 tp split whose two shards project their
+    heads' outputs through each other's int8 columns of the output
+    projection: the goal descriptors or the teacher-forced steps disagree
+    with the unsplit's."""
+    from vitvs_tpu_torch.parallel import mesh as tmesh
+
+    def swapped(self, blk, cfg, devices, _init=tmesh.TPQuantBlock.__init__):
+        _init(self, blk, cfg, devices)
+        a, b = self.shards[0], self.shards[1]
+        a.proj_weight, b.proj_weight = b.proj_weight, a.proj_weight
+
+    qnet, cfg, qmodel, scene, _ = _tiny_int8_tp_setup()
+    monkeypatch.setattr(tmesh.TPQuantBlock, "__init__", swapped)
+    with pytest.raises(AssertionError, match="int8 tp"):
+        chip_smoke.run_int8_tp(qnet, cfg, qmodel, scene, episodes=[0, 1, 2, 3], num_steps=4,
+                               segment_steps=2)
+
+
+@pytest.mark.parametrize("shape", [(1, 37, 2, 64), (2, 65, 3, 64)])
+def test_chip_smoke_bf16l_check_rejects_f32_scores(monkeypatch, shape):
+    """Phase 3m(c) refuses a bf16-logits variant that leaves its roundings
+    out (the exact kernel's f32 scores in its place): its mean |diff| to
+    the plain version is then the exact kernel's, not at most half of it."""
+    from vitvs_tpu_torch.ops import attention
+
+    monkeypatch.setattr(attention, "mha_attention_bf16l",
+                        lambda q, k, v: attention.mha_attention_plain(q, k, v))
+    with pytest.raises(AssertionError, match="bf16-logits"):
+        chip_smoke.check_bf16l("cpu", shapes=(shape,))

@@ -47,6 +47,17 @@
 // bytes bound it.  What sets the time there is latency (the first stage's
 // load, then two 64-key blocks a warpgroup) and the SMs left idle; at
 // T = 1370, H = 12 operations bound it (5.77 GFLOP in 5.8 us).
+//
+// The bf16-logits variant (BF16L, entry vitvs_attention_bf16l_fwd) is the
+// reference's softmax under ViTConfig.softmax_f32 = False (vitvs_tpu/models/
+// vit.py:445-447 with bf16 logits, and the int8 'none' mode): the same
+// kernel with three roundings to bf16.  The f32 score accumulator is rounded
+// to bf16, the einsum's output dtype there; the scale hd^-0.5 = 0.125 is a
+// power of two, so its bf16 product is exact and stays folded into C; and
+// each unnormalized probability exp2(s c - m c) is rounded to bf16 before
+// it enters the row sum and P.V.  The running max, the row sums and O stay
+// f32.  ops/attention.py:mha_attention_plain(bf16_logits=True) does the
+// same roundings in the same order.
 
 #include <math.h>
 #include <stdint.h>
@@ -79,11 +90,17 @@ struct Split {
 using Wide = Split<128, 2, 3>;      // 132 blocks at T = 1370, H = 12: 197,632 B
 using Narrow = Split<64, 4, 1>;     // 48 blocks at T = 485, H = 6: 132,096 B
 
+// x rounded to the nearest bf16 (ties to even), as an f32
+__device__ __forceinline__ float round_bf16(float x) {
+    return __bfloat162float(__float2bfloat16_rn(x));
+}
+
 // One warpgroup's 64 rows against keys [k0, k0 + 64) at shared addresses
 // ks_addr (K) and vs_addr (V): S, the running max and the rescale, exp2 and
 // the row sums, P.V.  m, l: this thread's two rows' running max (of the raw
-// scores) and its share of their sums.  MASK: some columns are >= T.
-template <bool MASK>
+// scores) and its share of their sums.  MASK: some columns are >= T.  BF16L:
+// the scores and the probabilities rounded to bf16 (the bf16-logits variant).
+template <bool MASK, bool BF16L>
 __device__ __forceinline__ void key_block(const uint32_t (&qa)[HD / 16][4], uint32_t ks_addr,
                                           uint32_t vs_addr, int k0, int T, int t4,
                                           float (&oacc)[HD / 8][4], float (&m)[2],
@@ -95,6 +112,12 @@ __device__ __forceinline__ void key_block(const uint32_t (&qa)[HD / 16][4], uint
     for (int s = 0; s < HD / 16; ++s)      // 16 head dims a step: 32 B along K's rows
         wgmma_m64n64k16<0>(sacc, qa[s], gmma_desc<128>(ks_addr + s * 32), s);
     wgmma_commit_wait();
+    if constexpr (BF16L) {
+#pragma unroll
+        for (int n = 0; n < KSUB / 8; ++n)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) sacc[n][i] = round_bf16(sacc[n][i]);
+    }
 
     float mx[2] = {m[0], m[1]};
 #pragma unroll
@@ -128,7 +151,10 @@ __device__ __forceinline__ void key_block(const uint32_t (&qa)[HD / 16][4], uint
     for (int n = 0; n < KSUB / 8; ++n) {
         float e[4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) e[i] = ex2(fmaf(sacc[n][i], C, -mc[i >> 1]));
+        for (int i = 0; i < 4; ++i) {
+            e[i] = ex2(fmaf(sacc[n][i], C, -mc[i >> 1]));
+            if constexpr (BF16L) e[i] = round_bf16(e[i]);
+        }
         l[0] += e[0] + e[1];
         l[1] += e[2] + e[3];
         pa[n][0] = pack_bf16(e[0], e[1]);
@@ -144,7 +170,7 @@ __device__ __forceinline__ void key_block(const uint32_t (&qa)[HD / 16][4], uint
     wgmma_commit_wait();
 }
 
-template <class S>
+template <class S, bool BF16L>
 __global__ void __launch_bounds__(S::NTHREAD, 1)
 attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
@@ -201,9 +227,9 @@ attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
             const uint32_t ks = smem_addr(k_s + slot * TILE + sub * KSUB * HD);
             const uint32_t vs = smem_addr(v_s + slot * TILE + sub * KSUB * HD);
             if (k0 + KSUB <= T)
-                key_block<false>(qa, ks, vs, k0, T, t4, oacc, m, l);
+                key_block<false, BF16L>(qa, ks, vs, k0, T, t4, oacc, m, l);
             else
-                key_block<true>(qa, ks, vs, k0, T, t4, oacc, m, l);
+                key_block<true, BF16L>(qa, ks, vs, k0, T, t4, oacc, m, l);
         }
         if (it + STAGES < nt) {        // uniform over the block
             __syncthreads();           // the slot is consumed by every thread
@@ -290,31 +316,25 @@ attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
     }
 }
 
-template <class S>
+template <class S, bool BF16L>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int T, int H,
            cudaStream_t stream) {
-    const cudaError_t err = cudaFuncSetAttribute(attention_kernel<S>,
+    const cudaError_t err = cudaFuncSetAttribute(attention_kernel<S, BF16L>,
                                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                  S::SMEM);
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid((T + S::BQ - 1) / S::BQ, B * H);
-    attention_kernel<S><<<grid, S::NTHREAD, S::SMEM, stream>>>(
+    attention_kernel<S, BF16L><<<grid, S::NTHREAD, S::SMEM, stream>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), T, H);
     return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-extern "C" const char* vitvs_error_string(int err) {
-    return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
-
-// q, k, v, o: (B, T, H, 64) bf16, contiguous.  split 1: 64-row blocks with
-// four key groups, 2: 128-row blocks with two, 0: 128-row blocks when they
-// fill the SMs, else 64-row ones.  Returns the first CUDA error.
-extern "C" int vitvs_attention_split_fwd(const void* q, const void* k, const void* v, void* o,
-                                         int B, int T, int H, int split, void* stream) {
+// split 1: 64-row blocks with four key groups, 2: 128-row blocks with two,
+// 0: 128-row blocks when they fill the SMs, else 64-row ones
+template <bool BF16L>
+int run(const void* q, const void* k, const void* v, void* o, int B, int T, int H, int split,
+        void* stream) {
     if (split == 0) {
         int dev = 0, sms = 0;
         cudaError_t err = cudaGetDevice(&dev);
@@ -324,12 +344,31 @@ extern "C" int vitvs_attention_split_fwd(const void* q, const void* k, const voi
         split = (long)((T + Wide::BQ - 1) / Wide::BQ) * B * H >= sms ? 2 : 1;
     }
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (split == 2) return launch<Wide>(q, k, v, o, B, T, H, st);
-    return launch<Narrow>(q, k, v, o, B, T, H, st);
+    if (split == 2) return launch<Wide, BF16L>(q, k, v, o, B, T, H, st);
+    return launch<Narrow, BF16L>(q, k, v, o, B, T, H, st);
+}
+
+}  // namespace
+
+extern "C" const char* vitvs_error_string(int err) {
+    return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// q, k, v, o: (B, T, H, 64) bf16, contiguous; split as run's.  Returns the
+// first CUDA error.
+extern "C" int vitvs_attention_split_fwd(const void* q, const void* k, const void* v, void* o,
+                                         int B, int T, int H, int split, void* stream) {
+    return run<false>(q, k, v, o, B, T, H, split, stream);
 }
 
 // the split that fills the card (split 0)
 extern "C" int vitvs_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    int B, int T, int H, void* stream) {
-    return vitvs_attention_split_fwd(q, k, v, o, B, T, H, 0, stream);
+    return run<false>(q, k, v, o, B, T, H, 0, stream);
+}
+
+// the bf16-logits variant, at the split that fills the card
+extern "C" int vitvs_attention_bf16l_fwd(const void* q, const void* k, const void* v, void* o,
+                                         int B, int T, int H, void* stream) {
+    return run<true>(q, k, v, o, B, T, H, 0, stream);
 }

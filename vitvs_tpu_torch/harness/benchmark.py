@@ -269,13 +269,15 @@ def run_benchmark(
 
     ``mesh`` (``parallel.make_mesh``): ``chunk`` is rounded to a multiple of
     dp, each chunk's episodes split into dp consecutive shares run on their
-    rows' devices (the ViT split over each row's tp devices when tp > 1; the
-    int8 serving ViT takes dp only), the goal descriptors computed on row
-    0 and copied to every row; the results gathered in episode order.  Each
-    episode's generators live on its row's device and are seeded from its
-    absolute index, so a dp-only mesh gives the one-device results (bit for
-    bit on the CPU); tp sums partial products in another order (float
-    tolerance).
+    rows' devices (the ViT split over each row's tp devices when tp > 1,
+    the int8 serving ViT too, quantized and calibrated unsplit first), the
+    goal descriptors computed on row 0 and copied to every row; the results
+    gathered in episode order.  Each episode's generators live on its row's
+    device and are seeded from its absolute index, so a dp-only mesh gives
+    the one-device results (bit for bit on the CPU); the float ViT's tp
+    split sums partial products in another order (float tolerance), the
+    int8 ViT's sums int32 accumulators (the one-device results, bit for bit
+    on the CPU).
 
     ``live_dir``: every ``live_every`` rollout segments (counted over the
     run) the first episode of the current chunk is snapshotted

@@ -95,7 +95,8 @@ class ServoModel:
 
     @property
     def source_quantized_bins(self) -> bool:
-        return self.quantized and self.materialize_bins and self.fused_bin_quant
+        return (self.quantized and self.materialize_bins and self.fused_bin_quant
+                and not self.use_match_kernel)
 
     @staticmethod
     def create(cfg: VSConfig, compute_dtype: torch.dtype | None = None,

@@ -88,7 +88,8 @@ def main(argv=None):
                    help="shard rollout chunks over all devices (dp x tp mesh of every"
                         " visible card; with --device cpu, tp cells of the CPU)")
     p.add_argument("--tp", type=int, default=1,
-                   help="tensor-parallel degree for the ViT params (with --mesh)")
+                   help="tensor-parallel degree for the ViT params (with --mesh; the int8"
+                        " ViT of --int8 too)")
     p.add_argument("--int8", action="store_true",
                    help="serve the ViT on the int8 W8A8 path instead of bf16")
     p.add_argument("--live", default=None, metavar="DIR",

@@ -126,7 +126,9 @@ def find_correspondences(
     mode (else its plain version); it does not compose with int8 matching,
     which is an int8 matmul, as in the JAX package.
     use_match_kernel: the reference's flag: match in the TPU kernel's f32
-    arithmetic instead of its default (see the module docstring).
+    arithmetic instead of its default (see the module docstring); with int8
+    or :class:`QuantizedBinned` matching it raises ValueError, as the
+    reference's ``use_kernel`` does, given a ``sim_matrix`` or not.
     sim_matrix: the similarity to match on, (t, t) goal against frame, or
     (B, t, t) for a chunk; reduced by max / argmax (first index on ties),
     with no kernel (``use_kernel`` raises).
@@ -145,6 +147,11 @@ def find_correspondences(
         raise ValueError(f"{t} descriptors / scores {tuple(scores.shape)} "
                          f"do not fit the {gh}x{gw} grid")
     dev = rows.device
+    if use_match_kernel and (int8 or quantized):
+        # the reference's guard: its matcher kernel computes a float
+        # similarity, which an int8 serving configuration must not serve
+        raise ValueError("use_kernel does not compose with int8 matching - pick one "
+                         "(the int8 matmul is the serving path)")
     if sim_matrix is not None:
         if use_kernel:
             raise ValueError("use_kernel does not compose with a given sim_matrix: the matcher "

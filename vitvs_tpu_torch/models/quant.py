@@ -36,8 +36,18 @@ The 'attn' facet is the f32 softmax of the int8 qkv product's q and k.
 Dtype points follow the JAX package: activation scales are f32, the
 inverse scale is rounded to the activation dtype and ``round(x * inv)``
 runs in it (half to even); the embedding parameters are staged in the
-compute dtype; LayerNorm statistics stay f32, and so do the LayerNorm
-scales, which ``_cast_block`` passes with every other ``*_scale``.
+compute dtype; LayerNorm statistics stay f32 (unless ``ln_f32`` is False),
+and so do the LayerNorm scales, which ``_cast_block`` passes with every
+other ``*_scale``.  ``softmax_f32=False`` keeps the 'none' mode's softmax
+logits in the compute dtype (``models/vit.attention_core``); the other
+modes' logits round to it whatever the flag says, as in the reference.
+
+A W8A8 product is two steps: :func:`int8_product` (the activations
+quantized, dynamically per token or against a given scale, and the int32
+accumulator) and :func:`q_epilogue` (the dequantization, the weight scales
+and the bias).  A tensor-parallel split (``parallel/mesh.py``) sums the
+int32 accumulators of its shards and runs the epilogue once, which gives
+the unsplit product bit for bit.
 
 The weights live in a :class:`QuantViT` (buffers only; move it with
 ``.to(device)``, never ``.to(dtype)``, which would cast the f32 scales).
@@ -52,8 +62,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from vitvs_tpu_torch.models.vit import (FACETS, Block, ViT, ViTConfig, attention_core,
-                                        attention_probs, embed_tokens, ffn_activation, pool_kv,
-                                        pool_matrix, score_attention, softmax_attention)
+                                        attention_probs, embed_tokens, ffn_activation, layer_norm,
+                                        pool_kv, pool_matrix, score_attention, softmax_attention)
 from vitvs_tpu_torch.ops.attn_int8 import (INV127, _quant_th, fused_int8_attention,
                                            fused_int8_attention_plain)
 from vitvs_tpu_torch.ops.int_mm import int8_bmm, int8_matmul_nt
@@ -69,10 +79,19 @@ def _quantize_weight(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return q, scale.float()
 
 
-def _dyn_quant_act(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def act_amax(x: torch.Tensor) -> torch.Tensor:
+    """(B, T, D) -> (B, T, 1) f32 per-token |x| maxima, which the dynamic
+    activation scales come from."""
+    return x.abs().amax(-1, keepdim=True).float()
+
+
+def _dyn_quant_act(x: torch.Tensor, amax: torch.Tensor | None = None
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """(B, T, D) -> int8 values + (B, T, 1) f32 per-token scales (amax times
-    f32(1/127), as the jitted reference computes them)."""
-    amax = x.abs().amax(-1, keepdim=True).float()
+    f32(1/127), as the jitted reference computes them); ``amax`` given: the
+    scales of those maxima (a row's whole, whose columns ``x`` is a slice of)."""
+    if amax is None:
+        amax = act_amax(x)
     scale = torch.clamp(amax, min=1e-12) * INV127
     inv = (1.0 / scale).to(x.dtype)
     return torch.clamp(torch.round(x * inv), -127, 127).to(torch.int8), scale
@@ -87,6 +106,35 @@ def static_quant_act(x: torch.Tensor, act_scale: torch.Tensor) -> tuple[torch.Te
     return torch.clamp(torch.round(x * inv), -127, 127).to(torch.int8), x_scale
 
 
+def int8_product(x: torch.Tensor, w_q: torch.Tensor, act_scale: torch.Tensor | None = None,
+                 amax: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The int8 step of a W8A8 product: x (B, T, D) quantized and times
+    w_q^T, w_q (E, D) int8 -> the int32 accumulator (B, T, E) and the f32
+    activation scale, (B, T, 1) or (1, 1, 1).
+
+    act_scale None -> per-token dynamic scales, of x's own maxima or of
+    ``amax`` (:func:`act_amax` of the row x is a column slice of); a ()
+    tensor -> a calibrated static per-tensor scale."""
+    if act_scale is None:
+        x_q, x_scale = _dyn_quant_act(x, amax)
+    else:
+        x_q, x_scale = static_quant_act(x, act_scale)
+    B, T, D = x.shape
+    return int8_matmul_nt(x_q.reshape(B * T, D), w_q).reshape(B, T, -1), x_scale
+
+
+def q_epilogue(acc: torch.Tensor, x_scale: torch.Tensor, w_scale: torch.Tensor,
+               bias: torch.Tensor | None, out_dtype) -> torch.Tensor:
+    """The dequantization of an int32 accumulator (B, T, E): times the
+    activation scale, then the weights' per-column scales and the bias."""
+    out = acc.float() * x_scale                                 # (B,T,E)*(B,T,1)
+    if bias is None:
+        return (out * w_scale).to(out_dtype)
+    # one rounding for "* w_scale + bias", as XLA contracts the reference's
+    # epilogue into an FMA under jit
+    return torch.addcmul(bias.float(), out, w_scale).to(out_dtype)
+
+
 def _q_matmul(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
               bias: torch.Tensor | None, out_dtype,
               act_scale: torch.Tensor | None = None) -> torch.Tensor:
@@ -94,18 +142,7 @@ def _q_matmul(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
 
     act_scale None -> per-token dynamic activation scales; a () tensor -> a
     calibrated static per-tensor scale."""
-    if act_scale is None:
-        x_q, x_scale = _dyn_quant_act(x)
-    else:
-        x_q, x_scale = static_quant_act(x, act_scale)
-    B, T, D = x.shape
-    acc = int8_matmul_nt(x_q.reshape(B * T, D), w_q).reshape(B, T, -1)
-    out = acc.float() * x_scale                                 # (B,T,E)*(B,T,1)
-    if bias is None:
-        return (out * w_scale).to(out_dtype)
-    # one rounding for "* w_scale + bias", as XLA contracts the reference's
-    # epilogue into an FMA under jit
-    return torch.addcmul(bias.float(), out, w_scale).to(out_dtype)
+    return q_epilogue(*int8_product(x, w_q, act_scale), w_scale, bias, out_dtype)
 
 
 class QuantLinear(nn.Module):
@@ -130,12 +167,6 @@ def _cast_block(bp: dict[str, torch.Tensor], compute_dtype) -> dict[str, torch.T
             for k, v in bp.items()}
 
 
-def _layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-               eps: float) -> torch.Tensor:
-    """LayerNorm with f32 statistics, the affine in f32, result in x's dtype."""
-    return F.layer_norm(x.float(), x.shape[-1:], scale.float(), bias.float(), eps).to(x.dtype)
-
-
 class QuantBlock(nn.Module):
     """One pre-norm block with int8 projections; the LayerNorms carry the
     SmoothQuant fold when the scales are static."""
@@ -155,11 +186,18 @@ class QuantBlock(nn.Module):
     def act(self, i: int) -> torch.Tensor | None:
         return None if self.act_scales is None else self.act_scales[i]
 
-    def norm1(self, x: torch.Tensor) -> torch.Tensor:
-        return _layernorm(x, self.norm1_scale, self.norm1_bias, self.eps)
+    def norm1(self, x: torch.Tensor, f32: bool) -> torch.Tensor:
+        return layer_norm(x, self.norm1_scale, self.norm1_bias, self.eps, f32)
 
-    def norm2(self, x: torch.Tensor) -> torch.Tensor:
-        return _layernorm(x, self.norm2_scale, self.norm2_bias, self.eps)
+    def norm2(self, x: torch.Tensor, f32: bool) -> torch.Tensor:
+        return layer_norm(x, self.norm2_scale, self.norm2_bias, self.eps, f32)
+
+    def qkv_heads(self, x: torch.Tensor, cfg: ViTConfig) -> torch.Tensor:
+        """The int8 qkv projection of the block's normed input x (B, T, D)
+        -> (3, B, h, T, hd): the facets' recompute."""
+        B, T, _ = x.shape
+        qkv = self.qkv(self.norm1(x, cfg.ln_f32), self.act(0))
+        return qkv.reshape(B, T, 3, cfg.num_heads, cfg.head_dim).permute(2, 0, 3, 1, 4)
 
 
 class QuantViT(nn.Module):
@@ -205,7 +243,11 @@ def _nomax_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The no-max modes of the JAX ``_attn_qkv``: q (B, T, h, hd) against
     (possibly pooled) k, v (B, Tk, h, hd) -> (B, T, h * hd) in q's dtype.
     Exp is taken of the logits clamped at ``nomax_clamp`` (no row max); the
-    denominator sums in f32, floored at 1e-30, and divides the P.V output.
+    denominator sums in f64, rounded to f32 and floored at 1e-30, and
+    divides the P.V output (the reference sums in f32: a row's terms span up
+    to 2^43 and the card's f32 sum order changes with the number of rows, so
+    that a tensor-parallel shard's heads would sum otherwise than the
+    whole's; in f64 the order almost never reaches the f32 result).
     'nomax': f32 logits scaled by hd^-0.5, exp(min(l, c) - c); 'nomax2':
     hd^-0.5 folded into Q, exp(min(l, c)) in f32; 'nomax3': hd^-0.5 log2(e)
     folded into Q (rounded to q's dtype), logits and exp2(min(l, c log2(e)))
@@ -225,7 +267,7 @@ def _nomax_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         e = torch.exp(torch.clamp(logits.float(), max=clamp))
     else:
         e = torch.exp(torch.clamp(logits.float() * scale, max=clamp) - clamp)
-    denom = torch.clamp(e.sum(-1, dtype=torch.float32), min=1e-30)       # (B, h, T)
+    denom = torch.clamp(e.sum(-1, dtype=torch.float64).float(), min=1e-30)   # (B, h, T)
     pv = torch.einsum("bhqk,bkhd->bqhd", e.to(dt), v)
     return (pv.float() / denom.transpose(1, 2)[..., None]).to(dt).reshape(B, T, h * hd)
 
@@ -301,42 +343,56 @@ def _attn_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg: ViTConfig,
     if mode in INT8_PROB_MODES:
         return _int8_prob_attention(q, k, v, cfg)
     if cfg.kv_pool > 1:
-        return softmax_attention(q, k, v)
-    return attention_core(q, k, v, use_kernels, cfg.attn_impl).reshape(B, T, h * hd)
+        return softmax_attention(q, k, v, cfg.softmax_f32)
+    return attention_core(q, k, v, use_kernels, cfg.attn_impl,
+                          cfg.softmax_f32).reshape(B, T, h * hd)
 
 
-def _block_q(x: torch.Tensor, blk: QuantBlock, cfg: ViTConfig,
-             use_kernels: bool) -> torch.Tensor:
-    """Pre-norm block with int8 projections (mirrors the JAX ``_block_q``)."""
-    B, T, D = x.shape
-    h, hd = cfg.num_heads, cfg.head_dim
+def quant_attention(x_norm: torch.Tensor, qkv: QuantLinear, act_scale: torch.Tensor | None,
+                    cfg: ViTConfig, heads: int, use_kernels: bool) -> torch.Tensor:
+    """The attention of ``heads`` heads before the output projection: (B, T,
+    D) normed tokens -> (B, T, heads * hd), through the int8 product ``qkv``
+    whose output is [q | k | v] of those heads (a block's all, or one tensor
+    -parallel shard's).  With kv_pool_where='pre' its Q columns run on
+    every token and its K/V columns on the pooled ones; 'fused' reads q, k
+    and v as column slices of its output."""
     if cfg.quant_attn == "fused" and (cfg.attn_score != "softmax" or cfg.kv_pool > 1):
         raise ValueError("quant_attn='fused' (ops/attn_int8.py) does not compose with "
                          "attn_score/kv_pool redesigns")
-    x_norm = blk.norm1(x)
+    B, T, _ = x_norm.shape
+    hd = cfg.head_dim
+    n = heads * hd
     if cfg.kv_pool > 1 and cfg.kv_pool_where == "pre":
         # the K/V columns of the int8 qkv product run on the pooled tokens,
         # their per-column weight scales sliced with them and the static qkv
         # activation scale shared (pooled means stay within the calibrated amax)
-        lin = blk.qkv
         xp = torch.einsum("ot,btd->bod", pool_matrix(T, cfg.kv_pool, x_norm), x_norm)
-        q = _q_matmul(x_norm, lin.weight[:D], lin.scale[:D], lin.bias[:D], x.dtype, blk.act(0))
-        kv = _q_matmul(xp, lin.weight[D:], lin.scale[D:], lin.bias[D:], x.dtype, blk.act(0))
-        kv = kv.reshape(B, -1, 2, h, hd)
-        attn = _attn_qkv(q.reshape(B, T, h, hd), kv[:, :, 0], kv[:, :, 1], cfg, use_kernels)
-    else:
-        qkv = blk.qkv(x_norm, blk.act(0))
-        if cfg.quant_attn == "fused":
-            # q, k, v stay column slices of the qkv output, no head transpose
-            fn = fused_int8_attention if use_kernels else fused_int8_attention_plain
-            attn = fn(qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:], heads=h)
-        else:
-            q, k, v = qkv.reshape(B, T, 3, h, hd).permute(2, 0, 1, 3, 4).contiguous().unbind(0)
-            k = pool_kv(k, cfg.kv_pool, cfg.kv_pool_impl)
-            v = pool_kv(v, cfg.kv_pool, cfg.kv_pool_impl)
-            attn = _attn_qkv(q, k, v, cfg, use_kernels)
+        q = _q_matmul(x_norm, qkv.weight[:n], qkv.scale[:n], qkv.bias[:n], x_norm.dtype,
+                      act_scale)
+        kv = _q_matmul(xp, qkv.weight[n:], qkv.scale[n:], qkv.bias[n:], x_norm.dtype, act_scale)
+        kv = kv.reshape(B, -1, 2, heads, hd)
+        return _attn_qkv(q.reshape(B, T, heads, hd), kv[:, :, 0], kv[:, :, 1], cfg, use_kernels)
+    out = qkv(x_norm, act_scale)
+    if cfg.quant_attn == "fused":
+        # q, k, v stay column slices of the qkv output, no head transpose
+        fn = fused_int8_attention if use_kernels else fused_int8_attention_plain
+        return fn(out[..., :n], out[..., n:2 * n], out[..., 2 * n:], heads=heads)
+    q, k, v = out.reshape(B, T, 3, heads, hd).permute(2, 0, 1, 3, 4).contiguous().unbind(0)
+    k = pool_kv(k, cfg.kv_pool, cfg.kv_pool_impl)
+    v = pool_kv(v, cfg.kv_pool, cfg.kv_pool_impl)
+    return _attn_qkv(q, k, v, cfg, use_kernels)
+
+
+def _block_q(x: torch.Tensor, blk: QuantBlock, cfg: ViTConfig,
+             use_kernels: bool) -> torch.Tensor:
+    """Pre-norm block with int8 projections (mirrors the JAX ``_block_q``);
+    a tensor-parallel split of the block runs its own forward."""
+    if not isinstance(blk, QuantBlock):
+        return blk(x, cfg, use_kernels)
+    attn = quant_attention(blk.norm1(x, cfg.ln_f32), blk.qkv, blk.act(0), cfg, cfg.num_heads,
+                           use_kernels)
     x = x + blk.ls1 * blk.proj(attn.to(x.dtype), blk.act(2))
-    mid = ffn_activation(blk.fc1(blk.norm2(x), blk.act(1)), cfg)
+    mid = ffn_activation(blk.fc1(blk.norm2(x, cfg.ln_f32), blk.act(1)), cfg)
     return x + blk.ls2 * blk.fc2(mid, blk.act(3))
 
 
@@ -356,10 +412,7 @@ def vit_features_quant(qnet: QuantViT, images: torch.Tensor, layer: int = 11,
     if facet == "token":
         return x
     # recompute the int8 qkv projection of block `layer`
-    blk = qnet.blocks[layer]
-    B, T, _ = x.shape
-    qkv = blk.qkv(blk.norm1(x), blk.act(0))
-    qkv = qkv.reshape(B, T, 3, cfg.num_heads, cfg.head_dim).permute(2, 0, 3, 1, 4)
+    qkv = qnet.blocks[layer].qkv_heads(x, cfg)                       # (3, B, h, T, hd)
     if facet == "attn":
         return attention_probs(qkv[0], qkv[1])
     return qkv[("query", "key", "value").index(facet)]
@@ -405,11 +458,10 @@ def _collect_act_amax(net: ViT, cfg: ViTConfig, images: torch.Tensor, layer: int
     x = embed_tokens(cfg, images.to(dt), net.patch_embed.proj.weight.float(),
                      net.patch_embed.proj.bias.float(), net.cls_token.float(),
                      net.pos_embed.float()).to(dt)
-    D, h, hd = cfg.embed_dim, cfg.num_heads, cfg.head_dim
+    h, hd = cfg.num_heads, cfg.head_dim
     # the block's parameters are rounded to the compute dtype first, as JAX casts them
     lin = lambda mod, a: a @ mod.weight.to(dt).T + mod.bias.to(dt)
-    ln = lambda a, norm: F.layer_norm(a.float(), (D,), norm.weight.to(dt).float(),
-                                      norm.bias.to(dt).float(), norm.eps).to(dt)
+    ln = lambda a, norm: layer_norm(a, norm.weight.to(dt), norm.bias.to(dt), norm.eps, cfg.ln_f32)
     amax_c = lambda n: n.float().abs().amax(dim=(0, 1))
     amax_t = lambda n: n.float().abs().amax()
     out = ([], [], [], [])

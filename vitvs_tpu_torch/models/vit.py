@@ -4,7 +4,8 @@
 Covered: patch embedding (a reshape and one matmul when stride == patch
 and ``patch_embed_impl='reshape'``, a convolution otherwise), bicubic
 pos-embed resampling with the DINO "+0.1" scale fudge, pre-norm blocks with
-LayerScale, LayerNorm statistics in f32, the GELU MLP (exact or tanh) or
+LayerScale, LayerNorm statistics in f32 (or, ``ln_f32=False``, in the
+compute dtype), the GELU MLP (exact or tanh) or
 DINOv2-giant's fused SwiGLU FFN (``ffn``), softmax attention or the relu /
 sqrelu scores (``attn_score``), K/V pooling
 (``kv_pool``: the spatial keys and values mean-pooled
@@ -30,6 +31,14 @@ its plain version when ``use_kernels`` is off.  Pooled attention
 plain PyTorch whatever ``attn_impl`` says: the JAX package sends them to no
 Pallas kernel either.
 
+``softmax_f32=False`` keeps the softmax's logits in the compute dtype where
+the reference reads the flag, and nowhere else: its plain exact softmax
+('xla', and 'auto' off the TPU: on the card the exact kernel's bf16-logits
+variant for 'xla', :func:`attention_core`), pooled attention, and the relu /
+sqrelu scores' default score dtype.  'pallas' and 'fast' ignore it, as the
+reference's Pallas route does, and so does 'auto' on the card, the
+counterpart of the TPU's 'auto'.
+
 Training (``vitvs_tpu_torch/train``) runs ``vit_features`` with a
 ``compute_dtype``: the parameters stay f32 and each block runs on casts of
 them made inside the autograd graph, so the gradients land on the f32
@@ -53,8 +62,9 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from vitvs_tpu_torch.core.image import interpolate_bicubic_scale_factor
-from vitvs_tpu_torch.ops.attention import (mha_attention, mha_attention_fast_plain,
-                                           mha_attention_plain)
+from vitvs_tpu_torch.ops.attention import (bf16_logits_entry, mha_attention,
+                                           mha_attention_fast_plain, mha_attention_plain,
+                                           rounded)
 
 # 'xla', 'pallas' and 'auto' name the JAX package's exact-softmax paths; the
 # port runs them all as exact softmax.  'fast' is the no-max serving kernel.
@@ -111,6 +121,12 @@ class ViTConfig:
     # fused-SwiGLU width round8(int(embed_dim * mlp_ratio) * 2 / 3) for SwiGLU
     ffn: str = "mlp"
     ffn_hidden: int | None = None
+    # LayerNorm statistics in f32 (the parity default); False computes them in
+    # the compute dtype (scripts/port_measure.py --fast-math)
+    ln_f32: bool = True
+    # the exact softmax's logits in f32 (the parity default); False keeps them
+    # in the compute dtype where the reference reads the flag (module docstring)
+    softmax_f32: bool = True
 
     def __post_init__(self):
         if self.attn_impl not in ATTN_IMPLS:
@@ -127,6 +143,9 @@ class ViTConfig:
                 raise ValueError(f"{name} must be one of {allowed}, got {getattr(self, name)!r}")
         if self.kv_pool < 1:
             raise ValueError(f"kv_pool must be at least 1, got {self.kv_pool}")
+        for name in ("ln_f32", "softmax_f32"):
+            if not isinstance(getattr(self, name), bool):
+                raise ValueError(f"{name} must be a bool, got {getattr(self, name)!r}")
 
     @property
     def head_dim(self) -> int:
@@ -186,13 +205,28 @@ def make_config(model_name: str, stride: int | None = None) -> ViTConfig:
     return ViTConfig(model_name=model_name, stride=stride, **kw)
 
 
+def bf16_logits(q: torch.Tensor, attn_impl: str, softmax_f32: bool) -> bool:
+    """Whether the exact softmax of ``q`` takes bf16 logits: the reference
+    reads ``softmax_f32`` on its plain path only ('xla', and 'auto' off the
+    TPU: here 'auto' off the card), and bf16 is the only dtype whose logits
+    the flag changes."""
+    return (not softmax_f32 and q.dtype == torch.bfloat16
+            and (attn_impl == "xla" or (attn_impl == "auto" and q.device.type != "cuda")))
+
+
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   use_kernels: bool, attn_impl: str = "xla") -> torch.Tensor:
+                   use_kernels: bool, attn_impl: str = "xla",
+                   softmax_f32: bool = True) -> torch.Tensor:
     """The one attention dispatch point of the ViT, (B, T, h, hd) layout."""
     fast = attn_impl == "fast"
+    bf16l = bf16_logits(q, attn_impl, softmax_f32)
     if use_kernels:
-        return mha_attention(q, k, v, fast=fast)
-    return (mha_attention_fast_plain if fast else mha_attention_plain)(q, k, v)
+        return mha_attention(q, k, v, fast=fast, bf16_logits=bf16l)
+    if fast:
+        return mha_attention_fast_plain(q, k, v)
+    if bf16l:
+        bf16_logits_entry(q)                   # the kernel's refusals, on the plain path too
+    return mha_attention_plain(q, k, v, bf16_logits=bf16l)
 
 
 def _pool_grid_dims(T: int, pool: int) -> tuple[int, int]:
@@ -231,13 +265,19 @@ def pool_matrix(T: int, pool: int, like: torch.Tensor) -> torch.Tensor:
 def pool_kv(t: torch.Tensor, pool: int, impl: str = "window") -> torch.Tensor:
     """Mean-pool the spatial tokens of (B, 1 + g * g, h, hd) ``pool`` x
     ``pool`` over the patch grid, in t's dtype; the CLS token passes
-    through.  'matmul': one token-axis product with the pooling matrix;
-    'window': zero-pad, window sums, then times the windows' inverse counts."""
+    through.  'matmul': one token-axis product with the pooling matrix, in
+    f32 and rounded once to t's dtype, as the TPU's f32 accumulation rounds
+    it (the GEMM's algorithm, and so its order of sums, changes with the
+    width h * hd: at pool 2 the products and the sums of a window's four are
+    exact in f32, so a tensor-parallel shard's heads pool to the whole's
+    bits); 'window': zero-pad, window sums, then times the windows' inverse
+    counts."""
     if pool <= 1:
         return t
     B, T, h, hd = t.shape
     if impl == "matmul":
-        return torch.einsum("ot,bthd->bohd", pool_matrix(T, pool, t), t)
+        t32 = t.float()
+        return torch.einsum("ot,bthd->bohd", pool_matrix(T, pool, t32), t32).to(t.dtype)
     if impl != "window":
         raise ValueError(f"unknown kv_pool_impl {impl!r} (expected 'window' or 'matmul')")
     g, nw = _pool_grid_dims(T, pool)
@@ -254,14 +294,23 @@ def pool_kv(t: torch.Tensor, pool: int, impl: str = "window") -> torch.Tensor:
     return torch.cat([t[:, :1], pooled], dim=1)
 
 
-def softmax_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def softmax_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      softmax_f32: bool = True) -> torch.Tensor:
     """Exact softmax attention in plain PyTorch, the JAX package's XLA path:
     q (B, Tq, h, hd) against (possibly pooled) k, v (B, Tk, h, hd) -> (B, Tq,
     h * hd); logits in q's dtype, then softmax of the f32 logits times
-    hd^-0.5, probabilities rounded to q's dtype for P.V."""
+    hd^-0.5, probabilities rounded to q's dtype for P.V.  ``softmax_f32``
+    False: the softmax in q's dtype, as ``jax.nn.softmax`` computes it on
+    bf16 logits (the scale rounded to it; the max, exp(x - max), the sum
+    accumulated in f32 and the quotient each rounded to it)."""
     B, T, h, hd = q.shape
-    logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float()
-    probs = torch.softmax(logits * (1.0 / math.sqrt(hd)), dim=-1).to(q.dtype)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k)
+    if softmax_f32 or logits.dtype == torch.float32:
+        probs = torch.softmax(logits.float() * (1.0 / math.sqrt(hd)), dim=-1).to(q.dtype)
+    else:
+        x = logits * rounded(1.0 / math.sqrt(hd), logits.dtype)
+        e = torch.exp(x - x.amax(-1, keepdim=True))
+        probs = e / e.sum(-1, keepdim=True)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(B, T, h * hd)
 
 
@@ -298,10 +347,24 @@ def score_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg: ViTC
     return out.to(out_dtype).reshape(B, T, h * hd)
 
 
-def _layernorm(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
-    """LayerNorm with f32 statistics whatever the compute dtype."""
-    return F.layer_norm(x.float(), norm.normalized_shape, norm.weight.float(),
-                        norm.bias.float(), norm.eps).to(x.dtype)
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float,
+               f32: bool = True) -> torch.Tensor:
+    """LayerNorm of the last axis, result in x's dtype
+    (``vitvs_tpu/models/vit.py:_layernorm``): f32 statistics and affine, or
+    (``f32`` False) the mean, the centred square's mean, rsqrt, scale and
+    bias each in x's dtype (``F.layer_norm`` computes bf16 in f32)."""
+    if f32 or x.dtype == torch.float32:          # the same arithmetic in f32
+        return F.layer_norm(x.float(), x.shape[-1:], weight.float(), bias.float(),
+                            eps).to(x.dtype)
+    mean = x.mean(-1, keepdim=True)
+    var = torch.square(x - mean).mean(-1, keepdim=True)
+    y = (x - mean) * torch.rsqrt(var + eps)
+    return y * weight.to(x.dtype) + bias.to(x.dtype)
+
+
+def _layernorm(x: torch.Tensor, norm: nn.LayerNorm, f32: bool = True) -> torch.Tensor:
+    """``norm`` by :func:`layer_norm`: f32 statistics unless ``f32`` is False."""
+    return layer_norm(x, norm.weight, norm.bias, norm.eps, f32)
 
 
 class PatchEmbed(nn.Module):
@@ -353,10 +416,12 @@ def attend(cfg: ViTConfig, qkv: nn.Linear, heads: int, x_norm: torch.Tensor,
         k = pool_kv(k, cfg.kv_pool, cfg.kv_pool_impl)
         v = pool_kv(v, cfg.kv_pool, cfg.kv_pool_impl)
     if cfg.attn_score != "softmax":
-        return score_attention(q, k, v, cfg, x_norm.dtype, score_dtype=torch.float32)
+        score_dtype = torch.float32 if cfg.softmax_f32 else q.dtype
+        return score_attention(q, k, v, cfg, x_norm.dtype, score_dtype=score_dtype)
     if cfg.kv_pool > 1:
-        return softmax_attention(q, k, v)
-    return attention_core(q, k, v, use_kernels, cfg.attn_impl).reshape(B, T, heads * cfg.head_dim)
+        return softmax_attention(q, k, v, cfg.softmax_f32)
+    return attention_core(q, k, v, use_kernels, cfg.attn_impl,
+                          cfg.softmax_f32).reshape(B, T, heads * cfg.head_dim)
 
 
 class Attention(nn.Module):
@@ -436,13 +501,14 @@ class Block(nn.Module):
         """The block's output, or with ``facet`` ('query' | 'key' | 'value')
         that projection of its normed input, (B, h, T, hd), or ('attn') the
         softmax probabilities of its query and key, (B, h, T, T) f32."""
+        f32 = self.attn.cfg.ln_f32
         if facet is not None:
-            qkv = self.attn.qkv_heads(_layernorm(x, self.norm1)).transpose(2, 3)  # (3, B, h, T, hd)
-            if facet == "attn":
+            qkv = self.attn.qkv_heads(_layernorm(x, self.norm1, f32)).transpose(2, 3)
+            if facet == "attn":                                       # qkv (3, B, h, T, hd)
                 return attention_probs(qkv[0], qkv[1])
             return qkv[("query", "key", "value").index(facet)]
-        x = x + self.ls1.gamma * self.attn(_layernorm(x, self.norm1), use_kernels)
-        return x + self.ls2.gamma * self.mlp(_layernorm(x, self.norm2))
+        x = x + self.ls1.gamma * self.attn(_layernorm(x, self.norm1, f32), use_kernels)
+        return x + self.ls2.gamma * self.mlp(_layernorm(x, self.norm2, f32))
 
 
 class ViT(nn.Module):

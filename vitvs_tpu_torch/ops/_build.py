@@ -34,6 +34,7 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
 _SIGNATURES = {
     "vitvs_attention_fwd": ([_P, _P, _P, _P, _I, _I, _I, _P], _I),
     "vitvs_attention_split_fwd": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+    "vitvs_attention_bf16l_fwd": ([_P, _P, _P, _P, _I, _I, _I, _P], _I),
     "vitvs_attention_fast_fwd": ([_P, _P, _P, _P, _I, _I, _I, _P], _I),
     "vitvs_attn_int8_fwd": ([_P] * 4 + [_I] * 3 + [_L] * 6 + [_F, _P], _I),
     "vitvs_quant_th_probe": ([_P] * 3 + [_I, _I, _L, _F, _I, _P], _I),

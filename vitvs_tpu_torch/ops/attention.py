@@ -43,6 +43,16 @@ geometry the entry points launch with).  Bound at (1, 485, 1, 588) bf16
 (pixel14 @ 308): bytes, 4 x 570 KB in 0.68 us.  The no-max kernel and the
 int8 kernel take 64 only and refuse other widths (ValueError).
 
+``bf16_logits=True`` is the exact kernel's bf16-logits variant
+(:func:`mha_attention_bf16l`, its own entry point and launch count): the
+reference's softmax under ``ViTConfig.softmax_f32=False``, whose logits are
+the bf16 output of its einsum.  The kernel rounds the f32 scores to bf16,
+scales them in bf16 (by 0.125: exact) and rounds the unnormalized
+probabilities to bf16 before the row sums and P.V; the running max, the
+row sums and the output accumulator stay f32.  It takes bf16 inputs at head
+width 64 only: f32 inputs' logits are f32 already, and the any-width and
+no-max kernels have no such variant (ValueError, on any device).
+
 ``mha_attention`` launches a kernel for CUDA tensors (bf16: the exact
 kernel, f32: the f32 kernel, at head width 64; the any-width kernel at
 other widths; any other dtype raises) and takes the plain version only for
@@ -71,21 +81,38 @@ HD_MAX_GRID_Y = 65535  # B x H
 SMEM_LIMIT = 232_448  # dynamic shared memory a block may have on the H100
 
 
-def mha_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def mha_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        bf16_logits: bool = False) -> torch.Tensor:
     """softmax(q k^T * d^-0.5) v with f32 logits and softmax; the
-    probabilities are rounded to v's dtype before P.V, as on the TPU."""
+    probabilities are rounded to v's dtype before P.V, as on the TPU.
+
+    ``bf16_logits`` (the bf16-logits kernel's arithmetic): the f32 scores
+    rounded to bf16, times the scale rounded to bf16 in bf16, the
+    unnormalized probabilities exp(s - max) rounded to bf16, their f32 sums
+    dividing the f32 P.V."""
     scale = q.shape[-1] ** -0.5
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
-    probs = torch.softmax(logits, dim=-1).to(v.dtype)
-    out = torch.einsum("bhqk,bkhd->bqhd", probs.float(), v.float())
-    return out.to(q.dtype)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    if not bf16_logits:
+        probs = torch.softmax(logits * scale, dim=-1).to(v.dtype)
+        out = torch.einsum("bhqk,bkhd->bqhd", probs.float(), v.float())
+        return out.to(q.dtype)
+    s = (logits.to(torch.bfloat16) * rounded(scale, torch.bfloat16)).float()
+    e = torch.exp(s - s.amax(-1, keepdim=True)).to(torch.bfloat16).float()
+    out = torch.einsum("bhqk,bkhd->bqhd", e, v.float())
+    return (out / e.sum(-1).transpose(1, 2)[..., None]).to(q.dtype)
+
+
+def rounded(x: float, dtype: torch.dtype) -> float:
+    """``x`` rounded to ``dtype``, as JAX rounds a weakly typed scalar (a
+    Python number) that multiplies an array of that dtype."""
+    return torch.tensor(x, dtype=dtype).item()
 
 
 def _fast_scaled_q(q: torch.Tensor) -> torch.Tensor:
     """Q * (hd^-0.5 log2 e), the constant rounded to Q's dtype first and
     the product rounded to it, as JAX multiplies by a weakly typed scalar
     (a Python number: no device copy)."""
-    return q * torch.tensor(q.shape[-1] ** -0.5 * LOG2E, dtype=q.dtype).item()
+    return q * rounded(q.shape[-1] ** -0.5 * LOG2E, q.dtype)
 
 
 def mha_attention_fast_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -137,6 +164,23 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 EXACT_ENTRIES = {torch.bfloat16: "vitvs_attention_fwd", torch.float32: "vitvs_attention_f32_fwd"}
 HD_ENTRIES = {torch.bfloat16: "vitvs_attention_hd_fwd",
               torch.float32: "vitvs_attention_hd_f32_fwd"}
+# the exact kernel's bf16-logits variant (bf16, head width 64)
+BF16L_ENTRY = "vitvs_attention_bf16l_fwd"
+
+
+def bf16_logits_entry(q: torch.Tensor) -> str:
+    """The C entry point of the bf16-logits variant for ``q``, or a
+    ValueError, on any device: it takes bf16 (f32 inputs' logits are f32
+    already, as in the reference) at head width 64 (ROADMAP.md, "Not
+    queued": no variant of the any-width kernel)."""
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"bf16 logits (softmax_f32=False) take bf16 inputs, q is {q.dtype}: "
+                         f"f32 inputs' logits are f32 already")
+    if q.dim() != 4 or q.shape[-1] != HEAD_DIM:
+        raise ValueError(f"the bf16-logits attention takes head width {HEAD_DIM}, got "
+                         f"{tuple(q.shape)}: the any-width kernel has no bf16-logits variant "
+                         f"(ROADMAP.md, not queued)")
+    return BF16L_ENTRY
 
 
 def exact_entry(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
@@ -218,18 +262,24 @@ def _launch(entry: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def mha_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  fast: bool = False) -> torch.Tensor:
+                  fast: bool = False, bf16_logits: bool = False) -> torch.Tensor:
     """(B, T, h, d) -> (B, T, h, d) softmax attention, scale d^-0.5.
 
-    fast=True goes to :func:`mha_attention_fast`.  Otherwise CUDA tensors:
-    the exact kernel (bf16, d = 64, contiguous), the f32 kernel for f32
-    ones (:func:`mha_attention_f32`), the any-width kernel at d != 64
-    (:func:`mha_attention_hd`, :func:`mha_attention_hd_f32`), or an error;
-    CPU tensors: :func:`mha_attention_plain`.
+    fast=True goes to :func:`mha_attention_fast`, bf16_logits=True to
+    :func:`mha_attention_bf16l` (the two do not compose: ValueError).
+    Otherwise CUDA tensors: the exact kernel (bf16, d = 64, contiguous), the
+    f32 kernel for f32 ones (:func:`mha_attention_f32`), the any-width
+    kernel at d != 64 (:func:`mha_attention_hd`, :func:`mha_attention_hd_f32`),
+    or an error; CPU tensors: :func:`mha_attention_plain`.
     """
     _build.refuse_grad("mha_attention", q, k, v)
+    if fast and bf16_logits:
+        raise ValueError("the no-max kernel has no bf16-logits variant (attn_impl='fast' "
+                         "ignores softmax_f32, as the reference's Pallas route does)")
     if fast:
         return mha_attention_fast(q, k, v)
+    if bf16_logits:
+        return mha_attention_bf16l(q, k, v)
     if q.device.type == "cpu":
         return mha_attention_plain(q, k, v)
     entry = exact_entry(q, k, v)
@@ -240,6 +290,24 @@ def mha_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(q, k, v)
     out = _launch("vitvs_attention_fwd", q, k, v)
     mha_attention.launches += 1
+    return out
+
+
+def mha_attention_bf16l(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Exact attention with bf16 logits and probabilities (the reference's
+    softmax_f32=False), bf16, d = 64.
+
+    CUDA tensors: the exact kernel's bf16-logits variant, or an error; CPU
+    tensors: :func:`mha_attention_plain` with ``bf16_logits``.  Other dtypes
+    and widths raise on either (:func:`bf16_logits_entry`).
+    """
+    _build.refuse_grad("mha_attention_bf16l", q, k, v)
+    entry = bf16_logits_entry(q)
+    if q.device.type == "cpu":
+        return mha_attention_plain(q, k, v, bf16_logits=True)
+    _check(q, k, v)
+    out = _launch(entry, q, k, v)
+    mha_attention_bf16l.launches += 1
     return out
 
 
@@ -318,6 +386,7 @@ def mha_attention_fast(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tor
 
 
 mha_attention.launches = 0
+mha_attention_bf16l.launches = 0
 mha_attention_f32.launches = 0
 mha_attention_fast.launches = 0
 mha_attention_hd.launches = 0

@@ -21,6 +21,20 @@ arithmetic runs on any number of cards:
   LayerScale, the embedding and the final norm stay whole on the first
   device.  Every step of the split is an autograd operation (device copies
   and sums), so training runs on it too.
+* **tp, int8** (``TPQuantViT``): the int8 serving ViT (``models/quant.py``,
+  calibrated unsplit) split alike.  The qkv and fc1 products' rows go to
+  their shards with their per-column weight scales and biases, so a shard's
+  qkv output is [q | k | v] of its heads and runs attention over them in
+  every int8 mode ('fused': one kernel launch a shard on its column
+  slices).  The proj and fc2 products split by input columns: each shard
+  returns its int32 accumulator, the accumulators are summed in int32 on
+  the row's first device in shard order and the epilogue (activation and
+  weight scales, bias) runs once there, as GSPMD all-reduces the JAX
+  package's int32 ``dot_general``.  A dynamic per-token activation scale of
+  a split input comes from the whole row's maximum: the shards' (B, T, 1)
+  maxima meet on the first device (a max), which sends it back, and every
+  shard quantizes its columns against it.  Integer sums and maxima are
+  exact, so the split gives the unsplit int8 ViT's results bit for bit.
 
 Heads or FFN widths that ``tp`` does not divide raise ``ValueError``, as
 the JAX package's ``device_put`` does on its 8-device CPU mesh.
@@ -38,8 +52,10 @@ from torch import nn
 from vitvs_tpu_torch.control.ibvs import EmaState
 from vitvs_tpu_torch.harness.pipeline import ServoModel, StepResult, servo_step
 from vitvs_tpu_torch.harness.rollout import EpisodeResult, rollout_episode
-from vitvs_tpu_torch.models.vit import (Block, ViT, _layernorm, attend, attention_probs,
-                                        ffn_activation, qkv_heads)
+from vitvs_tpu_torch.models.quant import (QuantBlock, QuantLinear, QuantViT, act_amax,
+                                          int8_product, q_epilogue, quant_attention)
+from vitvs_tpu_torch.models.vit import (Block, ViT, ViTConfig, _layernorm, attend,
+                                        attention_probs, ffn_activation, qkv_heads)
 from vitvs_tpu_torch.sim.scene import Scene
 
 
@@ -93,7 +109,7 @@ def to_device(tree: Any, device) -> Any:
     if isinstance(tree, torch.Tensor):
         return tree.to(device)
     if isinstance(tree, nn.Module):
-        p = next(tree.parameters(), None)
+        p = next(tree.parameters(), next(tree.buffers(), None))
         if p is None or p.device == device:
             return tree
         return copy.deepcopy(tree).to(device)
@@ -184,7 +200,8 @@ class TPBlock(nn.Module):
     def forward(self, x: torch.Tensor, use_kernels: bool, facet: str | None = None) -> torch.Tensor:
         """:meth:`vitvs_tpu_torch.models.vit.Block.forward` on the split."""
         dev0 = x.device
-        xn = _layernorm(x, self.norm1)
+        f32 = self.shards[0].cfg.ln_f32
+        xn = _layernorm(x, self.norm1, f32)
         if facet is not None:
             qkv = torch.cat([sh.qkv_heads(xs).to(dev0) for sh, xs in self._scatter(xn)],
                             dim=3).transpose(2, 3)                    # (3, B, h, T, hd)
@@ -193,7 +210,7 @@ class TPBlock(nn.Module):
             return qkv[("query", "key", "value").index(facet)]
         attn = self._reduce([sh.attention(xs, use_kernels) for sh, xs in self._scatter(xn)], dev0)
         x = x + self.ls1.gamma * (attn + self.proj_bias)
-        xn = _layernorm(x, self.norm2)
+        xn = _layernorm(x, self.norm2, f32)
         ffn = self._reduce([sh.ffn(xs) for sh, xs in self._scatter(xn)], dev0)
         return x + self.ls2.gamma * (ffn + self.ffn_bias)
 
@@ -207,11 +224,8 @@ class TPViT(ViT):
 
     def __init__(self, net: ViT, devices: Sequence[torch.device]):
         nn.Module.__init__(self)      # not ViT.__init__, which would build whole blocks
-        cfg, tp = net.cfg, len(devices)
-        if cfg.num_heads % tp:
-            raise ValueError(f"{cfg.num_heads} heads are not divisible by tp={tp}")
-        if cfg.hidden_dim % tp:
-            raise ValueError(f"an FFN {cfg.hidden_dim} wide is not divisible by tp={tp}")
+        cfg = net.cfg
+        _check_tp(cfg, len(devices))
         dev0 = devices[0]
         self.cfg = cfg
         self.devices = tuple(devices)
@@ -255,19 +269,152 @@ class TPViT(ViT):
         return out
 
 
+def _check_tp(cfg: ViTConfig, tp: int) -> None:
+    if cfg.num_heads % tp:
+        raise ValueError(f"{cfg.num_heads} heads are not divisible by tp={tp}")
+    if cfg.hidden_dim % tp:
+        raise ValueError(f"an FFN {cfg.hidden_dim} wide is not divisible by tp={tp}")
+
+
+def _quant_rows(lin: QuantLinear, rows: torch.Tensor) -> QuantLinear:
+    """A QuantLinear of ``lin``'s output rows ``rows`` with their weight
+    scales and biases."""
+    return QuantLinear(lin.weight[rows].t(), lin.scale[rows], lin.bias[rows])
+
+
+class QuantBlockShard(nn.Module):
+    """Shard ``s`` of ``tp`` of an int8 block: the qkv product's rows of its
+    heads and the fc1 product's rows of its hidden slice (SwiGLU: that slice
+    of x1 and of x2, in that order), each with its weight scales and bias;
+    the proj and fc2 products' int8 columns for them (their scales and
+    biases stay with the whole block); the static activation scales whole."""
+
+    def __init__(self, blk: QuantBlock, cfg: ViTConfig, s: int, tp: int):
+        super().__init__()
+        self.heads = cfg.num_heads // tp
+        D, n = cfg.embed_dim, cfg.num_heads // tp * cfg.head_dim
+        self.qkv = _quant_rows(blk.qkv, torch.cat([torch.arange(c * D + s * n, c * D + (s + 1) * n)
+                                                   for c in range(3)]))
+        H = cfg.hidden_dim
+        m = H // tp
+        hid = torch.arange(s * m, (s + 1) * m)
+        if cfg.ffn == "swiglu":
+            hid = torch.cat([hid, hid + H])
+        self.fc1 = _quant_rows(blk.fc1, hid)
+        self.register_buffer("proj_weight", blk.proj.weight[:, s * n:(s + 1) * n].contiguous())
+        self.register_buffer("fc2_weight", blk.fc2.weight[:, s * m:(s + 1) * m].contiguous())
+        self.register_buffer("act_scales", None if blk.act_scales is None
+                             else blk.act_scales.clone())
+
+    act = QuantBlock.act
+
+    def attention(self, x_norm: torch.Tensor, cfg: ViTConfig, use_kernels: bool) -> torch.Tensor:
+        """This shard's heads' attention, (B, T, heads * hd)."""
+        return quant_attention(x_norm, self.qkv, self.act(0), cfg, self.heads, use_kernels)
+
+    def ffn_hidden(self, x_norm: torch.Tensor, cfg: ViTConfig) -> torch.Tensor:
+        """This shard's slice of the FFN's activation (the fc2 input)."""
+        return ffn_activation(self.fc1(x_norm, self.act(1)), cfg)
+
+
+class TPQuantBlock(nn.Module):
+    """An int8 block split over ``devices`` (one :class:`QuantBlockShard`
+    each); the norms, LayerScale and the proj and fc2 epilogues (weight
+    scales, biases) on the first."""
+
+    def __init__(self, blk: QuantBlock, cfg: ViTConfig, devices: Sequence[torch.device]):
+        super().__init__()
+        dev0, tp = devices[0], len(devices)
+        self.eps = blk.eps
+        for name in ("norm1_scale", "norm1_bias", "norm2_scale", "norm2_bias", "ls1", "ls2",
+                     "act_scales"):
+            t = getattr(blk, name)
+            self.register_buffer(name, None if t is None else t.clone().to(dev0))
+        for name in ("proj", "fc2"):
+            lin = getattr(blk, name)
+            self.register_buffer(name + "_scale", lin.scale.clone().to(dev0))
+            self.register_buffer(name + "_bias", lin.bias.clone().to(dev0))
+        self.shards = nn.ModuleList(QuantBlockShard(blk, cfg, s, tp).to(d)
+                                    for s, d in enumerate(devices))
+
+    act, norm1, norm2 = QuantBlock.act, QuantBlock.norm1, QuantBlock.norm2
+
+    def _scatter(self, x: torch.Tensor):
+        return [(sh, x.to(sh.proj_weight.device)) for sh in self.shards]
+
+    def _product(self, parts: list[torch.Tensor], name: str, i: int,
+                 out_dtype: torch.dtype) -> torch.Tensor:
+        """The int8 product ``name`` ('proj' or 'fc2', activation scale
+        ``i``) of the input whose columns ``parts`` hold, shard by shard: the
+        shards' int32 accumulators summed on the first device in shard order,
+        then the epilogue once."""
+        dev0 = self.ls1.device
+        amax = None
+        if self.act(i) is None:          # the whole row's maxima, for every shard
+            for p in parts:
+                a = act_amax(p).to(dev0)
+                amax = a if amax is None else torch.maximum(amax, a)
+        acc = x_scale = None
+        for sh, p in zip(self.shards, parts):
+            a, sc = int8_product(p, getattr(sh, name + "_weight"), sh.act(i),
+                                 None if amax is None else amax.to(p.device))
+            acc = a.to(dev0) if acc is None else acc + a.to(dev0)
+            x_scale = sc.to(dev0) if x_scale is None else x_scale
+        return q_epilogue(acc, x_scale, getattr(self, name + "_scale"),
+                          getattr(self, name + "_bias"), out_dtype)
+
+    def forward(self, x: torch.Tensor, cfg: ViTConfig, use_kernels: bool) -> torch.Tensor:
+        """:func:`vitvs_tpu_torch.models.quant._block_q` on the split."""
+        attn = [sh.attention(xs, cfg, use_kernels).to(x.dtype)
+                for sh, xs in self._scatter(self.norm1(x, cfg.ln_f32))]
+        x = x + self.ls1 * self._product(attn, "proj", 2, x.dtype)
+        mid = [sh.ffn_hidden(xs, cfg) for sh, xs in self._scatter(self.norm2(x, cfg.ln_f32))]
+        return x + self.ls2 * self._product(mid, "fc2", 3, x.dtype)
+
+    def qkv_heads(self, x: torch.Tensor, cfg: ViTConfig) -> torch.Tensor:
+        """The shards' int8 qkv projections of the normed x (B, T, D),
+        gathered on the first device -> (3, B, h, T, hd)."""
+        B, T, _ = x.shape
+        parts = [sh.qkv(xs, sh.act(0)).to(x.device).reshape(B, T, 3, sh.heads, cfg.head_dim)
+                 for sh, xs in self._scatter(self.norm1(x, cfg.ln_f32))]
+        return torch.cat(parts, dim=3).permute(2, 0, 3, 1, 4)
+
+
+class TPQuantViT(QuantViT):
+    """An int8 serving ViT whose blocks are split over ``devices``
+    (:class:`TPQuantBlock`); the embedding whole on the first device.  It
+    is a QuantViT: ``vit_features_quant`` (every facet), the servo step and
+    the benchmark take it as they take the unsplit one.  Calibrate the
+    unsplit float ViT, quantize it, then split."""
+
+    def __init__(self, qnet: QuantViT, devices: Sequence[torch.device]):
+        nn.Module.__init__(self)      # not QuantViT.__init__, which would build whole blocks
+        cfg = qnet.cfg
+        _check_tp(cfg, len(devices))
+        dev0 = devices[0]
+        self.cfg = cfg
+        self.devices = tuple(devices)
+        for name in ("patch_weight", "patch_bias", "cls_token", "pos_embed"):
+            self.register_buffer(name, getattr(qnet, name).clone().to(dev0))
+        self.blocks = nn.ModuleList(TPQuantBlock(b, cfg, devices) for b in qnet.blocks)
+
+
 def _row_net(net, devices: tuple[torch.device, ...]):
     if len(devices) == 1:
         return to_device(net, devices[0])
-    if not isinstance(net, ViT) or isinstance(net, TPViT):
-        raise ValueError(f"tp > 1 splits a float ViT; got {type(net).__name__} (the int8 "
-                         f"serving ViT runs under a dp-only mesh)")
+    if isinstance(net, (TPViT, TPQuantViT)):
+        raise ValueError(f"{type(net).__name__} is split already: split the unsplit ViT")
+    if isinstance(net, QuantViT):
+        return TPQuantViT(net, devices)
+    if not isinstance(net, ViT):
+        raise ValueError(f"tp > 1 splits a ViT or an int8 QuantViT; got {type(net).__name__}")
     return TPViT(net, devices)
 
 
 def shard_vit_params(net, mesh: Mesh) -> list:
     """The net of each dp row: split over the row's devices in the Megatron
-    layout (:class:`TPViT`) when tp > 1, else a copy on the row's device
-    (rows on the same devices share one)."""
+    layout when tp > 1 (:class:`TPViT`, the int8 :class:`TPQuantViT`), else
+    a copy on the row's device (rows on the same devices share one)."""
     made: dict[tuple[torch.device, ...], Any] = {}
     for row in mesh.devices:
         if row not in made:
